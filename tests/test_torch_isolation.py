@@ -1,0 +1,97 @@
+"""The port stands alone: it imports nothing of JAX or of ``repro``, runs with
+both blocked, and never falls back to the CPU when the GPU was asked for."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch import serve
+from repro_torch.configs import get_config
+from repro_torch.models import lm
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+BLOCK = ("import sys; sys.modules.update(dict.fromkeys(('jax', 'jaxlib', 'repro'))); "
+         "sys.argv = [{argv}]; import runpy; "
+         "runpy.run_module('repro_torch.serve', run_name='__main__', alter_sys=True)")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _banned(module):
+    return any(module == b or module.startswith(b + ".") for b in BANNED)
+
+
+def test_banned_match_is_exact():
+    assert _banned("repro") and _banned("repro.models.lm") and _banned("jax.numpy")
+    assert not _banned("repro_torch") and not _banned("repro_torch.models")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_repro(path):
+    bad = sorted(m for m in _imported_modules(path) if _banned(m))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+
+def test_serve_runs_with_jax_and_repro_blocked():
+    argv = "'repro_torch.serve', '--reduced', '--device', 'cpu'"
+    proc = subprocess.run([sys.executable, "-c", BLOCK.format(argv=argv)],
+                          capture_output=True, text=True, env=_env(), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("[serve] prefill 4x24 in ")
+    assert lines[1].startswith("[serve] decoded 16 tokens/seq x 4 seqs in ")
+    assert lines[2].startswith("[serve] sample: [")
+
+
+def test_serve_without_device_raises_when_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present, so the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced"])
+
+
+def test_entry_points_default_to_cuda_and_never_fall_back():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present, so the default device is valid")
+    cfg = get_config("qwen3-1.7b").reduced()
+    for call in (lambda: resolve_device(),
+                 lambda: lm.init_params(cfg, torch.Generator().manual_seed(0)),
+                 lambda: lm.init_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_away_from_the_checkout(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, str(lone)], capture_output=True, text=True,
+                          cwd=tmp_path, timeout=120,
+                          env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
