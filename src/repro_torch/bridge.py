@@ -14,12 +14,16 @@ from repro_torch import resolve_device
 
 
 def _to_tensor(a, device, dtype):
-    if not isinstance(a, np.ndarray) or a.dtype.kind not in "fiub":
-        raise TypeError("expected a numeric numpy array, got "
-                        f"{type(a).__name__} {getattr(a, 'dtype', '')}")
+    if not isinstance(a, np.ndarray):
+        raise TypeError(f"expected a numpy array, got {type(a).__name__}")
     # a copy: the caller's buffers may be read-only, and the port writes its
     # cache in place
-    t = torch.from_numpy(np.array(a))
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch cannot read
+        t = torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.kind in "fiub":
+        t = torch.from_numpy(np.array(a))
+    else:
+        raise TypeError(f"expected a numeric numpy array, got dtype {a.dtype}")
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
@@ -36,7 +40,8 @@ def _map(tree, fn):
 def params_from_numpy(tree, device="cuda", dtype=None):
     """A parameter tree of numpy arrays as tensors on ``device``.
 
-    Floating leaves are cast to ``dtype`` when it is given.
+    Each leaf keeps its dtype (bfloat16 included) unless ``dtype`` is given;
+    then every floating leaf is cast to it.
     """
     dev = resolve_device(device)
     return _map(tree, lambda a: _to_tensor(a, dev, dtype))

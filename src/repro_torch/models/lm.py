@@ -1,4 +1,4 @@
-"""LM assembly (``repro.models.lm`` twin) for the dense GQA decoder.
+"""LM assembly (``repro.models.lm`` twin) for the dense GQA decoder and RWKV6.
 
 Modes:
   train   — full-sequence forward, no cache
@@ -17,29 +17,53 @@ from repro_torch.types import ArchConfig
 
 from .attention import gqa_block
 from .layers import mlp_apply, rms_norm
+from .rwkv6 import rwkv_block
+from .schema import Param, leaf_dtype
 from .schema import abstract_params, init_params, model_schema  # noqa: F401  (re-exported)
 
 
 def cache_schema(cfg: ArchConfig, batch: int, max_len: int):
-    """Shapes of the stacked per-layer KV cache: {"k", "v"} of (L, B, S, KH, hd)."""
+    """The stacked per-layer cache as Params with a leading layer dim: the GQA
+    KV cache {"k", "v"} of (L, B, S, KH, hd), or the RWKV6 state {"s" of
+    (L, B, H, hd, hd), "x_tm", "x_cm" of (L, B, D)}, always f32."""
     kinds = cfg.layer_kinds()
-    if not cfg.uniform_blocks or kinds[0] not in ("attn", "attn_local") \
-            or cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"{cfg.name}: only the GQA cache is ported yet")
+    if not cfg.uniform_blocks:
+        raise NotImplementedError(f"{cfg.name}: mixed block kinds are not ported yet")
+    L = cfg.n_layers
+    if kinds[0] == "rwkv":
+        hd = cfg.rwkv_head_dim
+        h = cfg.d_model // hd
+        emb = Param((L, batch, cfg.d_model), ("layers", "batch", "embed"), "zeros",
+                    dtype="float32")
+        return {"s": Param((L, batch, h, hd, hd),
+                           ("layers", "batch", "heads", "head_dim", None), "zeros",
+                           dtype="float32"),
+                "x_tm": emb, "x_cm": emb}
+    if kinds[0] not in ("attn", "attn_local") or cfg.attn_kind != "gqa":
+        raise NotImplementedError(f"{cfg.name}: block kind {kinds[0]!r} with attn_kind "
+                                  f"{cfg.attn_kind!r} has no ported cache yet")
     S = min(cfg.local_window, max_len) if kinds[0] == "attn_local" else max_len
-    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": shape, "v": shape}
+    kv = Param((L, batch, S, cfg.n_kv_heads, cfg.head_dim),
+               ("layers", "batch", "kv_seq", "kv_heads", "head_dim"), "zeros")
+    return {"k": kv, "v": kv}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda"):
+    """A zero cache; ``dtype`` applies to the leaves the schema does not fix."""
     dev = resolve_device(device)
-    layers = {name: torch.zeros(shape, dtype=dtype, device=dev)
-              for name, shape in cache_schema(cfg, batch, max_len).items()}
+    layers = {name: torch.zeros(p.shape, dtype=leaf_dtype(p, dtype), device=dev)
+              for name, p in cache_schema(cfg, batch, max_len).items()}
     return {"pos": 0, "layers": layers}
 
 
 def _block_apply(kind, p, x, *, cfg, positions, mode, cache, pos):
+    if kind == "rwkv":
+        x, new_cache = rwkv_block(p, x, cfg=cfg, mode=mode, cache=cache)
+        if new_cache is not None:
+            for name, t in new_cache.items():  # into the layer's slice, in place
+                cache[name].copy_(t)
+        return x, new_cache
     if kind not in ("attn", "attn_local") or cfg.attn_kind != "gqa" or cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: block kind {kind!r} is not ported yet")
     window = cfg.local_window if kind == "attn_local" else None

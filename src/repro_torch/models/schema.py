@@ -6,7 +6,8 @@ by either package feeds the other.  Initialization follows the same
 distributions (``fan_in``, ``normal``, ``zeros``), drawn from a
 ``torch.Generator``; it does not give the JAX package's bits.
 
-This slice covers the dense GQA decoder; other block kinds raise.
+The port covers the dense GQA decoder and the RWKV6 block; other block
+kinds raise.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ class Param:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
     init: str = "fan_in"       # fan_in | normal | zeros
+    scale: float = 1.0
+    dtype: Optional[str] = None  # a fixed dtype (e.g. the f32 RWKV decay and bonus)
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -55,7 +58,38 @@ def _mlp_schema(cfg: ArchConfig):
     return s
 
 
+def _rwkv_schema(cfg: ArchConfig):
+    d = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    return {
+        "ln1": Param((d,), ("embed",), "zeros"),
+        "tm_mu_x": Param((d,), ("embed",), "zeros"),
+        "tm_mus": Param((5, d), (None, "embed"), "zeros"),
+        "tm_w1": Param((d, 5 * 32), ("embed", "lora")),
+        "tm_w2": Param((5, 32, d), (None, "lora", "embed"), scale=0.1),
+        "decay_base": Param((d,), ("embed",), "normal", dtype="float32"),
+        "decay_w1": Param((d, 64), ("embed", "lora")),
+        "decay_w2": Param((64, d), ("lora", "embed"), scale=0.1),
+        "u": Param((h, hd), ("heads", "head_dim"), "normal", dtype="float32"),
+        "wr": Param((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": Param((d, h, hd), ("embed", "heads", "head_dim")),
+        "wv": Param((d, h, hd), ("embed", "heads", "head_dim")),
+        "wg": Param((d, h, hd), ("embed", "heads", "head_dim")),
+        "wo": Param((h, hd, d), ("heads", "head_dim", "embed")),
+        "ln_x": Param((h, hd), ("heads", "head_dim"), "zeros"),
+        "ln2": Param((d,), ("embed",), "zeros"),
+        "cm_mu_k": Param((d,), ("embed",), "zeros"),
+        "cm_mu_r": Param((d,), ("embed",), "zeros"),
+        "cm_k": Param((d, cfg.d_ff), ("embed", "ffn")),
+        "cm_v": Param((cfg.d_ff, d), ("ffn", "embed")),
+        "cm_r": Param((d, d), ("embed", None)),
+    }
+
+
 def block_schema(cfg: ArchConfig, kind: str):
+    if kind == "rwkv":
+        return _rwkv_schema(cfg)
     if kind not in ("attn", "attn_local") or cfg.attn_kind != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: block kind {kind!r} with attn_kind {cfg.attn_kind!r} "
@@ -69,7 +103,7 @@ def block_schema(cfg: ArchConfig, kind: str):
 
 
 def _stack(schema, n):
-    return {k: Param((n,) + p.shape, ("layers",) + p.axes, p.init)
+    return {k: Param((n,) + p.shape, ("layers",) + p.axes, p.init, p.scale, p.dtype)
             for k, p in schema.items()}
 
 
@@ -110,13 +144,17 @@ def _build(schema, make):
 
 def _fan_in(p: Param) -> int:
     # contraction dims: (a, b) -> a; (D, h, d) in-projection -> D;
-    # (h, d, D) out-projection -> h*d
+    # (h, d, D) out-projection -> h*d; (f, k, D) stacked LoRA-up -> k
     sh, ax = p.shape, p.axes
     if ax and ax[0] == "layers":  # stacked: strip the leading layer dim
         sh, ax = sh[1:], ax[1:]
-    if len(sh) == 3 and ax[-1] == "embed" and ax[0] == "heads":
-        return sh[0] * sh[1]
+    if len(sh) == 3 and ax[-1] == "embed":
+        return sh[0] * sh[1] if ax[0] == "heads" else sh[1]
     return sh[0]
+
+
+def leaf_dtype(p: Param, default):
+    return getattr(torch, p.dtype) if p.dtype else default
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -128,11 +166,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     dev = resolve_device(device)
 
     def make(p: Param):
+        dt = leaf_dtype(p, dtype)
         if p.init == "zeros":
-            return torch.zeros(p.shape, dtype=dtype, device=dev)
+            return torch.zeros(p.shape, dtype=dt, device=dev)
         z = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=dev)
-        std = 1.0 if p.init == "normal" else 1.0 / (_fan_in(p) ** 0.5)
-        return (z * std).to(dtype)
+        std = p.scale if p.init == "normal" else p.scale / (_fan_in(p) ** 0.5)
+        return (z * std).to(dt)
 
     return _build(model_schema(cfg), make)
 
@@ -140,4 +179,4 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16):
     """The parameter tree as tensors on the ``meta`` device: shapes, no data."""
     return _build(model_schema(cfg),
-                  lambda p: torch.empty(p.shape, dtype=dtype, device="meta"))
+                  lambda p: torch.empty(p.shape, dtype=leaf_dtype(p, dtype), device="meta"))
