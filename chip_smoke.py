@@ -42,10 +42,11 @@ from repro_torch.models import attention, lm, rwkv6  # noqa: E402
 from repro_torch.serve import generate  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor-core rate, f32 rate outside
-# the tensor cores, and HBM3 bandwidth.
+# the tensor cores, HBM3 bandwidth, and the L2 cache's size.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # Tolerance on ||out - ref|| / ||ref||.  Kernel and plain version both compute
@@ -441,14 +442,32 @@ def phase_profile(params, cfg, prompts):
                     f"{e.self_device_time_total / 1e3 / e.count:.4f} ms a launch")
 
 
-def in_turns(fns):
+def device_ms(fn, iters) -> float:
+    """Device time a call: the profiler's device time over iters calls, summed
+    over every kernel and copy they launch, divided by iters.  Unlike time_ms
+    it leaves out the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy_us <= 0:
+        raise AssertionError("device_ms: the profiler saw no device activity")
+    return busy_us / 1e3 / iters
+
+
+def in_turns(fns, timer=time_ms):
     """Median of 4 runs of each (fn, iters), taken in turns: a b c, c b a, twice."""
     names = list(fns)
     times = {name: [] for name in names}
     for order in (names, names[::-1]) * 2:
         for name in order:
             fn, iters = fns[name]
-            times[name].append(time_ms(fn, iters))
+            times[name].append(timer(fn, iters))
     return {name: statistics.median(t) for name, t in times.items()}, times
 
 
@@ -476,25 +495,43 @@ def phase_timings():
 def phase_wkv_timings():
     """The WKV kernel and its plain version at the rwkv6-7b prefill and decode
     shapes, bf16, in turns.  No single PyTorch call computes the recurrence,
-    so there is no library time.  At the decode shape, back-to-back launches
-    are bound by the wrapper's host cost; the profile phase gives the
-    kernel's device time a launch on the served path."""
+    so there is no library time.  At the prefill shape, CUDA events around
+    back-to-back calls.  At the decode shape a launch takes microseconds and
+    back-to-back calls are bound by the wrapper's host cost, so ms and
+    plain_ms are device time a call (device_ms), and host_ms is the kernel's
+    time a call by CUDA events around back-to-back calls.  The decode calls
+    cycle through input sets whose states fill twice the L2 cache, so each
+    call reads its state from HBM, as a served decode step does."""
     out = {}
-    for what, case, iters in (("prefill", WKV_PREFILL_CASE, (10, 2)),
-                              ("decode", WKV_DECODE_CASE, (200, 5))):
-        args = wkv_inputs(case, torch.bfloat16, seed=321)
-        ms, times = in_turns({
-            "kernel": (lambda: wkv_kernel.rwkv6_wkv_fwd(*args), iters[0]),
-            "plain": (lambda: wkv_ref.rwkv6_reference(*args), iters[1]),
-        })
+    for what, case, iters, timer in (("prefill", WKV_PREFILL_CASE, (10, 2), time_ms),
+                                     ("decode", WKV_DECODE_CASE, (20, 1), device_ms)):
+        B, _, H, D = case[:4]
+        n_sets = 1 if timer is time_ms else -(-2 * L2_BYTES // (4 * B * H * D * D))
+        sets = [wkv_inputs(case, torch.bfloat16, seed=321 + i) for i in range(n_sets)]
+        fns = {"kernel": (lambda: [wkv_kernel.rwkv6_wkv_fwd(*a) for a in sets], iters[0]),
+               "plain": (lambda: [wkv_ref.rwkv6_reference(*a) for a in sets], iters[1])}
+
+        def per_call(timed):
+            ms, times = timed
+            return ({k: v / n_sets for k, v in ms.items()},
+                    {k: [t / n_sets for t in v] for k, v in times.items()})
+        ms, times = per_call(in_turns(fns, timer))
         bound_ms, bound_by, flops, nbytes, f32_ms = wkv_bound(case, torch.bfloat16)
+        clock = "CUDA events" if timer is time_ms else "device time"
         log(f"[timings] rwkv6_wkv_fwd {what} {case[:4]} bf16, s0 "
-            f"{'given' if case[4] else 'None'}, median of 4: kernel {ms['kernel']:.4f} ms; "
-            f"plain {ms['plain']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-            f"({flops:.3e} FLOP, {nbytes} bytes; the FLOPs at the f32 rate {f32_ms:.4f} ms)")
+            f"{'given' if case[4] else 'None'}, median of 4, {clock} a call over {n_sets} "
+            f"input set(s): kernel {ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, {nbytes} bytes; the FLOPs "
+            f"at the f32 rate {f32_ms:.4f} ms)")
         log(f"[timings] all runs (ms): {json.dumps(times)}")
         out[what] = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
                          bound_by=bound_by)
+        if timer is not time_ms:
+            host, host_times = per_call(in_turns({"kernel": fns["kernel"]}))
+            log(f"[timings] rwkv6_wkv_fwd {what}, CUDA events around back-to-back calls "
+                f"(host-bound), median of 4: {host['kernel']:.4f} ms a call; all runs (ms): "
+                f"{json.dumps(host_times)}")
+            out[what]["host_ms"] = host["kernel"]
     return out
 
 

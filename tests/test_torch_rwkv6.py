@@ -203,12 +203,20 @@ def _tokens(vocab, seed, n=S):
     return np.random.default_rng(seed).integers(0, vocab, (B, n)).astype(np.int32)
 
 
-def test_prefill_and_greedy_decode_match_jax(models):
-    """Prefill and 4 greedy decode steps: logits, tokens and the cache."""
-    jcfg, jparams, cfg, tparams = models
+@pytest.fixture(scope="module")
+def jax_prefill(models):
+    """One prompt batch and JAX's prefill of it, shared by the slice tests."""
+    jcfg, jparams, cfg, _ = models
     tokens = _tokens(cfg.vocab, seed=4)
     jcache = jax_lm.init_cache(jcfg, B, 64, jnp.float32)
     jlogits, jcache = jax_lm.prefill(jparams, jcfg, jcache, tokens=jnp.asarray(tokens))
+    return tokens, jlogits, jcache
+
+
+def test_prefill_and_greedy_decode_match_jax(models, jax_prefill):
+    """Prefill and 4 greedy decode steps: logits, tokens and the cache."""
+    jcfg, jparams, cfg, tparams = models
+    tokens, jlogits, jcache = jax_prefill
     cache = lm.init_cache(cfg, B, 64, torch.float32, "cpu")
     logits, cache = lm.prefill(tparams, cfg, cache, tokens=torch.from_numpy(tokens).long())
     assert logits.dtype == torch.float32 and logits.shape == (B, cfg.padded_vocab)
@@ -234,18 +242,17 @@ def test_prefill_and_greedy_decode_match_jax(models):
         _close(cache["layers"][name], jcache["layers"][name], TOL)
 
 
-def test_decode_from_bridged_cache_matches_jax(models):
+def test_decode_from_bridged_cache_matches_jax(models, jax_prefill):
     """A cache the JAX package filled, carried over by cache_from_numpy."""
     jcfg, jparams, cfg, tparams = models
-    tokens = _tokens(cfg.vocab, seed=5)
-    jcache = jax_lm.init_cache(jcfg, B, 32, jnp.float32)
-    _, jcache = jax_lm.prefill(jparams, jcfg, jcache, tokens=jnp.asarray(tokens[:, :-1]))
+    _, jlogits, jcache = jax_prefill
     cache = bridge.cache_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
-    assert cache["pos"] == S - 1
-    jlogits, jcache = jax_lm.decode_step(jparams, jcfg, jcache, jnp.asarray(tokens[:, -1:]))
-    logits, cache = lm.decode_step(tparams, cfg, cache, torch.from_numpy(tokens[:, -1:]).long())
-    _close(logits, jlogits, TOL)
     assert cache["pos"] == S
+    nxt = np.asarray(jnp.argmax(jlogits, -1))[:, None].astype(np.int32)
+    jlogits, jcache = jax_lm.decode_step(jparams, jcfg, jcache, jnp.asarray(nxt))
+    logits, cache = lm.decode_step(tparams, cfg, cache, torch.from_numpy(nxt).long())
+    _close(logits, jlogits, TOL)
+    assert cache["pos"] == S + 1
     _close(cache["layers"]["s"], jcache["layers"]["s"], TOL)
 
 
