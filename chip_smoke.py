@@ -5,10 +5,10 @@
 
 Builds every CUDA kernel of the port from this checkout's sources, holds
 each against its plain PyTorch version on the card, serves qwen3-1.7b (28
-layers) and rwkv6-7b (32 layers) at their full published widths (bf16,
-random weights from a seed) through the port's entry point, checks that
-each serve went through its kernels, and times each kernel beside its
-bound.  Any failure raises, so the exit code is
+layers), rwkv6-7b (32 layers) and recurrentgemma-2b (26 layers) at their
+full published widths (bf16, random weights from a seed) through the
+port's entry point, checks that each serve went through its kernels, and
+times each kernel beside its bound.  Any failure raises, so the exit code is
 not 0.  With no CUDA device, or away from the checkout, it exits non-zero
 and prints no result.  It imports nothing of JAX and nothing of ``repro``.
 
@@ -17,6 +17,7 @@ Standard output ends with a ``{"kernels": [...]}`` line and then the line
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -36,9 +37,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.build import ptxas_summary  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan import kernel as scan_kernel  # noqa: E402
+from repro_torch.kernels.rglru_scan import ref as scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
-from repro_torch.models import attention, lm, rwkv6  # noqa: E402
+from repro_torch.models import attention, lm, rglru, rwkv6  # noqa: E402
 from repro_torch.serve import generate  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor-core rate, f32 rate outside
@@ -54,8 +57,9 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # at most one bf16 ulp, under 2**-7 of its value.
 REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2**-7}
 # (B, Sq, Sk, H, KH, Dk, Dv, causal, window, q_offset, kv_len): the six CASES
-# of tests/test_kernels_attention.py, Dk 96 / Dv 64, kv_len < Sk, head dim 256
-# and the qwen3-1.7b prefill shape.
+# of tests/test_kernels_attention.py, Dk 96 / Dv 64, kv_len < Sk, head dim
+# 256, the qwen3-1.7b prefill shape and the recurrentgemma-2b one (8 x 4096
+# tokens, 10 heads padded to 16, 1 kv head of 256, a 2048-token window).
 KERNEL_CASES = [
     (2, 64, 64, 4, 2, 16, 16, True, None, 0, None),
     (1, 128, 128, 8, 8, 32, 32, True, None, 0, None),
@@ -67,9 +71,13 @@ KERNEL_CASES = [
     (2, 70, 200, 8, 2, 128, 128, False, None, 0, 150),
     (1, 100, 100, 4, 2, 256, 256, True, None, 0, None),
     (8, 1024, 1024, 16, 8, 128, 128, True, None, 0, None),
+    (8, 4096, 4096, 16, 1, 256, 256, True, 2048, 0, None),
 ]
-PREFILL_CASE = KERNEL_CASES[-1]
-SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 1024, 64
+# Each served model's prefill shape of the flash kernel, timed by phase_timings
+# (a causal prefill over all keys, as sdpa_call assumes).
+FLASH_PATHS = {"qwen3-1.7b": KERNEL_CASES[-2], "recurrentgemma-2b": KERNEL_CASES[-1]}
+SERVE_BATCH, SERVE_NEW = 8, 64
+SERVE_PROMPT = {"qwen3-1.7b": 1024, "rwkv6-7b": 1024, "recurrentgemma-2b": 4096}
 
 # (B, T, H, D, random s0, decay): the three shapes of
 # tests/test_kernels_recurrence.py::test_rwkv6_kernel, a ragged T at D 64, the
@@ -93,12 +101,36 @@ WKV_ABS_TOL = {torch.float32: 1e-4}
 WKV_REL_TOL = {(torch.float32, "y"): 1e-5, (torch.float32, "s_last"): 1e-5,
                (torch.bfloat16, "y"): 2**-7, (torch.bfloat16, "s_last"): 1e-5}
 
+# (B, T, W, random h0, decay): the three shapes of
+# tests/test_kernels_recurrence.py::test_rglru_kernel, a ragged T and W, T = 1
+# at the model's width, and the recurrentgemma-2b prefill shape.  decay
+# "sigmoid" is that test's a = sigmoid(N(0,1)) with b = N(0,1)*0.1; "model"
+# is the model's own a and b from _lru_coeffs, with lam drawn by the LRU init.
+SCAN_CASES = [
+    (1, 32, 32, True, "sigmoid"),
+    (2, 128, 64, True, "sigmoid"),
+    (3, 64, 96, True, "sigmoid"),
+    (2, 37, 100, True, "sigmoid"),
+    (8, 1, 2560, True, "sigmoid"),
+    (8, 4096, 2560, False, "sigmoid"),
+    (8, 4096, 2560, False, "model"),
+]
+SCAN_PREFILL_CASE = SCAN_CASES[5]
+# Tolerances on h and h_last, each: the JAX kernel test's absolute 1e-6 (f32)
+# and 3e-2 (bf16), beside a relative bound.  Both sides run the same f32
+# steps from the same inputs and round h once to its dtype.
+SCAN_ABS_TOL = {torch.float32: 1e-6, torch.bfloat16: 3e-2}
+SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
+                (torch.bfloat16, "h"): 2**-7, (torch.bfloat16, "h_last"): 1e-6}
+
 # Each kernel by name, with the module that builds it; the module's function
 # of the same name is its wrapper and carries its launch counter.
-KERNELS = {"flash_attention_fwd": fa_kernel, "rwkv6_wkv_fwd": wkv_kernel}
+KERNELS = {"flash_attention_fwd": fa_kernel, "rwkv6_wkv_fwd": wkv_kernel,
+           "rglru_scan_fwd": scan_kernel}
 # How the profiler names the kernels' device functions.
 PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
-                       "void (anonymous namespace)::wkv_fwd<")
+                       "void (anonymous namespace)::wkv_fwd<",
+                       "void (anonymous namespace)::rglru_fwd<")
 
 
 def log(msg):
@@ -114,7 +146,17 @@ def nvidia_smi() -> str:
 def numel(tree) -> int:
     if isinstance(tree, dict):
         return sum(numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(numel(v) for v in tree)
     return tree.numel()
+
+
+def cache_leaves(layers):
+    """(name, tensor) of each leaf of a cache's layers: a stacked dict, or a
+    list of per-layer dicts (named "layer i name")."""
+    if isinstance(layers, dict):
+        return list(layers.items())
+    return [(f"layer {i} {name}", t) for i, c in enumerate(layers) for name, t in c.items()]
 
 
 def dtype_name(dtype) -> str:
@@ -131,7 +173,9 @@ def read_launches() -> dict:
 
 
 def rel_err(out, ref) -> float:
-    return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    """||out - ref|| / ||ref||; the plain norm of the difference when ref is 0."""
+    diff, norm = (out.float() - ref.float()).norm(), ref.float().norm()
+    return (diff / norm if norm > 0 else diff).item()
 
 
 def case_inputs(case, dtype, seed):
@@ -185,16 +229,16 @@ def time_ms(fn, iters) -> float:
 
 
 def phase_build():
-    """Both kernels at once: one nvcc for each source."""
+    """Every kernel at once: one nvcc for each source, all started together."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         futures = [pool.submit(mod.build) for mod in KERNELS.values()]
         builds = [f.result() for f in futures]
     for b in builds:
-        log(f"[build] {b.path.name}: {b.seconds:.1f}s")
+        log(f"[build] {b.path.name}: nvcc {b.seconds:.1f}s")
         for line in ptxas_summary(b.log):
             log(f"[build]   {line}")
-    log(f"[build] both kernels in {time.perf_counter() - t0:.1f}s")
+    log(f"[build] {len(builds)} kernels in {time.perf_counter() - t0:.1f}s")
 
 
 def phase_kernel_cases():
@@ -290,74 +334,220 @@ def phase_wkv_cases():
     return worst
 
 
+def scan_inputs(case, dtype, seed):
+    """a and b in ``dtype`` and h0 (f32, or None) for one of SCAN_CASES."""
+    B, T, W, with_h0, decay = case
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32)
+    if decay == "sigmoid":
+        a, b = torch.sigmoid(randn(B, T, W)), randn(B, T, W) * 0.1
+    else:
+        # lam as init_params draws it: sigmoid(lam) ** 8 ~ U(0.9, 0.999)
+        a8 = (0.9 + (0.999 - 0.9) * torch.rand(W, generator=g, device="cuda")) ** (1 / 8)
+        a, b = rglru._lru_coeffs({"lam": torch.log(a8 / (1 - a8))}, torch.sigmoid(randn(B, T, W)),
+                                 torch.sigmoid(randn(B, T, W)), randn(B, T, W))
+    h0 = randn(B, W) if with_h0 else None
+    return a.to(dtype), b.to(dtype), h0
+
+
+def scan_bound(case, dtype):
+    """Least time on the card: a and b (and h0 when given) read once, h and
+    h_last written once; 2 FLOP an element at the f32 rate outside the
+    tensor cores, where the kernel does them.  The larger of the two."""
+    B, T, W, with_h0, _ = case
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * 3 * B * T * W + 4 * B * W * (2 if with_h0 else 1)
+    flops = 2 * B * T * W
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def phase_scan_cases():
+    """Each case in f32 and bf16: the RG-LRU kernel against its plain version.
+    Each case's kernel call must add exactly one to the launch counter and the
+    plain version's call none, so an error of exactly 0 comes from two
+    different computations."""
+    log("[scan] rounding: the kernel takes __fmul_rn then __fadd_rn each step, two "
+        "roundings as the plain version's a * h + b, so equal inputs give equal bits")
+    kernel = scan_kernel.rglru_scan_fwd
+    worst = {}
+    for n, case in enumerate(SCAN_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b, h0 = scan_inputs(case, dtype, seed=2000 + n)
+            before = kernel.launches
+            outs = dict(zip(("h", "h_last"), kernel(a, b, h0)))
+            mid = kernel.launches
+            refs = dict(zip(("h", "h_last"), scan_ref.rglru_reference(a, b, h0)))
+            torch.cuda.synchronize()
+            name = dtype_name(dtype)
+            if (mid - before, kernel.launches - mid) != (1, 0):
+                raise AssertionError(f"scan case {case} {name}: the kernel call launched "
+                                     f"{mid - before} times and the plain call "
+                                     f"{kernel.launches - mid}, expected 1 and 0")
+            for what, out in outs.items():
+                ref = refs[what]
+                want = dtype if what == "h" else torch.float32
+                if out.shape != ref.shape or out.dtype != want:
+                    raise AssertionError(f"scan case {case} {name} {what}: "
+                                         f"{tuple(out.shape)} {out.dtype}")
+                if not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"scan case {case} {name} {what}: non-finite output")
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = rel_err(out, ref)
+                abs_tol, tol = SCAN_ABS_TOL[dtype], SCAN_REL_TOL[dtype, what]
+                log(f"[scan] {case} {name} {what}: max_abs_err {err:.3e} (tol {abs_tol}), "
+                    f"rel_err {rel:.3e} (tol {tol:.3e}), bit-identical elements "
+                    f"{(out == ref).float().mean().item():.6f}, max |ref| "
+                    f"{ref.float().abs().max().item():.3f}; launches: kernel call 1, plain call 0")
+                if err > abs_tol:
+                    raise AssertionError(f"scan case {case} {name} {what}: "
+                                         f"max_abs_err {err} > {abs_tol}")
+                if rel > tol:
+                    raise AssertionError(f"scan case {case} {name} {what}: rel_err {rel} > {tol}")
+                worst[name] = max(worst.get(name, 0.0), err)
+    log(f"[scan] largest error over {len(SCAN_CASES)} cases: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
 def _slice_run(params, cfg, prompts, follow):
-    """Prefill, then teacher-forced decode steps; the logits of each, and the cache."""
+    """One path of the slice, with the launches of each part.  First a
+    train-mode forward over the prompts: the final hidden state at every
+    position.  Then prefill and teacher-forced decode steps on a cache of its
+    own: the logits of each, a copy of the cache's leaves after prefill, and
+    the cache's leaves at the end."""
+    reset_launches()
+    hidden, _ = lm.forward(params, cfg, tokens=prompts)
+    forward_launches = read_launches()
+    reset_launches()
     cache = lm.init_cache(cfg, prompts.shape[0], prompts.shape[1] + follow.shape[1],
                           params["embed"].dtype, "cuda")
     logits, cache = lm.prefill(params, cfg, cache, tokens=prompts)
     out = [logits]
+    after_prefill = {name: t.clone() for name, t in cache_leaves(cache["layers"])}
     for t in range(follow.shape[1]):
         logits, cache = lm.decode_step(params, cfg, cache, follow[:, t:t + 1])
         out.append(logits)
-    return out, cache
+    return (hidden, forward_launches, out, read_launches(), after_prefill,
+            dict(cache_leaves(cache["layers"])))
 
 
-# Per served model, at full width with 2 layers, 2 x 64 prompt tokens and 4
-# decode steps: the module name the plain path patches, its plain version,
-# the kernel, and the kernel path's launches (qwen3: one a layer in prefill,
-# decode runs none; rwkv6: one a layer in prefill and in each decode step).
+# Per served model, at full width: the cut of the slice (layers, window), its
+# prompt length, the entry points the plain path swaps for their plain
+# versions, and the kernel path's launches in the train-mode forward and in
+# prefill plus decode.  qwen3: flash once a layer in prefill, decode runs
+# none.  rwkv6: WKV once a layer in prefill and in each decode step.
+# recurrentgemma: layers rglru, rglru, attn_local, rglru, so a recurrent
+# layer reads the attention kernel's output, and a 128-token window under 256
+# prompt tokens, so the ring cache runs; the scan once a recurrent layer and
+# flash once in prefill, decode runs neither.
+SLICE_DECODE_STEPS = 4
 SLICES = [
-    ("qwen3-1.7b", attention, "flash_attention", fa_ops.chunked_attention,
-     "flash_attention_fwd", 2),
-    ("rwkv6-7b", rwkv6, "rwkv6_wkv", wkv_ref.rwkv6_reference, "rwkv6_wkv_fwd", 2 * (1 + 4)),
+    ("qwen3-1.7b", {"n_layers": 2}, 64,
+     [(attention, "flash_attention", fa_ops.chunked_attention)],
+     {"flash_attention_fwd": 2}, {"flash_attention_fwd": 2}),
+    ("rwkv6-7b", {"n_layers": 2}, 64,
+     [(rwkv6, "rwkv6_wkv", wkv_ref.rwkv6_reference)],
+     {"rwkv6_wkv_fwd": 2}, {"rwkv6_wkv_fwd": 2 * (1 + SLICE_DECODE_STEPS)}),
+    ("recurrentgemma-2b", {"n_layers": 4, "local_window": 128}, 256,
+     [(attention, "flash_attention", fa_ops.chunked_attention),
+      (rglru, "rglru_scan", scan_ref.rglru_reference)],
+     {"flash_attention_fwd": 1, "rglru_scan_fwd": 3},
+     {"flash_attention_fwd": 1, "rglru_scan_fwd": 3}),
 ]
 
 
 def phase_slice():
-    """Full width, 2 layers: the kernel path against the plain path, on the card.
+    """Full width, a few layers: the kernel path against the plain path, on the card.
 
-    The plain path is the same model with the module's kernel entry point
-    swapped for its plain version for this comparison; the kernel's launches
-    are counted on each path.  Tolerance on ||a - b|| / ||b|| of the logits:
-    1e-4 in f32 (the kernel and the plain version differ in the order of f32
-    sums), 2e-2 in bf16 (one bf16 rounding of the kernel's output, carried
-    through a layer); 1e-4 on the final recurrent state in f32.
+    The plain path is the same model with the kernels' entry points swapped
+    for their plain versions for this comparison; every kernel's launches
+    are counted on each path, and each path fills its own cache.  Tolerance
+    on ||a - b|| / ||b||: 1e-4 in f32 (the kernels and the plain versions
+    differ in the order of f32 sums), 2e-2 in bf16 (one bf16 rounding of a
+    kernel's output, carried through the layers).  Held so: the final hidden
+    state at every position of a train-mode forward; the logits after
+    prefill and after each decode step; in f32, every cache leaf after
+    prefill and at the end.  The full-sequence hidden state reads every
+    position of every kernel's output, so in f32, where the flash and WKV
+    kernels sum in another order than their plain versions, it must differ
+    somewhere; in bf16 the number of elements that differ is logged.  The
+    first decode step reads the caches the prefill left, so where the prefill
+    logits differ its logits must differ too; a later step may agree exactly
+    once every state it reads was made by earlier decode steps
+    (recurrentgemma's width-4 conv is refreshed after 3 steps, and its
+    recurrence keeps almost nothing of an older state).
     """
-    for arch, module, attr, plain, kernel, want in SLICES:
-        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    none = dict.fromkeys(KERNELS, 0)
+    for arch, cut, prompt_len, patches, fwd_launches, launches in SLICES:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        want_fwd, want = {**none, **fwd_launches}, {**none, **launches}
+        what_cut = ", ".join(f"{k} {v}" for k, v in cut.items())
         g = torch.Generator("cuda").manual_seed(2)
-        prompts = torch.randint(0, cfg.vocab, (2, 64), generator=g, device="cuda")
-        follow = torch.randint(0, cfg.vocab, (2, 4), generator=g, device="cuda")
+        prompts = torch.randint(0, cfg.vocab, (2, prompt_len), generator=g, device="cuda")
+        follow = torch.randint(0, cfg.vocab, (2, SLICE_DECODE_STEPS), generator=g,
+                               device="cuda")
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            label = f"{arch} full width, {what_cut}, 2x{prompt_len} tokens, {dtype_name(dtype)}"
             params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype, "cuda")
-            reset_launches()
-            kernel_path, kernel_cache = _slice_run(params, cfg, prompts, follow)
-            kernel_launches = read_launches()[kernel]
-            reset_launches()
-            with mock.patch.object(module, attr, plain):
-                plain_path, plain_cache = _slice_run(params, cfg, prompts, follow)
-            plain_launches = read_launches()[kernel]
-            log(f"[slice] {arch} {dtype_name(dtype)}: {kernel} launches {kernel_launches} on "
-                f"the kernel path (expected {want}), {plain_launches} on the plain path "
-                "(expected 0)")
-            if (kernel_launches, plain_launches) != (want, 0):
-                raise AssertionError(f"slice {arch} {dtype}: launches {kernel_launches} and "
-                                     f"{plain_launches}, expected {want} and 0")
+            (kernel_hidden, kernel_fwd, kernel_path, kernel_launches, kernel_prefill,
+             kernel_final) = _slice_run(params, cfg, prompts, follow)
+            with contextlib.ExitStack() as stack:
+                for module, attr, plain in patches:
+                    stack.enter_context(mock.patch.object(module, attr, plain))
+                (plain_hidden, plain_fwd, plain_path, plain_launches, plain_prefill,
+                 plain_final) = _slice_run(params, cfg, prompts, follow)
+            log(f"[slice] {label}: launches {kernel_fwd} in the train-mode forward and "
+                f"{kernel_launches} in prefill and decode on the kernel path (expected "
+                f"{want_fwd} and {want}), {plain_fwd} and {plain_launches} on the plain "
+                "path (expected all 0)")
+            if (kernel_fwd, kernel_launches, plain_fwd, plain_launches) != (
+                    want_fwd, want, none, none):
+                raise AssertionError(f"slice {label}: launches {kernel_fwd}, "
+                                     f"{kernel_launches}, {plain_fwd} and {plain_launches}, "
+                                     f"expected {want_fwd}, {want}, {none} and {none}")
+            if not torch.isfinite(kernel_hidden).all():
+                raise AssertionError(f"slice {label}: non-finite hidden state")
+            rel = rel_err(kernel_hidden, plain_hidden)
+            differ = (kernel_hidden != plain_hidden).sum().item()
+            log(f"[slice] {label}, train-mode forward, final hidden state at all "
+                f"{prompt_len} positions: rel_err {rel:.3e} (tol {tol}), {differ} of "
+                f"{kernel_hidden.numel()} elements differ")
+            if rel > tol:
+                raise AssertionError(f"slice {label}: full-sequence rel_err {rel} > {tol}")
+            if dtype == torch.float32 and differ == 0:
+                raise AssertionError(f"slice {label}: the kernel path's full-sequence hidden "
+                                     "state equals the plain path's bit for bit in f32")
+            rels = []
             for i, (a, b) in enumerate(zip(kernel_path, plain_path)):
                 what = "prefill" if i == 0 else f"decode {i}"
                 if not torch.isfinite(a).all():
-                    raise AssertionError(f"slice {arch} {dtype} {what}: non-finite logits")
-                rel = rel_err(a, b)
-                log(f"[slice] {arch} full width, 2 layers, 2x64 tokens, {dtype_name(dtype)}, "
-                    f"{what} logits: rel_err {rel:.3e} (tol {tol}), max_abs_err "
-                    f"{(a - b).abs().max().item():.3e} of |logit| <= {b.abs().max().item():.1f}")
-                if rel > tol:
-                    raise AssertionError(f"slice {arch} {dtype} {what}: rel_err {rel} > {tol}")
-            if "s" in kernel_cache["layers"] and dtype == torch.float32:
-                rel = rel_err(kernel_cache["layers"]["s"], plain_cache["layers"]["s"])
-                log(f"[slice] {arch} float32, final cache s: rel_err {rel:.3e} (tol 1e-4)")
-                if rel > 1e-4:
-                    raise AssertionError(f"slice {arch}: final state rel_err {rel} > 1e-4")
+                    raise AssertionError(f"slice {label} {what}: non-finite logits")
+                rels.append(rel_err(a, b))
+                log(f"[slice] {label}, {what} logits: rel_err {rels[-1]:.3e} (tol {tol}), "
+                    f"max_abs_err {(a - b).abs().max().item():.3e} of |logit| <= "
+                    f"{b.abs().max().item():.1f}")
+                if rels[-1] > tol:
+                    raise AssertionError(f"slice {label} {what}: rel_err {rels[-1]} > {tol}")
+            if rels[0] > 0 and rels[1] == 0:
+                raise AssertionError(f"slice {label}: the first decode step's logits agree "
+                                     "exactly while the prefill logits do not")
+            shared = ({t.data_ptr() for t in kernel_final.values()}
+                      & {t.data_ptr() for t in plain_final.values()})
+            if shared:
+                raise AssertionError(f"slice {label}: the two paths' caches share storage")
+            for when, mine, theirs in (("after prefill", kernel_prefill, plain_prefill),
+                                       ("final", kernel_final, plain_final)):
+                for name, t in mine.items():
+                    rel = rel_err(t, theirs[name])
+                    held = dtype == torch.float32
+                    log(f"[slice] {label}, cache {when} {name}: rel_err {rel:.3e}"
+                        + (" (tol 1e-4)" if held else ""))
+                    if held and rel > 1e-4:
+                        raise AssertionError(f"slice {label}: cache {when} {name} "
+                                             f"rel_err {rel} > 1e-4")
             del params
 
 
@@ -365,10 +555,14 @@ def phase_slice():
 # SERVE_BATCH x SERVE_PROMPT prompts and SERVE_NEW new tokens: qwen3-1.7b runs
 # flash attention once a layer in prefill (decode uses decode_attention);
 # rwkv6-7b runs the WKV kernel once a layer in prefill and in each of the
-# SERVE_NEW - 1 decode steps.
+# SERVE_NEW - 1 decode steps; recurrentgemma-2b runs flash (window 2048) once
+# in each of its 8 attn_local layers and the scan once in each of its 18
+# rglru layers, in prefill only (decode is plain, as in the JAX package).
 SERVE_LAUNCHES = {
-    "qwen3-1.7b": {"flash_attention_fwd": 28, "rwkv6_wkv_fwd": 0},
-    "rwkv6-7b": {"flash_attention_fwd": 0, "rwkv6_wkv_fwd": 32 * SERVE_NEW},
+    "qwen3-1.7b": {"flash_attention_fwd": 28, "rwkv6_wkv_fwd": 0, "rglru_scan_fwd": 0},
+    "rwkv6-7b": {"flash_attention_fwd": 0, "rwkv6_wkv_fwd": 32 * SERVE_NEW,
+                 "rglru_scan_fwd": 0},
+    "recurrentgemma-2b": {"flash_attention_fwd": 8, "rwkv6_wkv_fwd": 0, "rglru_scan_fwd": 18},
 }
 
 
@@ -377,7 +571,7 @@ def phase_serve(arch):
     cfg = get_config(arch)
     params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda")
     n_params = numel(params)
-    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT[arch]),
                             generator=torch.Generator("cuda").manual_seed(1), device="cuda")
     generate(params, cfg, prompts, 2, cache_dtype=torch.bfloat16)  # warm-up: cuBLAS, allocator
     torch.cuda.reset_peak_memory_stats()
@@ -387,12 +581,23 @@ def phase_serve(arch):
     peak = torch.cuda.max_memory_allocated()
     steps = SERVE_NEW - 1
     log(f"[serve] {cfg.name}: {n_params} params bf16, {cfg.n_layers} layers, batch "
-        f"{SERVE_BATCH} x {SERVE_PROMPT}-token prompts, {SERVE_NEW} new tokens")
+        f"{SERVE_BATCH} x {SERVE_PROMPT[arch]}-token prompts, {SERVE_NEW} new tokens")
     log(f"[serve] {cfg.name}: prefill {gen.prefill_s * 1e3:.3f} ms; decode {steps} steps in "
         f"{gen.decode_s * 1e3:.3f} ms = {gen.decode_s * 1e3 / steps:.3f} ms/step = "
         f"{SERVE_BATCH * steps / gen.decode_s:.1f} tokens/s; launches {launches} "
         f"(expected {SERVE_LAUNCHES[arch]}); max_memory_allocated {peak} bytes")
-    log(f"[serve] {cfg.name} sample: {gen.tokens[0, :16].tolist()}")
+    sample = gen.tokens[0, :16].tolist()
+    log(f"[serve] {cfg.name} sample: {sample}")
+    if len(set(sample)) == 1:
+        # random weights often settle on one token; the logits' spread tells
+        # such a model from one whose logits are flat or broken
+        lg = gen.prefill_logits
+        top = torch.topk(lg, 2, dim=-1).values
+        log(f"[serve] {cfg.name}: the sample repeats one token; prefill logits by row: std "
+            f"{[round(x, 3) for x in lg.std(-1).tolist()]}, max - min "
+            f"{[round(x, 3) for x in (lg.max(-1).values - lg.min(-1).values).tolist()]}, "
+            f"top-1 - top-2 {[round(x, 3) for x in (top[:, 0] - top[:, 1]).tolist()]}; "
+            f"first token of each row {gen.tokens[:, 0].tolist()}")
     if gen.tokens.shape != (SERVE_BATCH, SERVE_NEW):
         raise AssertionError(f"serve {arch}: tokens of shape {tuple(gen.tokens.shape)}")
     if not ((gen.tokens >= 0) & (gen.tokens < cfg.padded_vocab)).all():
@@ -471,25 +676,50 @@ def in_turns(fns, timer=time_ms):
     return {name: statistics.median(t) for name, t in times.items()}, times
 
 
-def phase_timings():
-    """Kernel, plain version and the library call at the prefill shape, in turns."""
-    q, k, v = case_inputs(PREFILL_CASE, torch.bfloat16, seed=123)
-    kw = case_kwargs(PREFILL_CASE)
+def sdpa_call(q, k, v, case):
+    """The library's attention on (B, H, S, D) copies of the case's inputs:
+    is_causal for a causal case, the sliding window as a boolean attn_mask."""
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    ms, times = in_turns({
-        "kernel": (lambda: fa_kernel.flash_attention_fwd(q, k, v, **kw), 20),
-        "plain": (lambda: fa_ops.chunked_attention(q, k, v, **kw), 10),
-        # yardstick only: the port never calls it
-        "library": (lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 50),
-    })
-    bound_ms, bound_by, flops, nbytes = attention_bound(PREFILL_CASE, torch.bfloat16)
-    log(f"[timings] flash_attention_fwd at q {tuple(q.shape)} k,v {tuple(k.shape)} bf16 "
-        f"causal, median of 4: kernel {ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; "
-        f"scaled_dot_product_attention {ms['library']:.4f} ms; bound {bound_ms:.4f} ms "
-        f"by {bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
-    log(f"[timings] all runs (ms): {json.dumps(times)}")
-    return ms, bound_ms, bound_by
+    Sq, Sk, window = case[1], case[2], case[8]
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    i = torch.arange(Sq, device="cuda")[:, None]
+    j = torch.arange(Sk, device="cuda")[None, :]
+    mask = (j <= i) & (j > i - window)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+# Calls a timed run of (kernel, plain version, library) at each flash path's shape.
+FLASH_ITERS = {"qwen3-1.7b": (20, 10, 50), "recurrentgemma-2b": (4, 2, 10)}
+
+
+def phase_timings():
+    """Kernel, plain version and the library call at each served prefill shape
+    of the flash kernel, bf16, in turns."""
+    out = {}
+    for arch, case in FLASH_PATHS.items():
+        q, k, v = case_inputs(case, torch.bfloat16, seed=123)
+        kw = case_kwargs(case)
+        library = sdpa_call(q, k, v, case)  # yardstick only: the port never calls it
+        lib_err = (library().transpose(1, 2).float()
+                   - fa_kernel.flash_attention_fwd(q, k, v, **kw).float()).abs().max().item()
+        it_kernel, it_plain, it_library = FLASH_ITERS[arch]
+        ms, times = in_turns({
+            "kernel": (lambda: fa_kernel.flash_attention_fwd(q, k, v, **kw), it_kernel),
+            "plain": (lambda: fa_ops.chunked_attention(q, k, v, **kw), it_plain),
+            "library": (library, it_library),
+        })
+        bound_ms, bound_by, flops, nbytes = attention_bound(case, torch.bfloat16)
+        log(f"[timings] flash_attention_fwd, {arch} prefill: q {tuple(q.shape)} k,v "
+            f"{tuple(k.shape)} bf16 causal, window {case[8]}, median of 4: kernel "
+            f"{ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; "
+            f"scaled_dot_product_attention {ms['library']:.4f} ms (max_abs_err against the "
+            f"kernel {lib_err:.3e}); bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} "
+            f"FLOP, {nbytes} bytes)")
+        log(f"[timings] all runs (ms): {json.dumps(times)}")
+        out[arch] = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=ms["library"])
+    return out
 
 
 def phase_wkv_timings():
@@ -535,6 +765,25 @@ def phase_wkv_timings():
     return out
 
 
+def phase_scan_timings():
+    """The RG-LRU kernel and its plain version at the recurrentgemma-2b prefill
+    shape, f32 (what _lru_coeffs hands it), h0 None, by CUDA events around
+    back-to-back calls, in turns.  Each call moves about 1 GB, twenty times
+    the L2 cache.  No single PyTorch call computes the recurrence, so there
+    is no library time."""
+    a, b, h0 = scan_inputs(SCAN_PREFILL_CASE, torch.float32, seed=654)
+    ms, times = in_turns({
+        "kernel": (lambda: scan_kernel.rglru_scan_fwd(a, b, h0), 20),
+        "plain": (lambda: scan_ref.rglru_reference(a, b, h0), 2),
+    })
+    bound_ms, bound_by, flops, nbytes = scan_bound(SCAN_PREFILL_CASE, torch.float32)
+    log(f"[timings] rglru_scan_fwd at a, b {tuple(a.shape)} f32, h0 None, median of 4, "
+        f"CUDA events: kernel {ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
+    log(f"[timings] all runs (ms): {json.dumps(times)}")
+    return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the GPU only",
@@ -551,6 +800,7 @@ def main() -> int:
     phase_build()
     fa_worst = phase_kernel_cases()
     wkv_worst = phase_wkv_cases()
+    scan_worst = phase_scan_cases()
     phase_slice()
     by_path = {}
     for arch in SERVE_LAUNCHES:
@@ -558,16 +808,19 @@ def main() -> int:
         phase_profile(params, cfg, prompts)
         del params  # free one model's weights before the next
         torch.cuda.empty_cache()
-    fa_ms, fa_bound_ms, fa_bound_by = phase_timings()
+    fa_t = phase_timings()
     wkv_t = phase_wkv_timings()
+    scan_t = phase_scan_timings()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    def launches(kernel):
+    def launches(kernel, timed=None):
         return (sum(counts[kernel] for counts in by_path.values()),
-                [{"model": arch, "launches": counts[kernel]} for arch, counts in by_path.items()])
+                [{"model": arch, "launches": counts[kernel], **(timed or {}).get(arch, {})}
+                 for arch, counts in by_path.items()])
 
-    fa_launches, fa_by_path = launches("flash_attention_fwd")
+    fa_launches, fa_by_path = launches("flash_attention_fwd", fa_t)
     wkv_launches, wkv_by_path = launches("rwkv6_wkv_fwd")
+    scan_launches, scan_by_path = launches("rglru_scan_fwd")
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -577,11 +830,7 @@ def main() -> int:
         "by_path": fa_by_path,
         "max_abs_err": max(fa_worst.values()),
         "max_abs_err_by_dtype": fa_worst,
-        "ms": fa_ms["kernel"],
-        "plain_ms": fa_ms["plain"],
-        "bound_ms": fa_bound_ms,
-        "bound_by": fa_bound_by,
-        "library_ms": fa_ms["library"],
+        **fa_t["qwen3-1.7b"],  # the first path's shape; by_path has each path's
     }, {
         "name": "rwkv6_wkv_fwd",
         "route": "cuda",
@@ -594,6 +843,17 @@ def main() -> int:
         **wkv_t["prefill"],
         "library_ms": None,
         "decode": wkv_t["decode"],
+    }, {
+        "name": "rglru_scan_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_fwd.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:45",
+        "launches": scan_launches,
+        "by_path": scan_by_path,
+        "max_abs_err": max(scan_worst.values()),
+        "max_abs_err_by_dtype": scan_worst,
+        **scan_t,
+        "library_ms": None,
     }]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,8 @@ def rope(x, positions, theta):
 def _act(kind, g, u):
     if kind == "swiglu":
         return F.silu(g) * u
+    if kind == "geglu":  # jax.nn.gelu's default is the tanh approximation
+        return F.gelu(g, approximate="tanh") * u
     raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
 
 

@@ -1,12 +1,15 @@
-"""LM assembly (``repro.models.lm`` twin) for the dense GQA decoder and RWKV6.
+"""LM assembly (``repro.models.lm`` twin) for the dense GQA decoder, RWKV6 and
+the RG-LRU hybrid.
 
 Modes:
   train   — full-sequence forward, no cache
   prefill — full-sequence forward that fills the decode cache
   decode  — one token against the cache
 
-The stacked ``blocks`` (leading layer dim) are walked by a Python loop.  The
-cache's tensors are written in place; its ``pos`` is a Python int.
+The layers are walked by a Python loop: the stacked ``blocks`` (leading
+layer dim) of a uniform model, or the list of per-layer blocks of a hybrid,
+whose cache is a list of per-layer caches too.  The cache's tensors are
+written in place; its ``pos`` is a Python int.
 """
 from __future__ import annotations
 
@@ -17,58 +20,79 @@ from repro_torch.types import ArchConfig
 
 from .attention import gqa_block
 from .layers import mlp_apply, rms_norm
+from .rglru import rglru_block
 from .rwkv6 import rwkv_block
-from .schema import Param, leaf_dtype
+from .schema import Param, leaf_dtype, map_schema
 from .schema import abstract_params, init_params, model_schema  # noqa: F401  (re-exported)
 
 
+def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int):
+    """One layer's cache as Params: the GQA KV cache {"k", "v"} of (B, S, KH,
+    hd), an ``attn_local`` layer holding min(local_window, max_len) slots; the
+    RWKV6 state {"s", "x_tm", "x_cm"} or the RG-LRU state {"h", "conv"}, f32."""
+    if kind == "rwkv":
+        hd = cfg.rwkv_head_dim
+        emb = Param((batch, cfg.d_model), ("batch", "embed"), "zeros", dtype="float32")
+        return {"s": Param((batch, cfg.d_model // hd, hd, hd),
+                           ("batch", "heads", "head_dim", None), "zeros", dtype="float32"),
+                "x_tm": emb, "x_cm": emb}
+    if kind == "rglru":
+        W = cfg.lru_width or cfg.d_model
+        return {"h": Param((batch, W), ("batch", "lru_blocks"), "zeros", dtype="float32"),
+                "conv": Param((batch, 3, W), ("batch", None, "lru_blocks"), "zeros",
+                              dtype="float32")}
+    if kind not in ("attn", "attn_local") or cfg.attn_kind != "gqa":
+        raise NotImplementedError(f"{cfg.name}: block kind {kind!r} with attn_kind "
+                                  f"{cfg.attn_kind!r} has no ported cache yet")
+    S = min(cfg.local_window, max_len) if kind == "attn_local" else max_len
+    kv = Param((batch, S, cfg.n_kv_heads, cfg.head_dim),
+               ("batch", "kv_seq", "kv_heads", "head_dim"), "zeros")
+    return {"k": kv, "v": kv}
+
+
 def cache_schema(cfg: ArchConfig, batch: int, max_len: int):
-    """The stacked per-layer cache as Params with a leading layer dim: the GQA
-    KV cache {"k", "v"} of (L, B, S, KH, hd), or the RWKV6 state {"s" of
-    (L, B, H, hd, hd), "x_tm", "x_cm" of (L, B, D)}, always f32."""
+    """The per-layer caches as Params: stacked with a leading layer dim when
+    every layer has the same kind, else a list with one dict a layer."""
     kinds = cfg.layer_kinds()
     if not cfg.uniform_blocks:
-        raise NotImplementedError(f"{cfg.name}: mixed block kinds are not ported yet")
-    L = cfg.n_layers
-    if kinds[0] == "rwkv":
-        hd = cfg.rwkv_head_dim
-        h = cfg.d_model // hd
-        emb = Param((L, batch, cfg.d_model), ("layers", "batch", "embed"), "zeros",
-                    dtype="float32")
-        return {"s": Param((L, batch, h, hd, hd),
-                           ("layers", "batch", "heads", "head_dim", None), "zeros",
-                           dtype="float32"),
-                "x_tm": emb, "x_cm": emb}
-    if kinds[0] not in ("attn", "attn_local") or cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"{cfg.name}: block kind {kinds[0]!r} with attn_kind "
-                                  f"{cfg.attn_kind!r} has no ported cache yet")
-    S = min(cfg.local_window, max_len) if kinds[0] == "attn_local" else max_len
-    kv = Param((L, batch, S, cfg.n_kv_heads, cfg.head_dim),
-               ("layers", "batch", "kv_seq", "kv_heads", "head_dim"), "zeros")
-    return {"k": kv, "v": kv}
+        return [_layer_cache(cfg, k, batch, max_len) for k in kinds]
+    return {name: Param((cfg.n_layers,) + p.shape, ("layers",) + p.axes, p.init,
+                        p.scale, p.dtype)
+            for name, p in _layer_cache(cfg, kinds[0], batch, max_len).items()}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda"):
     """A zero cache; ``dtype`` applies to the leaves the schema does not fix."""
     dev = resolve_device(device)
-    layers = {name: torch.zeros(p.shape, dtype=leaf_dtype(p, dtype), device=dev)
-              for name, p in cache_schema(cfg, batch, max_len).items()}
+    layers = map_schema(cache_schema(cfg, batch, max_len),
+                    lambda p: torch.zeros(p.shape, dtype=leaf_dtype(p, dtype), device=dev))
     return {"pos": 0, "layers": layers}
+
+
+def _store(cache, new_cache):
+    """Write a recurrent layer's new state into its cache slice, in place."""
+    if new_cache is not None:
+        for name, t in new_cache.items():
+            cache[name].copy_(t)
 
 
 def _block_apply(kind, p, x, *, cfg, positions, mode, cache, pos):
     if kind == "rwkv":
         x, new_cache = rwkv_block(p, x, cfg=cfg, mode=mode, cache=cache)
-        if new_cache is not None:
-            for name, t in new_cache.items():  # into the layer's slice, in place
-                cache[name].copy_(t)
+        _store(cache, new_cache)
         return x, new_cache
-    if kind not in ("attn", "attn_local") or cfg.attn_kind != "gqa" or cfg.moe is not None:
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
+    if kind == "rglru":
+        x, new_cache = rglru_block(p, x, cfg=cfg, mode=mode, cache=cache)
+        _store(cache, new_cache)
+    elif kind in ("attn", "attn_local") and cfg.attn_kind == "gqa":
+        window = cfg.local_window if kind == "attn_local" else None
+        x, new_cache = gqa_block(p, x, cfg=cfg, positions=positions, mode=mode,
+                                 cache=cache, pos=pos, window=window)
+    else:
         raise NotImplementedError(f"{cfg.name}: block kind {kind!r} is not ported yet")
-    window = cfg.local_window if kind == "attn_local" else None
-    x, new_cache = gqa_block(p, x, cfg=cfg, positions=positions, mode=mode,
-                             cache=cache, pos=pos, window=window)
     mlp_p = {k[4:]: p[k] for k in ("mlp_wg", "mlp_wu", "mlp_wo") if k in p}
     x = x + mlp_apply(mlp_p, rms_norm(x, p["ln2"]), cfg.mlp_kind)
     return x, new_cache
@@ -77,9 +101,14 @@ def _block_apply(kind, p, x, *, cfg, positions, mode, cache, pos):
 def _run_stack(params, cfg, x, positions, mode, cache):
     pos = None if cache is None else cache["pos"]
     blocks = params["blocks"]
+    layers = None if cache is None else cache["layers"]
     for i, kind in enumerate(cfg.layer_kinds()):
-        lp = {k: w[i] for k, w in blocks.items()}
-        lc = None if cache is None else {k: c[i] for k, c in cache["layers"].items()}
+        if isinstance(blocks, list):  # a hybrid: per-layer blocks and caches
+            lp = blocks[i]
+            lc = None if layers is None else layers[i]
+        else:
+            lp = {k: w[i] for k, w in blocks.items()}
+            lc = None if layers is None else {k: c[i] for k, c in layers.items()}
         x, _ = _block_apply(kind, lp, x, cfg=cfg, positions=positions, mode=mode,
                             cache=lc, pos=pos)
     return x

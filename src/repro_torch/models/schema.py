@@ -1,13 +1,14 @@
 """Parameter schema: shapes, logical axes and initializers of every parameter.
 
 The same tree as the JAX package's ``model_schema`` (same keys, same shapes,
-stacked ``blocks`` with a leading layer dim), so that a parameter tree made
-by either package feeds the other.  Initialization follows the same
-distributions (``fan_in``, ``normal``, ``zeros``), drawn from a
-``torch.Generator``; it does not give the JAX package's bits.
+stacked ``blocks`` with a leading layer dim when every layer has the same
+kind, a list of per-layer dicts when kinds mix), so that a parameter tree
+made by either package feeds the other.  Initialization follows the same
+distributions (``fan_in``, ``normal``, ``zeros``, ``lru_lambda``), drawn from
+a ``torch.Generator``; it does not give the JAX package's bits.
 
-The port covers the dense GQA decoder and the RWKV6 block; other block
-kinds raise.
+The port covers the dense GQA decoder, the RWKV6 block and the RG-LRU
+hybrid; other block kinds raise.
 """
 from __future__ import annotations
 
@@ -19,14 +20,16 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.types import ArchConfig
 
+RGLRU_BLOCKS = 16  # block-diagonal gate projections: 16 blocks, as the reference
+
 
 @dataclass(frozen=True)
 class Param:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "fan_in"       # fan_in | normal | zeros
+    init: str = "fan_in"       # fan_in | normal | zeros | lru_lambda
     scale: float = 1.0
-    dtype: Optional[str] = None  # a fixed dtype (e.g. the f32 RWKV decay and bonus)
+    dtype: Optional[str] = None  # a fixed dtype (e.g. the f32 RWKV decay, the LRU's lam)
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -56,6 +59,25 @@ def _mlp_schema(cfg: ArchConfig):
     s["mlp_wu"] = Param((d, f), ("embed", "ffn"))
     s["mlp_wo"] = Param((f, d), ("ffn", "embed"))
     return s
+
+
+def _rglru_schema(cfg: ArchConfig):
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    g = RGLRU_BLOCKS
+    wb = w // g
+    return {
+        "ln1": Param((d,), ("embed",), "zeros"),
+        "w_in": Param((d, 2, w), ("embed", None, "lru_blocks")),
+        "conv_w": Param((4, w), (None, "lru_blocks"), scale=0.5),
+        "conv_b": Param((w,), ("lru_blocks",), "zeros"),
+        "gate_r": Param((g, wb, wb), ("lru_blocks", "lru_width", "lru_width")),
+        "gate_i": Param((g, wb, wb), ("lru_blocks", "lru_width", "lru_width")),
+        "bias_r": Param((w,), ("lru_blocks",), "zeros"),
+        "bias_i": Param((w,), ("lru_blocks",), "zeros"),
+        "lam": Param((w,), ("lru_blocks",), "lru_lambda", dtype="float32"),
+        "w_out": Param((w, d), ("lru_blocks", "embed")),
+    }
 
 
 def _rwkv_schema(cfg: ArchConfig):
@@ -90,13 +112,16 @@ def _rwkv_schema(cfg: ArchConfig):
 def block_schema(cfg: ArchConfig, kind: str):
     if kind == "rwkv":
         return _rwkv_schema(cfg)
-    if kind not in ("attn", "attn_local") or cfg.attn_kind != "gqa":
+    if kind == "rglru":
+        s = _rglru_schema(cfg)
+    elif kind in ("attn", "attn_local") and cfg.attn_kind == "gqa":
+        s = _attn_schema(cfg)
+    else:
         raise NotImplementedError(
             f"{cfg.name}: block kind {kind!r} with attn_kind {cfg.attn_kind!r} "
             "is not ported yet")
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
-    s = _attn_schema(cfg)
     s["ln2"] = Param((cfg.d_model,), ("embed",), "zeros")
     s.update(_mlp_schema(cfg))
     return s
@@ -111,45 +136,41 @@ def model_schema(cfg: ArchConfig):
     """Full parameter schema for one architecture."""
     if not cfg.has_decoder:
         raise NotImplementedError(f"{cfg.name}: encoder-only models are not ported yet")
-    if not cfg.uniform_blocks:
-        raise NotImplementedError(f"{cfg.name}: mixed block kinds are not ported yet")
     d, v = cfg.d_model, cfg.padded_vocab
     tree = {"embed": Param((v, d), ("vocab", "embed"), "normal"),
             "final_norm": Param((d,), ("embed",), "zeros")}
     if not cfg.tie_embeddings:
         tree["lm_head"] = Param((d, v), ("embed", "vocab"))
-    tree["blocks"] = _stack(block_schema(cfg, cfg.layer_kinds()[0]), cfg.n_layers)
+    kinds = cfg.layer_kinds()
+    if cfg.uniform_blocks:
+        tree["blocks"] = _stack(block_schema(cfg, kinds[0]), cfg.n_layers)
+    else:
+        tree["blocks"] = [block_schema(cfg, k) for k in kinds]
     return tree
 
 
-def _leaves(tree, prefix=()):
-    """(path, Param) pairs in sorted-key order, the order jax flattens a dict."""
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, Param):
-            yield prefix + (k,), v
-        else:
-            yield from _leaves(v, prefix + (k,))
-
-
-def _build(schema, make):
-    out = {}
-    for path, p in _leaves(schema):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = make(p)
-    return out
+def map_schema(tree, make):
+    """``tree`` with ``make`` applied to each Param, walked in the order jax
+    flattens it (dict keys sorted, lists in order)."""
+    if isinstance(tree, Param):
+        return make(tree)
+    if isinstance(tree, list):
+        return [map_schema(v, make) for v in tree]
+    return {k: map_schema(tree[k], make) for k in sorted(tree)}
 
 
 def _fan_in(p: Param) -> int:
     # contraction dims: (a, b) -> a; (D, h, d) in-projection -> D;
-    # (h, d, D) out-projection -> h*d; (f, k, D) stacked LoRA-up -> k
+    # (h, d, D) out-projection -> h*d; (E, f, D) and (f, k, D) -> the middle
+    # dim; (E, D, f) experts -> D; (g, w, v) block-diagonal -> w
     sh, ax = p.shape, p.axes
     if ax and ax[0] == "layers":  # stacked: strip the leading layer dim
         sh, ax = sh[1:], ax[1:]
-    if len(sh) == 3 and ax[-1] == "embed":
-        return sh[0] * sh[1] if ax[0] == "heads" else sh[1]
+    if len(sh) == 3:
+        if ax[-1] == "embed":
+            return sh[0] * sh[1] if ax[0] == "heads" else sh[1]
+        if ax[0] in ("experts", "lru_blocks"):
+            return sh[1]
     return sh[0]
 
 
@@ -169,14 +190,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         dt = leaf_dtype(p, dtype)
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dt, device=dev)
+        if p.init == "lru_lambda":
+            # a = sigmoid(lam) ** 8 in (0.9, 0.999): the standard LRU init
+            u = torch.rand(p.shape, generator=generator, dtype=torch.float32, device=dev)
+            a8 = (0.9 + (0.999 - 0.9) * u) ** (1.0 / 8.0)
+            return torch.log(a8 / (1 - a8)).to(dt)
         z = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=dev)
         std = p.scale if p.init == "normal" else p.scale / (_fan_in(p) ** 0.5)
         return (z * std).to(dt)
 
-    return _build(model_schema(cfg), make)
+    return map_schema(model_schema(cfg), make)
 
 
 def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16):
     """The parameter tree as tensors on the ``meta`` device: shapes, no data."""
-    return _build(model_schema(cfg),
+    return map_schema(model_schema(cfg),
                   lambda p: torch.empty(p.shape, dtype=leaf_dtype(p, dtype), device="meta"))
