@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+      python3 chip_smoke.py
+    python3 chip_smoke.py --tile-sweep
 
 Builds every CUDA kernel of the port from this checkout's sources, holds
 each against its plain PyTorch version on the card, serves qwen3-1.7b (28
@@ -14,12 +15,16 @@ and prints no result.  It imports nothing of JAX and nothing of ``repro``.
 
 Standard output ends with a ``{"kernels": [...]}`` line and then the line
 ``{"ok": true, "device": {...}}``.
+
+With ``--tile-sweep`` it builds the kernels and runs tile_sweep only: the
+flash kernel's tensor-core route, its per-tile and per-item cost.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -52,14 +57,26 @@ PEAK_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# Tolerance on ||out - ref|| / ||ref||.  Kernel and plain version both compute
-# in f32 and round once to the output dtype, so in bf16 an element differs by
-# at most one bf16 ulp, under 2**-7 of its value.
+# Tolerance on ||out - ref|| / ||ref||.  In f32 and on the SIMT route in bf16,
+# kernel and plain version both compute in f32 and round once to the output
+# dtype.  The tensor-core route (bf16 at head dims 128 and 256) also rounds P
+# to bf16 before P V, a relative error of at most 2**-9 on each weight, which
+# the normalisation by the same rounded weights' sum largely cancels; with the
+# output's own rounding that stays under 2**-7.
 REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2**-7}
+# Each served model's prefill shape of the flash kernel, timed by
+# phase_timings (a causal prefill over all keys, as sdpa_call assumes): qwen3-1.7b
+# (8 x 1024 tokens, 16 heads over 8 kv heads of 128) and recurrentgemma-2b (8 x
+# 4096 tokens, 10 heads padded to 16, 1 kv head of 256, a 2048-token window).
+QWEN3_PREFILL = (8, 1024, 1024, 16, 8, 128, 128, True, None, 0, None)
+RECURRENTGEMMA_PREFILL = (8, 4096, 4096, 16, 1, 256, 256, True, 2048, 0, None)
+FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_PREFILL}
 # (B, Sq, Sk, H, KH, Dk, Dv, causal, window, q_offset, kv_len): the six CASES
 # of tests/test_kernels_attention.py, Dk 96 / Dv 64, kv_len < Sk, head dim
-# 256, the qwen3-1.7b prefill shape and the recurrentgemma-2b one (8 x 4096
-# tokens, 10 heads padded to 16, 1 kv head of 256, a 2048-token window).
+# 256, hubert-xlarge's head dim 80 (bidirectional, 16 heads over 16); on the
+# tensor-core route (in bf16) a ragged q_offset with GQA, a window spanning
+# several tiles, and kv_len 0, where every row sees nothing and must be 0;
+# then the two served prefill shapes.
 KERNEL_CASES = [
     (2, 64, 64, 4, 2, 16, 16, True, None, 0, None),
     (1, 128, 128, 8, 8, 32, 32, True, None, 0, None),
@@ -70,12 +87,13 @@ KERNEL_CASES = [
     (2, 32, 32, 4, 4, 96, 64, True, None, 0, None),
     (2, 70, 200, 8, 2, 128, 128, False, None, 0, 150),
     (1, 100, 100, 4, 2, 256, 256, True, None, 0, None),
-    (8, 1024, 1024, 16, 8, 128, 128, True, None, 0, None),
-    (8, 4096, 4096, 16, 1, 256, 256, True, 2048, 0, None),
+    (2, 50, 50, 16, 16, 80, 80, False, None, 0, None),
+    (2, 37, 93, 8, 2, 128, 128, True, None, 56, None),
+    (1, 300, 300, 4, 1, 256, 256, True, 100, 0, None),
+    (1, 64, 64, 4, 2, 128, 128, False, None, 0, 0),
+    QWEN3_PREFILL,
+    RECURRENTGEMMA_PREFILL,
 ]
-# Each served model's prefill shape of the flash kernel, timed by phase_timings
-# (a causal prefill over all keys, as sdpa_call assumes).
-FLASH_PATHS = {"qwen3-1.7b": KERNEL_CASES[-2], "recurrentgemma-2b": KERNEL_CASES[-1]}
 SERVE_BATCH, SERVE_NEW = 8, 64
 SERVE_PROMPT = {"qwen3-1.7b": 1024, "rwkv6-7b": 1024, "recurrentgemma-2b": 4096}
 
@@ -129,6 +147,7 @@ KERNELS = {"flash_attention_fwd": fa_kernel, "rwkv6_wkv_fwd": wkv_kernel,
            "rglru_scan_fwd": scan_kernel}
 # How the profiler names the kernels' device functions.
 PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
+                       "void (anonymous namespace)::attn_fwd_wgmma<",
                        "void (anonymous namespace)::wkv_fwd<",
                        "void (anonymous namespace)::rglru_fwd<")
 
@@ -166,10 +185,15 @@ def dtype_name(dtype) -> str:
 def reset_launches():
     for name, mod in KERNELS.items():
         getattr(mod, name).launches = 0
+    fa_kernel.reset_launches()  # flash's counts by route too
 
 
 def read_launches() -> dict:
     return {name: getattr(mod, name).launches for name, mod in KERNELS.items()}
+
+
+def read_flash_routes() -> dict:
+    return dict(fa_kernel.flash_attention_fwd.launches_by_route)
 
 
 def rel_err(out, ref) -> float:
@@ -232,13 +256,40 @@ def phase_build():
     """Every kernel at once: one nvcc for each source, all started together."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
-        futures = [pool.submit(mod.build) for mod in KERNELS.values()]
-        builds = [f.result() for f in futures]
-    for b in builds:
+        futures = {name: pool.submit(mod.build) for name, mod in KERNELS.items()}
+        builds = {name: f.result() for name, f in futures.items()}
+    for b in builds.values():
         log(f"[build] {b.path.name}: nvcc {b.seconds:.1f}s")
         for line in ptxas_summary(b.log):
             log(f"[build]   {line}")
     log(f"[build] {len(builds)} kernels in {time.perf_counter() - t0:.1f}s")
+    seen, faults = wgmma_ptxas_faults(builds["flash_attention_fwd"].log)
+    if seen != len(fa_kernel.WGMMA_HEAD_DIMS) or faults:
+        raise AssertionError(f"build: ptxas compiled {seen} instantiations of {WGMMA_SYMBOL} "
+                             f"(expected {len(fa_kernel.WGMMA_HEAD_DIMS)}); faults: {faults}")
+    log(f"[build] {seen} instantiations of {WGMMA_SYMBOL}: no spill, no serialized wgmma")
+
+
+# Every tensor-core instantiation of the flash kernel has this in its name.
+WGMMA_SYMBOL = "attn_fwd_wgmma"
+
+
+def wgmma_ptxas_faults(log_text):
+    """(instantiations of WGMMA_SYMBOL that ptxas compiled, the faults it
+    reported for them): a spill store or load in one of them, or a note that
+    it serialized wgmma instructions (C7512, C7513 and their kin, which say
+    "serialized"), which only that kernel issues."""
+    entry, seen, faults = "", 0, []
+    for line in log_text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = m[1]
+            seen += WGMMA_SYMBOL in entry
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            if WGMMA_SYMBOL in entry and (int(m[1]) or int(m[2])):
+                faults.append(f"{entry}: {line.strip()}")
+        elif re.search(r"\(C751[23]\)|serialized", line):
+            faults.append(line.strip())
+    return seen, faults
 
 
 def phase_kernel_cases():
@@ -247,9 +298,18 @@ def phase_kernel_cases():
     for n, case in enumerate(KERNEL_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = case_inputs(case, dtype, seed=n)
+            route = fa_kernel.route(dtype, case[5], case[6])
+            before = read_flash_routes()
             out = fa_kernel.flash_attention_fwd(q, k, v, **case_kwargs(case))
+            mid = read_flash_routes()
             ref = fa_ops.chunked_attention(q, k, v, **case_kwargs(case))
             torch.cuda.synchronize()
+            want = {r: before[r] + (r == route) for r in before}
+            if (mid, read_flash_routes()) != (want, want):
+                raise AssertionError(f"case {case} {dtype}: launches by route {before} before "
+                                     f"the kernel call, {mid} after it and "
+                                     f"{read_flash_routes()} after the plain call; expected one "
+                                     f"{route} launch and none from the plain call")
             if out.shape != ref.shape or out.dtype != dtype:
                 raise AssertionError(f"case {case} {dtype}: {out.shape} {out.dtype}")
             if not torch.isfinite(out.float()).all():
@@ -257,8 +317,8 @@ def phase_kernel_cases():
             err = (out.float() - ref.float()).abs().max().item()
             rel = rel_err(out, ref)
             name = dtype_name(dtype)
-            log(f"[kernels] {case} {name}: max_abs_err {err:.3e} (tol {TOL[dtype]}), "
-                f"rel_err {rel:.3e} (tol {REL_TOL[dtype]:.3e})")
+            log(f"[kernels] {case} {name}, route {route}: max_abs_err {err:.3e} (tol "
+                f"{TOL[dtype]}), rel_err {rel:.3e} (tol {REL_TOL[dtype]:.3e})")
             if err > TOL[dtype]:
                 raise AssertionError(f"case {case} {name}: max_abs_err {err} > {TOL[dtype]}")
             if rel > REL_TOL[dtype]:
@@ -564,6 +624,9 @@ SERVE_LAUNCHES = {
                  "rglru_scan_fwd": 0},
     "recurrentgemma-2b": {"flash_attention_fwd": 8, "rwkv6_wkv_fwd": 0, "rglru_scan_fwd": 18},
 }
+# Every served flash launch is bf16 at head dim 128 or 256: the tensor-core route.
+SERVE_FLASH_ROUTES = {arch: {"wgmma": counts["flash_attention_fwd"], "simt": 0}
+                      for arch, counts in SERVE_LAUNCHES.items()}
 
 
 def phase_serve(arch):
@@ -577,7 +640,7 @@ def phase_serve(arch):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     gen = generate(params, cfg, prompts, SERVE_NEW, cache_dtype=torch.bfloat16)
-    launches = read_launches()
+    launches, routes = read_launches(), read_flash_routes()
     peak = torch.cuda.max_memory_allocated()
     steps = SERVE_NEW - 1
     log(f"[serve] {cfg.name}: {n_params} params bf16, {cfg.n_layers} layers, batch "
@@ -585,7 +648,8 @@ def phase_serve(arch):
     log(f"[serve] {cfg.name}: prefill {gen.prefill_s * 1e3:.3f} ms; decode {steps} steps in "
         f"{gen.decode_s * 1e3:.3f} ms = {gen.decode_s * 1e3 / steps:.3f} ms/step = "
         f"{SERVE_BATCH * steps / gen.decode_s:.1f} tokens/s; launches {launches} "
-        f"(expected {SERVE_LAUNCHES[arch]}); max_memory_allocated {peak} bytes")
+        f"(expected {SERVE_LAUNCHES[arch]}), flash by route {routes} (expected "
+        f"{SERVE_FLASH_ROUTES[arch]}); max_memory_allocated {peak} bytes")
     sample = gen.tokens[0, :16].tolist()
     log(f"[serve] {cfg.name} sample: {sample}")
     if len(set(sample)) == 1:
@@ -607,7 +671,10 @@ def phase_serve(arch):
     if launches != SERVE_LAUNCHES[arch]:
         raise AssertionError(f"serve {arch}: kernel launches {launches}, "
                              f"expected {SERVE_LAUNCHES[arch]}")
-    return params, cfg, prompts, launches
+    if routes != SERVE_FLASH_ROUTES[arch]:
+        raise AssertionError(f"serve {arch}: flash launches by route {routes}, "
+                             f"expected {SERVE_FLASH_ROUTES[arch]}")
+    return params, cfg, prompts, launches, routes
 
 
 def phase_profile(params, cfg, prompts):
@@ -647,22 +714,45 @@ def phase_profile(params, cfg, prompts):
                     f"{e.self_device_time_total / 1e3 / e.count:.4f} ms a launch")
 
 
+# Clock cycles of the sleep kernel that holds the stream while device_ms
+# queues its calls (about 25 ms on an H100), and how many times device_ms may
+# take a run again with a sleep four times as long before it gives up.
+SLEEP_CYCLES = 5 * 10**7
+SLEEP_TRIES = 4
+# device_ms's tally over the run: measurements, and the timed runs they took.
+DEVICE_MS_TALLY = {"measurements": 0, "runs": 0}
+
+
 def device_ms(fn, iters) -> float:
-    """Device time a call: the profiler's device time over iters calls, summed
-    over every kernel and copy they launch, divided by iters.  Unlike time_ms
-    it leaves out the host's time between launches."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time a call, without the host's time between launches: a sleep
+    kernel holds the stream while the host queues iters calls between two
+    CUDA events, so the card runs them back to back and the events time that
+    alone.  If the card had reached the start event before the host queued
+    the last call, calls may have waited on the host: the run is taken again
+    with a sleep four times as long, SLEEP_TRIES runs at most; then it
+    raises."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    cycles = SLEEP_CYCLES
+    for _ in range(SLEEP_TRIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    if busy_us <= 0:
-        raise AssertionError("device_ms: the profiler saw no device activity")
-    return busy_us / 1e3 / iters
+        end.record()
+        held = not start.query()  # still asleep: every call was queued in time
+        end.synchronize()
+        DEVICE_MS_TALLY["runs"] += 1
+        if held:
+            DEVICE_MS_TALLY["measurements"] += 1
+            return start.elapsed_time(end) / iters
+        log(f"[timings] device_ms: the card reached the start event before {iters} calls "
+            f"were queued behind a sleep of {cycles} cycles; taken again")
+        cycles *= 4
+    raise AssertionError(f"device_ms: {iters} calls were not queued within a sleep of "
+                         f"{cycles // 4} cycles")
 
 
 def in_turns(fns, timer=time_ms):
@@ -690,12 +780,16 @@ def sdpa_call(q, k, v, case):
 
 
 # Calls a timed run of (kernel, plain version, library) at each flash path's shape.
-FLASH_ITERS = {"qwen3-1.7b": (20, 10, 50), "recurrentgemma-2b": (4, 2, 10)}
+FLASH_ITERS = {"qwen3-1.7b": (100, 10, 100), "recurrentgemma-2b": (20, 2, 10)}
 
 
 def phase_timings():
     """Kernel, plain version and the library call at each served prefill shape
-    of the flash kernel, bf16, in turns."""
+    of the flash kernel, bf16, in turns, by CUDA events around back-to-back
+    calls; then kernel and library again by device time a call (device_ms),
+    which leaves out the host's time between launches (the kernel wrapper's
+    checks, three tensor maps and a ctypes call), so that the two are
+    compared on the card's time alone."""
     out = {}
     for arch, case in FLASH_PATHS.items():
         q, k, v = case_inputs(case, torch.bfloat16, seed=123)
@@ -717,8 +811,15 @@ def phase_timings():
             f"kernel {lib_err:.3e}); bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} "
             f"FLOP, {nbytes} bytes)")
         log(f"[timings] all runs (ms): {json.dumps(times)}")
+        dev, dev_times = in_turns({"kernel": (lambda: fa_kernel.flash_attention_fwd(q, k, v, **kw),
+                                              it_kernel),
+                                   "library": (library, it_library)}, device_ms)
+        log(f"[timings] flash_attention_fwd, {arch} prefill, device time a call, median of 4: "
+            f"kernel {dev['kernel']:.4f} ms; scaled_dot_product_attention "
+            f"{dev['library']:.4f} ms; all runs (ms): {json.dumps(dev_times)}")
         out[arch] = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=ms["library"])
+                         bound_by=bound_by, library_ms=ms["library"],
+                         device_ms=dev["kernel"], library_device_ms=dev["library"])
     return out
 
 
@@ -784,11 +885,49 @@ def phase_scan_timings():
     return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by)
 
 
+# Kv tile rows of the flash kernel's tensor-core route at each head dim, and
+# the kv tiles an item that tile_sweep times.
+WGMMA_BK = {128: 128, 256: 64}
+SWEEP_TILES = (1, 8, 64)
+
+
+def tile_sweep():
+    """Fixed and per-tile cost of the flash kernel's tensor-core route.  For
+    each head dim of the route (128 with 8 kv heads, 256 with 1 kv head), the
+    kernel's device time a call (device_ms over 20 calls, median of 4), bf16,
+    non-causal, at three shapes of one wave: 8 batches x 16 heads x 128 query
+    rows is 128 items, no more than the SMs, so each block runs one item, with
+    1, 8 and 64 kv tiles an item.  Then
+      per-tile cost  c = (t(64) - t(8)) / 56,
+      fixed cost of an item  f = t(1) - c,
+    which tell how much of a served shape's time is its items' fixed cost."""
+    for d, kh in ((128, 8), (256, 1)):
+        t = {}
+        for n in SWEEP_TILES:
+            case = (8, 128, n * WGMMA_BK[d], 16, kh, d, d, False, None, 0, None)
+            q, k, v = case_inputs(case, torch.bfloat16, seed=0)
+            kw = case_kwargs(case)
+            t[n] = statistics.median(
+                device_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v, **kw), 20)
+                for _ in range(4))
+            flops = 2 * visible_pairs(case) * 2 * d
+            log(f"[sweep] head dim {d}, {n} kv tiles an item, one wave of 128 items: "
+                f"{t[n]:.4f} ms, {flops / t[n] / 1e9:.0f} TFLOP/s")
+        c = (t[64] - t[8]) / 56
+        log(f"[sweep] head dim {d}: per-tile cost {c * 1e3:.3f} us "
+            f"({4 * 128 * WGMMA_BK[d] * d * 132 / c / 1e9:.0f} TFLOP/s were all 132 SMs at "
+            f"it), fixed cost of an item {(t[1] - c) * 1e3:.3f} us")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    sweep = sys.argv[1:] == ["--tile-sweep"]
+    if sys.argv[1:] and not sweep:
+        print(f"usage: {sys.argv[0]} [--tile-sweep]", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -798,19 +937,25 @@ def main() -> int:
     log(f"[device] nvidia-smi: {smi}")
 
     phase_build()
+    if sweep:
+        tile_sweep()
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
     fa_worst = phase_kernel_cases()
     wkv_worst = phase_wkv_cases()
     scan_worst = phase_scan_cases()
     phase_slice()
-    by_path = {}
+    by_path, routes_by_path = {}, {}
     for arch in SERVE_LAUNCHES:
-        params, cfg, prompts, by_path[arch] = phase_serve(arch)
+        params, cfg, prompts, by_path[arch], routes_by_path[arch] = phase_serve(arch)
         phase_profile(params, cfg, prompts)
         del params  # free one model's weights before the next
         torch.cuda.empty_cache()
     fa_t = phase_timings()
     wkv_t = phase_wkv_timings()
     scan_t = phase_scan_timings()
+    log(f"[timings] device_ms: {DEVICE_MS_TALLY['measurements']} measurements in "
+        f"{DEVICE_MS_TALLY['runs']} timed runs")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def launches(kernel, timed=None):
@@ -819,14 +964,22 @@ def main() -> int:
                  for arch, counts in by_path.items()])
 
     fa_launches, fa_by_path = launches("flash_attention_fwd", fa_t)
+    for entry in fa_by_path:
+        entry["launches_by_route"] = routes_by_path[entry["model"]]
     wkv_launches, wkv_by_path = launches("rwkv6_wkv_fwd")
     scan_launches, scan_by_path = launches("rglru_scan_fwd")
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd_sm90.cu",
+        "sources": {"wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
+                             "flash_attention_fwd_sm90.cu",
+                    "simt": "src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention_fwd.cu"},
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
         "launches": fa_launches,
+        "launches_by_route": {r: sum(c[r] for c in routes_by_path.values())
+                              for r in fa_kernel.ROUTES},
         "by_path": fa_by_path,
         "max_abs_err": max(fa_worst.values()),
         "max_abs_err_by_dtype": fa_worst,

@@ -22,21 +22,27 @@
 // k/v 8x1024x8x128, bf16, causal) the function needs about 3.4e10 FLOP
 // against about 100 MB of inputs and output, so the card's floor is set by
 // operations (0.035 ms at 989 TFLOP/s bf16, against 0.030 ms for the bytes).
-// This first version does its products on the CUDA cores in f32 (fmaf), not
-// on the tensor cores, so it sits far above that floor: its ceiling is the
-// f32 FMA rate and the shared-memory bandwidth that feeds it.  The design
-// works on the second: each thread computes a register tile of scores
-// (RQ x CS) and of output (RQ x CV), so that each value read from shared
-// memory feeds several FMAs, and the rows of Q, K and the score tile are
-// padded to odd strides so that a warp's reads fall in distinct banks.
-// Nothing but q, k, v and o touches device memory.  Causal q tiles are
-// launched heaviest first.  Tensor cores (mma.sync, then wgmma with TMA)
-// are the next step.
+// This kernel does its products on the CUDA cores in f32 (fmaf): its ceiling
+// is the f32 FMA rate and the shared-memory bandwidth that feeds it.  Each
+// thread computes a register tile of scores (RQ x CS) and of output
+// (RQ x CV), so that each value read from shared memory feeds several FMAs,
+// and the rows of Q, K and the score tile are padded to odd strides so that
+// a warp's reads fall in distinct banks.  Nothing but q, k, v and o touches
+// device memory.  Causal q tiles are launched heaviest first.
+//
+// Two routes.  bf16 at (Dk, Dv) = (128, 128) and (256, 256), the served
+// shapes, goes to the tensor-core kernel in flash_attention_fwd_sm90.cu
+// (wgmma, TMA); everything else comes here: f32 at every head dim (its
+// callers hold it to 1e-5 of the plain version, which TF32 would not meet)
+// and bf16 at the other head dims.  The rule is fixed by dtype and head dims
+// and matches route() in kernel.py; neither route falls back to the other.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -270,22 +276,31 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Tiles per head-dim pair: BQ x BK = 64 x 64 up to Dk 64, 64 x 32 at Dk 96
-// and 128, 32 x 32 at 256.  That keeps acc at 64 registers a thread or fewer
+// Tiles per head-dim pair: BQ x BK = 64 x 64 up to Dk 64, 64 x 32 at Dk 80,
+// 96 and 128, 32 x 32 at 256.  That keeps acc at 64 registers a thread or fewer
 // and lets two or more blocks share an SM.  Keep the pairs in step with
-// HEAD_DIMS in kernel.py.
+// HEAD_DIMS and route() in kernel.py.
 template <typename T>
 cudaError_t dispatch(const Params& p, int dk, int dv, cudaStream_t s) {
   if (dk == 16 && dv == 16) return launch<T, 16, 16, 64, 64>(p, s);
   if (dk == 32 && dv == 32) return launch<T, 32, 32, 64, 64>(p, s);
   if (dk == 64 && dv == 64) return launch<T, 64, 64, 64, 64>(p, s);
+  if (dk == 80 && dv == 80) return launch<T, 80, 80, 64, 32>(p, s);
   if (dk == 96 && dv == 64) return launch<T, 96, 64, 64, 32>(p, s);
-  if (dk == 128 && dv == 128) return launch<T, 128, 128, 64, 32>(p, s);
-  if (dk == 256 && dv == 256) return launch<T, 256, 256, 32, 32>(p, s);
+  if constexpr (std::is_same_v<T, float>) {  // bf16 takes the tensor-core route here
+    if (dk == 128 && dv == 128) return launch<T, 128, 128, 64, 32>(p, s);
+    if (dk == 256 && dv == 256) return launch<T, 256, 256, 32, 32>(p, s);
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
+
+int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B,
+                             int Sq, int Sk, int H, int KH, int Dk, int Dv, int causal,
+                             int window, int q_offset, int kv_len, float scale,
+                             cudaStream_t s);
+const char* flash_attention_fwd_sm90_error_string(int err);
 
 // dtype: 0 float32, 1 bfloat16.  Returns cudaGetLastError() after the launch
 // (0 on success), or cudaErrorInvalidValue for arguments the kernel does not
@@ -300,10 +315,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const Params p{q, k, v, o, B, Sq, Sk, H, KH, causal, window, q_offset, kv_len, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(p, Dk, Dv, s);
+  if (dtype == 1 && ((Dk == 128 && Dv == 128) || (Dk == 256 && Dv == 256)))
+    return flash_attention_fwd_sm90(q, k, v, o, B, Sq, Sk, H, KH, Dk, Dv, causal, window,
+                                    q_offset, kv_len, scale, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(p, Dk, Dv, s);
   return cudaErrorInvalidValue;
 }
 
 extern "C" const char* flash_attention_fwd_error_string(int err) {
+  if (const char* msg = flash_attention_fwd_sm90_error_string(err)) return msg;
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,11 +1,20 @@
-"""Wrapper of the hand-written CUDA flash-attention forward kernel.
+"""Wrapper of the hand-written CUDA flash-attention forward kernels.
 
-The kernel (``csrc/flash_attention_fwd.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention/kernel.py::flash_attention_kernel``.  It is
-built with ``nvcc`` into a shared library with a plain C interface at first
-use and called through ``ctypes`` on PyTorch's current stream.  This wrapper
-takes CUDA tensors only and raises on anything the kernel does not take;
-the CPU's plain version is ``ops.chunked_attention``.
+The kernels replace the Pallas TPU kernel
+``repro/kernels/flash_attention/kernel.py::flash_attention_kernel``.  They
+are built with ``nvcc`` into one shared library with a plain C interface at
+first use and called through ``ctypes`` on PyTorch's current stream.  The
+library's entry point picks one of two kernels by ``route``:
+
+* ``"wgmma"``: bf16 at (Dk, Dv) in ``WGMMA_HEAD_DIMS``, the served shapes,
+  on the tensor cores (``csrc/flash_attention_fwd_sm90.cu``: wgmma, TMA);
+* ``"simt"``: everything else, f32 FMAs on the CUDA cores
+  (``csrc/flash_attention_fwd.cu``).  f32 stays there on purpose: its
+  callers hold it to 1e-5 of the plain version, which TF32 would not meet.
+
+The route is fixed by dtype and head dims; neither falls back to the other.
+This wrapper takes CUDA tensors only and raises on anything the kernels do
+not take; the CPU's plain version is ``ops.chunked_attention``.
 """
 from __future__ import annotations
 
@@ -17,15 +26,27 @@ import torch
 
 from ..build import Built, build_shared_library
 
-SOURCES = [Path(__file__).parent / "csrc" / "flash_attention_fwd.cu"]
-# (Dk, Dv) pairs the kernel is instantiated for; keep in step with the .cu.
-HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (96, 64), (128, 128), (256, 256)})
+SOURCES = [Path(__file__).parent / "csrc" / name
+           for name in ("flash_attention_fwd.cu", "flash_attention_fwd_sm90.cu")]
+# (Dk, Dv) pairs the kernels take; keep in step with the ``dispatch`` lines of
+# the .cu files.  bf16 at WGMMA_HEAD_DIMS takes the tensor-core route.
+HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (80, 80), (96, 64), (128, 128),
+                       (256, 256)})
+WGMMA_HEAD_DIMS = frozenset({(128, 128), (256, 256)})
+ROUTES = ("wgmma", "simt")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 
 
+def route(dtype, dk: int, dv: int) -> str:
+    """The kernel a launch goes to: ``"wgmma"`` for bf16 at WGMMA_HEAD_DIMS,
+    else ``"simt"``.  The library's entry point applies the same rule."""
+    return "wgmma" if dtype == torch.bfloat16 and (dk, dv) in WGMMA_HEAD_DIMS else "simt"
+
+
 def build() -> Built:
-    """Compile the kernel from the sources in this checkout (cached by hash)."""
+    """Compile both kernels, one library, from the sources in this checkout
+    (cached by hash)."""
     return build_shared_library("flash_attention_fwd", SOURCES)
 
 
@@ -76,13 +97,18 @@ def _check(q, k, v, window, kv_len):
         raise ValueError(f"flash_attention_fwd: window must be >= 1, got {window}")
     if kv_len is not None and kv_len < 0:
         raise ValueError(f"flash_attention_fwd: kv_len must be >= 0, got {kv_len}")
+    if route(q.dtype, Dk, v.shape[3]) == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention_fwd: {name} must start on a 16-byte "
+                                 "boundary for the tensor-core route (TMA)")
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None):
     """Launch the kernel.  q: (B, Sq, H, Dk); k: (B, Sk, KH, Dk); v: (B, Sk, KH, Dv).
 
     Returns (B, Sq, H, Dv) in q.dtype.  Adds one to ``flash_attention_fwd.launches``
-    for each launch.
+    and to ``flash_attention_fwd.launches_by_route[route(...)]`` for each launch.
     """
     _check(q, k, v, window, kv_len)
     B, Sq, H, Dk = q.shape
@@ -102,7 +128,14 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, q_offset=0, kv_len
         msg = lib.flash_attention_fwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention_fwd: launch failed with CUDA error {err}: {msg}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_route[route(q.dtype, Dk, Dv)] += 1
     return o
 
 
-flash_attention_fwd.launches = 0
+def reset_launches():
+    """Set the launch counters to 0."""
+    flash_attention_fwd.launches = 0
+    flash_attention_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()

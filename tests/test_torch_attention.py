@@ -4,8 +4,13 @@ Inputs are made with numpy from a seed and handed to both.  On the CPU the
 port's ``flash_attention`` runs its plain version (``chunked_attention``);
 the JAX side runs its Pallas kernel in interpret mode and its oracle.
 Tolerances are those of tests/test_kernels_attention.py: 2e-6 in f32,
-2e-2 in bf16 (one bf16 rounding of outputs of magnitude about 1).
+2e-2 in bf16 (one bf16 rounding of outputs of magnitude about 1).  The CUDA
+kernels cannot run here; their route rule, their instantiations (read from
+the sources) and the wrapper's checks are tested without a card.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -131,3 +136,109 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fa_kernel.build()
     assert not list(tmp_path.glob("*.so"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_80_matches_pallas_and_reference(dtype):
+    """hubert-xlarge's head dim 80: bidirectional, 16 heads over 16 kv heads."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(11, [(2, 50, 16, 80)] * 3, dtype)
+    pallas = jax_flash(jq, jk, jv, causal=False, backend="pallas", interpret=True,
+                       block_q=32, block_k=32)
+    ref = jax_reference(jq, jk, jv, causal=False)
+    out = flash_attention(tq, tk, tv, causal=False)
+    assert out.dtype == _TORCH[dtype] and out.shape == (2, 50, 16, 80)
+    _close(out, pallas, TOL[dtype])
+    _close(out, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", sorted(fa_kernel.HEAD_DIMS))
+def test_route_takes_the_tensor_cores_for_bf16_at_128_and_256_only(dtype, dims):
+    want = "wgmma" if dtype == torch.bfloat16 and dims in {(128, 128), (256, 256)} else "simt"
+    assert fa_kernel.route(dtype, *dims) == want
+
+
+def _dispatch_pairs(text, pattern):
+    """(Dk, Dv) of each dispatch line, checked against its template arguments."""
+    pairs = set()
+    for dk, dv, tdk, tdv in re.findall(pattern, text):
+        assert (dk, dv) == (tdk, tdv), f"dispatch line for ({dk}, {dv}) launches ({tdk}, {tdv})"
+        pairs.add((int(dk), int(dv)))
+    return pairs
+
+
+def test_every_head_dim_pair_has_a_dispatch_line_on_its_route():
+    """A pair the wrapper takes but no kernel is instantiated for would fail
+    only on the card, as cudaErrorInvalidValue; here it fails on the CPU."""
+    csrc = Path(fa_kernel.__file__).parent / "csrc"
+    simt = (csrc / "flash_attention_fwd.cu").read_text()
+    sm90 = (csrc / "flash_attention_fwd_sm90.cu").read_text()
+    body = simt[simt.index("cudaError_t dispatch("):]
+    both, f32_only = body[:body.index("\n}\n")].split("if constexpr (std::is_same_v<T, float>)")
+    line = r"if \(dk == (\d+) && dv == (\d+)\) return launch<T, (\d+), (\d+),"
+    simt_pairs = {torch.float32: _dispatch_pairs(both + f32_only, line),
+                  torch.bfloat16: _dispatch_pairs(both, line)}
+    wgmma_pairs = _dispatch_pairs(sm90[sm90.index("int flash_attention_fwd_sm90("):],
+                                  r"if \(Dk == (\d+) && Dv == (\d+)\) return launch<(\d+), (\d+),")
+    rule = re.search(r"if \(dtype == 1 && \((.*)\)\)\n", simt).group(1)
+    entry = {(int(a), int(b)) for a, b in re.findall(r"Dk == (\d+) && Dv == (\d+)", rule)}
+    assert entry == wgmma_pairs == fa_kernel.WGMMA_HEAD_DIMS
+    assert simt_pairs[torch.float32] | wgmma_pairs <= fa_kernel.HEAD_DIMS
+    for dtype, pairs in simt_pairs.items():
+        for dims in fa_kernel.HEAD_DIMS:
+            on_route = wgmma_pairs if fa_kernel.route(dtype, *dims) == "wgmma" else pairs
+            assert dims in on_route, f"{dtype} {dims}: no dispatch line on its route"
+    assert simt_pairs[torch.bfloat16].isdisjoint(wgmma_pairs)
+
+
+class _OnCuda:
+    """A CPU tensor that reports a CUDA device, so the wrapper's checks run here."""
+    device = torch.device("cuda", 0)
+
+    def __init__(self, t, ptr=None):
+        self._t, self._ptr = t, ptr
+
+    dtype = property(lambda self: self._t.dtype)
+    shape = property(lambda self: self._t.shape)
+
+    def dim(self):
+        return self._t.dim()
+
+    def is_contiguous(self):
+        return self._t.is_contiguous()
+
+    def data_ptr(self):
+        return self._t.data_ptr() if self._ptr is None else self._ptr
+
+
+@pytest.mark.parametrize("dk, dv", [(48, 48), (128, 64), (80, 64), (512, 512)])
+def test_kernel_wrapper_refuses_unsupported_head_dims(dk, dv):
+    q, v = _OnCuda(torch.zeros(1, 8, 2, dk)), _OnCuda(torch.zeros(1, 8, 2, dv))
+    with pytest.raises(ValueError, match="not supported"):
+        fa_kernel._check(q, q, v, None, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_wrapper_takes_head_dim_80(dtype):
+    t = _OnCuda(torch.zeros(2, 50, 16, 80, dtype=dtype))
+    fa_kernel._check(t, t, t, None, None)
+
+
+def test_kernel_wrapper_refuses_misaligned_inputs_on_the_tensor_core_route():
+    """TMA needs 16-byte aligned inputs; the SIMT route (f32 here) does not."""
+    for dtype, raises in ((torch.bfloat16, True), (torch.float32, False)):
+        t = torch.zeros(1, 8, 2, 128, dtype=dtype)
+        q = _OnCuda(t, ptr=t.data_ptr() + 4)
+        if raises:
+            with pytest.raises(ValueError, match="16-byte"):
+                fa_kernel._check(q, _OnCuda(t), _OnCuda(t), None, None)
+        else:
+            fa_kernel._check(q, _OnCuda(t), _OnCuda(t), None, None)
+
+
+def test_reset_launches_zeroes_both_counters():
+    flash_attention_fwd.launches = 3
+    flash_attention_fwd.launches_by_route["wgmma"] = 2
+    fa_kernel.reset_launches()
+    assert flash_attention_fwd.launches == 0
+    assert flash_attention_fwd.launches_by_route == dict.fromkeys(fa_kernel.ROUTES, 0)
