@@ -8,8 +8,10 @@ Builds every CUDA kernel of the port from this checkout's sources, holds
 each against its plain PyTorch version on the card, serves qwen3-1.7b (28
 layers), rwkv6-7b (32 layers) and recurrentgemma-2b (26 layers) at their
 full published widths (bf16, random weights from a seed) through the
-port's entry point, checks that each serve went through its kernels, and
-times each kernel beside its bound.  Any failure raises, so the exit code is
+port's entry point, trains qwen3-1.7b at full width for a few steps
+(AdamW, chunked cross-entropy, remat), checks that each serve and each
+train step went through its kernels, and times each kernel beside its
+bound.  Any failure raises, so the exit code is
 not 0.  With no CUDA device, or away from the checkout, it exits non-zero
 and prints no result.  It imports nothing of JAX and nothing of ``repro``.
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -39,15 +42,21 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.kernels.build import ptxas_summary  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import ref as scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
 from repro_torch.models import attention, lm, rglru, rwkv6  # noqa: E402
+from repro_torch.optim import init_train_state  # noqa: E402
 from repro_torch.serve import generate  # noqa: E402
+from repro_torch.train import make_train_step, useful_flops  # noqa: E402
+from repro_torch.tree import leaves, paths  # noqa: E402
+from repro_torch.types import ShapeConfig  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor-core rate, f32 rate outside
 # the tensor cores, HBM3 bandwidth, and the L2 cache's size.
@@ -141,13 +150,29 @@ SCAN_ABS_TOL = {torch.float32: 1e-6, torch.bfloat16: 3e-2}
 SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
                 (torch.bfloat16, "h"): 2**-7, (torch.bfloat16, "h_last"): 1e-6}
 
-# Each kernel by name, with the module that builds it; the module's function
-# of the same name is its wrapper and carries its launch counter.
-KERNELS = {"flash_attention_fwd": fa_kernel, "rwkv6_wkv_fwd": wkv_kernel,
-           "rglru_scan_fwd": scan_kernel}
+# (B, Sq, Sk, H, KH, Dk, Dv, causal, window, q_offset, kv_len): the backward
+# kernel's cases, every case of KERNEL_CASES at a head-dim pair it takes
+# (causal, a window, q_offset with GQA, kv_len 0, ragged lengths), among them
+# qwen3-1.7b's train shape, which is its prefill shape.  Tolerance on
+# ||out - ref|| / ||ref|| of each of dq, dk and dv: both sides compute in f32
+# from the same inputs (1e-5: the order of the sums) and round once to the
+# inputs' dtype (2**-7 in bf16).
+BWD_CASES = [c for c in KERNEL_CASES if (c[5], c[6]) in fa_kernel.BWD_HEAD_DIMS]
+QWEN3_TRAIN = QWEN3_PREFILL
+BWD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2**-7}
+
+# Each kernel by name, with the module whose function of the same name is
+# its wrapper and carries its launch counter, and the call that builds it.
+KERNELS = {"flash_attention_fwd": fa_kernel, "flash_attention_bwd": fa_kernel,
+           "rwkv6_wkv_fwd": wkv_kernel, "rglru_scan_fwd": scan_kernel}
+BUILDS = {"flash_attention_fwd": fa_kernel.build, "flash_attention_bwd": fa_kernel.build_bwd,
+          "rwkv6_wkv_fwd": wkv_kernel.build, "rglru_scan_fwd": scan_kernel.build}
 # How the profiler names the kernels' device functions.
 PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
                        "void (anonymous namespace)::attn_fwd_wgmma<",
+                       "void (anonymous namespace)::attn_bwd_stats<",
+                       "void (anonymous namespace)::attn_bwd_dkdv<",
+                       "void (anonymous namespace)::attn_bwd_dq<",
                        "void (anonymous namespace)::wkv_fwd<",
                        "void (anonymous namespace)::rglru_fwd<")
 
@@ -255,8 +280,8 @@ def time_ms(fn, iters) -> float:
 def phase_build():
     """Every kernel at once: one nvcc for each source, all started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        futures = {name: pool.submit(mod.build) for name, mod in KERNELS.items()}
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
+        futures = {name: pool.submit(build) for name, build in BUILDS.items()}
         builds = {name: f.result() for name, f in futures.items()}
     for b in builds.values():
         log(f"[build] {b.path.name}: nvcc {b.seconds:.1f}s")
@@ -611,6 +636,276 @@ def phase_slice():
             del params
 
 
+def bwd_inputs(case, dtype, seed):
+    """q, k, v and dout of a case in ``dtype``, and o, the plain forward's output."""
+    q, k, v = case_inputs(case, dtype, seed)
+    o = fa_ops.chunked_attention(q, k, v, **case_kwargs(case))
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    dout = torch.randn(o.shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
+    return q, k, v, o, dout
+
+
+def phase_bwd_cases():
+    """Each backward case in f32 and bf16: the backward kernel's dq, dk and dv
+    against its plain version on the same inputs and dout.  Each case's
+    kernel call must add exactly one to the launch counter and the plain
+    call none."""
+    kernel = fa_kernel.flash_attention_bwd
+    worst = {}
+    for n, case in enumerate(BWD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, o, dout = bwd_inputs(case, dtype, seed=3000 + n)
+            before = kernel.launches
+            outs = kernel(q, k, v, o, dout, **case_kwargs(case))
+            mid = kernel.launches
+            refs = fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, **case_kwargs(case))
+            torch.cuda.synchronize()
+            name = dtype_name(dtype)
+            if (mid - before, kernel.launches - mid) != (1, 0):
+                raise AssertionError(f"bwd case {case} {name}: the kernel call launched "
+                                     f"{mid - before} times and the plain call "
+                                     f"{kernel.launches - mid}, expected 1 and 0")
+            for what, out, ref, like in zip(("dq", "dk", "dv"), outs, refs, (q, k, v)):
+                if out.shape != like.shape or out.dtype != dtype:
+                    raise AssertionError(f"bwd case {case} {name} {what}: "
+                                         f"{tuple(out.shape)} {out.dtype}")
+                if not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"bwd case {case} {name} {what}: non-finite output")
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = rel_err(out, ref)
+                log(f"[bwd] {case} {name} {what}: max_abs_err {err:.3e}, rel_err {rel:.3e} "
+                    f"(tol {BWD_REL_TOL[dtype]:.3e}), max |ref| "
+                    f"{ref.float().abs().max().item():.3f}; launches: kernel call 1, plain call 0")
+                if rel > BWD_REL_TOL[dtype]:
+                    raise AssertionError(f"bwd case {case} {name} {what}: rel_err {rel} > "
+                                         f"{BWD_REL_TOL[dtype]}")
+                worst[name] = max(worst.get(name, 0.0), err)
+    log(f"[bwd] largest error over {len(BWD_CASES)} cases: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def phase_autograd_wiring():
+    """On CUDA tensors that require grad: flash_attention's output has a
+    grad_fn, one forward launch, and its backward is one backward launch
+    giving the backward kernel's own dq, dk and dv; the WKV and scan entry
+    points, which have no backward kernel yet, raise."""
+    case = BWD_CASES[0]
+    q, k, v, _, dout = bwd_inputs(case, torch.float32, seed=99)
+    leaf = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launches()
+    out = fa_ops.flash_attention(*leaf, **case_kwargs(case))
+    if out.grad_fn is None:
+        raise AssertionError("autograd: flash_attention's output on the card has no grad_fn")
+    grads = torch.autograd.grad(out, leaf, dout)
+    counts = read_launches()
+    want = fa_kernel.flash_attention_bwd(q, k, v, out.detach(), dout, **case_kwargs(case))
+    if (counts["flash_attention_fwd"], counts["flash_attention_bwd"]) != (1, 1):
+        raise AssertionError(f"autograd: launches {counts}, expected one forward, one backward")
+    if any(not torch.equal(a, b) for a, b in zip(grads, want)):
+        raise AssertionError("autograd: the gradients differ from the backward kernel's")
+    refused = []
+    wkv_args = wkv_inputs(WKV_CASES[0], torch.float32, seed=98)
+    scan_args = list(scan_inputs(SCAN_CASES[0], torch.float32, seed=97))
+    for name, fn, args in (("rwkv6_wkv", rwkv6.rwkv6_wkv, wkv_args),
+                           ("rglru_scan", rglru.rglru_scan, scan_args)):
+        args[0] = args[0].clone().requires_grad_(True)
+        try:
+            fn(*args)
+        except NotImplementedError:
+            refused.append(name)
+    if refused != ["rwkv6_wkv", "rglru_scan"]:
+        raise AssertionError(f"autograd: only {refused} refused inputs that require grad")
+    log("[autograd] flash_attention on the card: grad_fn, 1 forward and 1 backward launch, "
+        "gradients equal to the backward kernel's; rwkv6_wkv and rglru_scan refuse inputs "
+        "that require grad")
+
+
+# One train step with remat "full" launches the forward kernel 3L - L/k
+# times (k layers a checkpointed group, each layer checkpointed inside it:
+# PyTorch's nested non-reentrant checkpoints run a layer's forward in the
+# step's forward, in its group's recompute and in its own, and the group's
+# recompute serves the last layer of the group) and the backward kernel L
+# times, L the attention layers.
+def train_launches(n_layers, remat_group=8):
+    k = next(g for g in (remat_group, 4, 2, 1) if n_layers % g == 0)
+    return {**dict.fromkeys(KERNELS, 0),
+            "flash_attention_fwd": 3 * n_layers - n_layers // k,
+            "flash_attention_bwd": n_layers}
+
+
+TRAIN_SLICE = ("qwen3-1.7b", {"n_layers": 2}, 2, 64)  # arch, cut, batch, tokens
+TRAIN_CE_CHUNK = 512
+
+
+def _train_slice_run(cfg, params, batch):
+    """One path of the train slice: the gradients of loss_fn, then one
+    make_train_step step from a fresh state, with each part's launches."""
+    weights = leaves(params)
+    for w in weights:
+        w.requires_grad_(True)
+    reset_launches()
+    loss, _ = lm.loss_fn(params, cfg, batch, remat="full", ce_chunk=TRAIN_CE_CHUNK)
+    grads = torch.autograd.grad(loss, weights)
+    grad_launches = read_launches()
+    step = make_train_step(cfg, remat="full", ce_chunk=TRAIN_CE_CHUNK)
+    reset_launches()
+    state, metrics = step(init_train_state(params), batch)
+    return grads, grad_launches, metrics, state, read_launches()
+
+
+def phase_train_slice():
+    """qwen3-1.7b at full width and 2 layers, 2 x 64 tokens: the kernel path
+    against the plain path (attention.flash_attention swapped for
+    chunked_attention, which torch differentiates), in f32 and bf16.
+    Tolerance on ||a - b|| / ||b||: 1e-4 in f32 (the kernels and the plain
+    versions differ in the order of f32 sums), 2e-2 in bf16 (one bf16
+    rounding of each kernel output, carried through the layers).  Held so:
+    the loss, every gradient leaf, and after one make_train_step step the
+    loss, grad_norm and every master leaf.  The first AdamW step moves an
+    element by about lr * sign(g), so in bf16, where the two paths' gradients
+    differ by up to tol of the leaf, an element whose gradient changes sign
+    between them moves the other way: master is held on the elements whose
+    gradients agree in sign, the count of the others is logged, and each of
+    those must have |g| within tol of the leaf's largest (a sign flip beyond
+    that fails); in f32 master is held on every element.  The f32 gradients must
+    differ somewhere (they come from two computations).  Launches exact on
+    each path: the kernel path train_launches(2) in each part, the plain
+    path none."""
+    arch, cut, batch_size, seq = TRAIN_SLICE
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    none, want = dict.fromkeys(KERNELS, 0), train_launches(cfg.n_layers)
+    g = torch.Generator("cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (batch_size, seq + 1), generator=g, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        label = f"{arch} full width, n_layers 2, {batch_size}x{seq} tokens, {dtype_name(dtype)}"
+
+        def params():
+            return lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype, "cuda")
+        kernel = _train_slice_run(cfg, params(), batch)
+        with mock.patch.object(attention, "flash_attention", fa_ops.chunked_attention):
+            plain = _train_slice_run(cfg, params(), batch)
+        log(f"[train-slice] {label}: launches {kernel[1]} in the gradient and {kernel[4]} in the "
+            f"step on the kernel path (expected {want} each), {plain[1]} and {plain[4]} on the "
+            "plain path (expected all 0)")
+        if (kernel[1], kernel[4], plain[1], plain[4]) != (want, want, none, none):
+            raise AssertionError(f"train slice {label}: launches {kernel[1]}, {kernel[4]}, "
+                                 f"{plain[1]}, {plain[4]}")
+        differ = 0
+        for path, a, b in zip(paths(kernel[3]["params"]), kernel[0], plain[0]):
+            rel = rel_err(a, b)
+            differ += int(not torch.equal(a, b))
+            log(f"[train-slice] {label}, gradient {path}: rel_err {rel:.3e} (tol {tol})")
+            if not torch.isfinite(a.float()).all() or rel > tol:
+                raise AssertionError(f"train slice {label}: gradient {path} rel_err {rel}")
+        if dtype == torch.float32 and differ == 0:
+            raise AssertionError(f"train slice {label}: the f32 gradients of the two paths agree "
+                                 "bit for bit")
+        for what in ("loss", "grad_norm"):
+            a, b = kernel[2][what], plain[2][what]
+            rel = rel_err(a, b)
+            log(f"[train-slice] {label}, step {what}: {a.item():.6f} against {b.item():.6f}, "
+                f"rel_err {rel:.3e} (tol {tol})")
+            if not torch.isfinite(a) or rel > tol:
+                raise AssertionError(f"train slice {label}: {what} rel_err {rel}")
+        left_out = {}
+        for path, a, b, gk, gp in zip(paths(kernel[3]["master"]), leaves(kernel[3]["master"]),
+                                      leaves(plain[3]["master"]), kernel[0], plain[0]):
+            held = torch.ones_like(a, dtype=torch.bool)
+            if dtype == torch.bfloat16:
+                held = torch.sign(gk.float()) == torch.sign(gp.float())
+                top = gp.float().abs().max()
+                flips = gp.float().abs()[~held]
+                if flips.numel():
+                    left_out[path] = (flips.numel(), round((flips.max() / top).item(), 6))
+                if (flips > tol * top).any():
+                    raise AssertionError(f"train slice {label}: {path}'s gradient changes sign "
+                                         f"between the paths at |g| {flips.max().item()}, more "
+                                         f"than {tol} of the leaf's largest {top.item()}")
+            rel = rel_err(a[held], b[held])
+            if not torch.isfinite(a).all() or rel > tol:
+                raise AssertionError(f"train slice {label}: master {path} rel_err {rel}")
+        log(f"[train-slice] {label}: {differ} of {len(kernel[0])} gradient leaves differ between "
+            f"the paths; every master leaf after the step within {tol}; elements whose gradient "
+            f"changes sign between the paths, left out (count, largest |g| over the leaf's "
+            f"largest): {left_out or 'none'}")
+        del kernel, plain
+
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 3
+
+
+def train_batch(data, step):
+    return {k: torch.from_numpy(v).long().to("cuda")
+            for k, v in data.batch(step, TRAIN_BATCH).items()}
+
+
+def phase_train():
+    """The main train path: qwen3-1.7b at full width, 28 layers, bf16, AdamW
+    with f32 master, mu and nu, batches of 8 x 1024 from the port's
+    SyntheticLMDataset, remat "full", ce_chunk 512; one warm-up step, then
+    TRAIN_STEPS timed steps (host clock after a sync; the batch is made
+    before the clock starts), the launch counters set to 0 before each and
+    read after it; then one more step under the profiler."""
+    cfg = get_config("qwen3-1.7b")
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda")
+    n_params = numel(params)
+    state = init_train_state(params)
+    data = SyntheticLMDataset(cfg.vocab, TRAIN_SEQ, seed=0)
+    step_fn = make_train_step(cfg, remat="full", ce_chunk=TRAIN_CE_CHUNK)
+    state, metrics = step_fn(state, train_batch(data, 0))  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = train_launches(cfg.n_layers)
+    want_routes = {"wgmma": want["flash_attention_fwd"], "simt": 0}
+    times, launches, routes, losses = [], [], [], []
+    for i in range(1, 1 + TRAIN_STEPS):
+        batch = train_batch(data, i)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append(read_launches())
+        routes.append(read_flash_routes())
+        losses.append(loss)
+        log(f"[train] step {i + 1}: {times[-1] * 1e3:.3f} ms, loss {loss:.4f}, grad_norm "
+            f"{metrics['grad_norm'].item():.4f}, tokens {int(metrics['tokens'])}, launches "
+            f"{launches[-1]}, flash by route {routes[-1]}")
+        if not (math.isfinite(loss) and torch.isfinite(metrics["grad_norm"])):
+            raise AssertionError(f"train: non-finite loss or grad_norm at step {i + 1}")
+        if int(metrics["tokens"]) != TRAIN_BATCH * TRAIN_SEQ:
+            raise AssertionError(f"train: {int(metrics['tokens'])} tokens in step {i + 1}")
+        if launches[-1] != want or routes[-1] != want_routes:
+            raise AssertionError(f"train: launches {launches[-1]} by route {routes[-1]} in step "
+                                 f"{i + 1}, expected {want} and {want_routes}")
+    peak = torch.cuda.max_memory_allocated()
+    if int(state["step"]) != 1 + TRAIN_STEPS:
+        raise AssertionError(f"train: state step {int(state['step'])}, expected {1 + TRAIN_STEPS}")
+    bad = [p for p, t in zip(paths(state["params"]), leaves(state["params"]))
+           if not torch.isfinite(t).all()]
+    if bad:
+        raise AssertionError(f"train: non-finite parameters {bad}")
+    step_s = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = useful_flops(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    log(f"[train] {cfg.name}: {n_params} params bf16, {cfg.n_layers} layers, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat full, ce_chunk {TRAIN_CE_CHUNK}: step "
+        f"{step_s * 1e3:.3f} ms (median of {TRAIN_STEPS}; {[round(t * 1e3, 3) for t in times]}), "
+        f"{tokens / step_s:.1f} tokens/s, useful_flops {flops:.4e} = model-FLOP share "
+        f"{flops / step_s / PEAK_BF16_FLOPS:.4f} of {PEAK_BF16_FLOPS:.0e}; "
+        f"max_memory_allocated {peak} bytes; losses {losses}")
+    batch = train_batch(data, 1 + TRAIN_STEPS)
+    profile_call(f"{cfg.name} train step", lambda: step_fn(state, batch))
+    del state, params
+    return dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                model_flop_share=flops / step_s / PEAK_BF16_FLOPS, peak_bytes=peak,
+                launches=launches, routes=routes)
+
+
 # Per served model, the launches each kernel must show in one serve of
 # SERVE_BATCH x SERVE_PROMPT prompts and SERVE_NEW new tokens: qwen3-1.7b runs
 # flash attention once a layer in prefill (decode uses decode_attention);
@@ -619,10 +914,12 @@ def phase_slice():
 # in each of its 8 attn_local layers and the scan once in each of its 18
 # rglru layers, in prefill only (decode is plain, as in the JAX package).
 SERVE_LAUNCHES = {
-    "qwen3-1.7b": {"flash_attention_fwd": 28, "rwkv6_wkv_fwd": 0, "rglru_scan_fwd": 0},
-    "rwkv6-7b": {"flash_attention_fwd": 0, "rwkv6_wkv_fwd": 32 * SERVE_NEW,
-                 "rglru_scan_fwd": 0},
-    "recurrentgemma-2b": {"flash_attention_fwd": 8, "rwkv6_wkv_fwd": 0, "rglru_scan_fwd": 18},
+    "qwen3-1.7b": {"flash_attention_fwd": 28, "flash_attention_bwd": 0, "rwkv6_wkv_fwd": 0,
+                   "rglru_scan_fwd": 0},
+    "rwkv6-7b": {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                 "rwkv6_wkv_fwd": 32 * SERVE_NEW, "rglru_scan_fwd": 0},
+    "recurrentgemma-2b": {"flash_attention_fwd": 8, "flash_attention_bwd": 0, "rwkv6_wkv_fwd": 0,
+                          "rglru_scan_fwd": 18},
 }
 # Every served flash launch is bf16 at head dim 128 or 256: the tensor-core route.
 SERVE_FLASH_ROUTES = {arch: {"wgmma": counts["flash_attention_fwd"], "simt": 0}
@@ -679,7 +976,6 @@ def phase_serve(arch):
 
 def phase_profile(params, cfg, prompts):
     """Device time by kernel over one prefill and over one decode step."""
-    from torch.profiler import ProfilerActivity, profile
     cache = lm.init_cache(cfg, prompts.shape[0], prompts.shape[1] + 16, torch.bfloat16, "cuda")
     cur = prompts[:, :1]
 
@@ -691,27 +987,34 @@ def phase_profile(params, cfg, prompts):
 
     for what, fn in (("prefill", run_prefill), ("decode step", run_decode)):
         fn()
+        profile_call(f"{cfg.name} {what}", fn)
+
+
+def profile_call(label, fn):
+    """One call of fn under torch.profiler: host clock, device busy and idle
+    share, the top eight kernels, and the port's own kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        if not kernels:
-            raise AssertionError(f"profile {cfg.name} {what}: the profiler saw no device activity")
-        log(f"[profile] {cfg.name} {what}: host clock {host_ms:.3f} ms, device busy "
-            f"{busy_ms:.3f} ms in {sum(e.count for e in kernels)} kernels, idle share "
-            f"{1 - busy_ms / host_ms:.3f}")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
-                f"{e.key[:90]}")
-        for e in kernels:  # the port's own kernels, in or out of the top eight
-            if e.key.startswith(PORT_KERNEL_SYMBOLS):
-                log(f"[profile]   port kernel {e.key[:60]}: {e.count}x, device "
-                    f"{e.self_device_time_total / 1e3 / e.count:.4f} ms a launch")
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        raise AssertionError(f"profile {label}: the profiler saw no device activity")
+    log(f"[profile] {label}: host clock {host_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms in {sum(e.count for e in kernels)} kernels, idle share "
+        f"{1 - busy_ms / host_ms:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+            f"{e.key[:90]}")
+    for e in kernels:  # the port's own kernels, in or out of the top eight
+        if e.key.startswith(PORT_KERNEL_SYMBOLS):
+            log(f"[profile]   port kernel {e.key[:60]}: {e.count}x, device "
+                f"{e.self_device_time_total / 1e3 / e.count:.4f} ms a launch")
 
 
 # Clock cycles of the sleep kernel that holds the stream while device_ms
@@ -821,6 +1124,65 @@ def phase_timings():
                          bound_by=bound_by, library_ms=ms["library"],
                          device_ms=dev["kernel"], library_device_ms=dev["library"])
     return out
+
+
+def bwd_bound(case, dtype):
+    """Least time on the card for the backward: q, k, v, o and dout read
+    once, dq, dk and dv written once; the five products over the visible
+    pairs (S = Q K^T, dP = dout V^T, dV = P^T dout, dQ = dS K, dK = dS^T Q)
+    at the peak rate.  The larger of the two; and the FLOPs with stage (a)'s
+    recompute of Q K^T."""
+    B, Sq, Sk, H, KH, Dk, Dv = case[:7]
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * (2 * B * Sq * H * (Dk + Dv) + 2 * B * Sk * KH * (Dk + Dv))
+    pairs = visible_pairs(case)
+    flops = 2 * pairs * (3 * Dk + 2 * Dv)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops,
+            nbytes, (flops + 2 * pairs * Dk) / PEAK_BF16_FLOPS * 1e3)
+
+
+def phase_bwd_timings():
+    """The backward kernel at qwen3-1.7b's train shape, bf16, in turns with its
+    plain version and with the library's attention backward, by CUDA events
+    around back-to-back calls.  The library has no backward alone: its time
+    is SDPA forward + backward less SDPA forward, a yardstick only (the port
+    never calls it)."""
+    case = QWEN3_TRAIN
+    kw = case_kwargs(case)
+    q, k, v = case_inputs(case, torch.bfloat16, seed=124)
+    o = fa_kernel.flash_attention_fwd(q, k, v, **kw)
+    dout = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(125),
+                       device="cuda").to(torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    dt = dout.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
+    mine = fa_kernel.flash_attention_bwd(q, k, v, o, dout, **kw)
+    lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
+                  for a, b in zip(sdpa_fwd_bwd(), mine))
+    ms, times = in_turns({
+        "kernel": (lambda: fa_kernel.flash_attention_bwd(q, k, v, o, dout, **kw), 10),
+        "plain": (lambda: fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, **kw), 3),
+        "sdpa_fwd_bwd": (sdpa_fwd_bwd, 20),
+        "sdpa_fwd": (sdpa_fwd, 20),
+    })
+    library = ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"]
+    bound_ms, bound_by, flops, nbytes, with_a_ms = bwd_bound(case, torch.bfloat16)
+    log(f"[timings] flash_attention_bwd, qwen3-1.7b train: q {tuple(q.shape)} k,v "
+        f"{tuple(k.shape)} bf16 causal, median of 4: kernel {ms['kernel']:.4f} ms; plain "
+        f"{ms['plain']:.4f} ms; scaled_dot_product_attention backward {library:.4f} ms (forward "
+        f"+ backward {ms['sdpa_fwd_bwd']:.4f} less forward {ms['sdpa_fwd']:.4f}; its gradients "
+        f"against the kernel's: max_abs_err {lib_err:.3e}); bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({flops:.3e} FLOP, {nbytes} bytes; {with_a_ms:.4f} ms with stage (a)'s "
+        "recompute of Q K^T)")
+    log(f"[timings] all runs (ms): {json.dumps(times)}")
+    return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library)
 
 
 def phase_wkv_timings():
@@ -942,16 +1304,22 @@ def main() -> int:
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
     fa_worst = phase_kernel_cases()
+    bwd_worst = phase_bwd_cases()
+    phase_autograd_wiring()
     wkv_worst = phase_wkv_cases()
     scan_worst = phase_scan_cases()
     phase_slice()
+    phase_train_slice()
     by_path, routes_by_path = {}, {}
     for arch in SERVE_LAUNCHES:
         params, cfg, prompts, by_path[arch], routes_by_path[arch] = phase_serve(arch)
         phase_profile(params, cfg, prompts)
         del params  # free one model's weights before the next
         torch.cuda.empty_cache()
+    train = phase_train()
+    torch.cuda.empty_cache()
     fa_t = phase_timings()
+    bwd_t = phase_bwd_timings()
     wkv_t = phase_wkv_timings()
     scan_t = phase_scan_timings()
     log(f"[timings] device_ms: {DEVICE_MS_TALLY['measurements']} measurements in "
@@ -963,9 +1331,20 @@ def main() -> int:
                 [{"model": arch, "launches": counts[kernel], **(timed or {}).get(arch, {})}
                  for arch, counts in by_path.items()])
 
+    log(f"[train] summary: {json.dumps({k: v for k, v in train.items() if k != 'routes'})}")
     fa_launches, fa_by_path = launches("flash_attention_fwd", fa_t)
     for entry in fa_by_path:
         entry["launches_by_route"] = routes_by_path[entry["model"]]
+
+    def train_path(kernel):
+        n = sum(c[kernel] for c in train["launches"])
+        return n, {"model": "qwen3-1.7b", "path": f"train, {TRAIN_STEPS} steps", "launches": n,
+                   "launches_per_step": train["launches"][0][kernel]}
+    n_train, train_entry = train_path("flash_attention_fwd")
+    fa_launches += n_train
+    fa_by_path.append({**train_entry, "launches_by_route": {
+        r: sum(c[r] for c in train["routes"]) for r in fa_kernel.ROUTES}})
+    bwd_launches, bwd_entry = train_path("flash_attention_bwd")
     wkv_launches, wkv_by_path = launches("rwkv6_wkv_fwd")
     scan_launches, scan_by_path = launches("rglru_scan_fwd")
     print(json.dumps({"kernels": [{
@@ -979,11 +1358,24 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
         "launches": fa_launches,
         "launches_by_route": {r: sum(c[r] for c in routes_by_path.values())
+                              + fa_by_path[-1]["launches_by_route"][r]
                               for r in fa_kernel.ROUTES},
         "by_path": fa_by_path,
         "max_abs_err": max(fa_worst.values()),
         "max_abs_err_by_dtype": fa_worst,
         **fa_t["qwen3-1.7b"],  # the first path's shape; by_path has each path's
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:82 (forward only: the Pallas "
+                    "kernel has no backward; jax.grad differentiates the plain chunked "
+                    "attention, src/repro/kernels/flash_attention/ops.py:36)",
+        "launches": bwd_launches,
+        "by_path": [bwd_entry],
+        "max_abs_err": max(bwd_worst.values()),
+        "max_abs_err_by_dtype": bwd_worst,
+        **bwd_t,
     }, {
         "name": "rwkv6_wkv_fwd",
         "route": "cuda",

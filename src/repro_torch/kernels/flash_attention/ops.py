@@ -1,8 +1,11 @@
 """Attention entry points (``repro.kernels.flash_attention.ops`` twin).
 
 * ``flash_attention`` — the entry point the models call.  A CUDA tensor goes
-  to the hand-written kernel (``kernel.flash_attention_fwd``); a CPU tensor
-  goes to ``chunked_attention``.  There is no other switch.
+  through ``FlashAttention``: forward by the hand-written kernel
+  (``kernel.flash_attention_fwd``), gradient by the backward kernel
+  (``kernel.flash_attention_bwd``), whether or not grad is on.  A CPU tensor
+  goes to ``chunked_attention``, which torch differentiates.  There is no
+  other switch.
 * ``chunked_attention`` — the kernel's plain PyTorch version: the same online
   softmax over (q chunk × kv chunk) tiles, in f32.
 * ``decode_attention`` — single-token softmax over a KV cache, in plain
@@ -13,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .kernel import flash_attention_fwd
+from .kernel import flash_attention_bwd, flash_attention_fwd
 
 NEG_INF = -1e30
 
@@ -100,17 +103,38 @@ def decode_attention(q, k_cache, v_cache, length: int):
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention with a kernel each way: the forward saves q, k, v and its
+    output, and the backward hands them with the output's gradient to the
+    backward kernel.  The masks take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
+        o = flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.masks = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, dout.contiguous(), **ctx.masks)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None):
     """Attention entry point used by the models.
 
-    q: (B, Sq, H, Dk); k: (B, Sk, KH, Dk); v: (B, Sk, KH, Dv).  The kernel
-    masks the ragged edge of the last q and kv tiles itself, so nothing is
-    padded.  ``kv_len`` masks trailing (padded) keys.
+    q: (B, Sq, H, Dk); k: (B, Sk, KH, Dk); v: (B, Sk, KH, Dv).  The kernels
+    mask the ragged edge of the last q and kv tiles themselves, so nothing is
+    padded.  ``kv_len`` masks trailing (padded) keys.  On the card the result
+    has a ``grad_fn`` whenever an input requires grad.
     """
     if q.device.type == "cuda":
-        return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=causal, window=window,
-                                   q_offset=q_offset, kv_len=kv_len)
+        return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal, window, q_offset, kv_len)
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, kv_len=kv_len)

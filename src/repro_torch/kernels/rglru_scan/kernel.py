@@ -76,8 +76,13 @@ def rglru_scan_fwd(a, b, h0=None):
     None for a zero state.
 
     Returns (h (B, T, W) in a.dtype, h_last (B, W) f32).  Adds one to
-    ``rglru_scan_fwd.launches`` for each launch.
+    ``rglru_scan_fwd.launches`` for each launch.  Raises NotImplementedError
+    when grad mode is on and an input requires grad: the kernel has no
+    backward yet, and its output would silently carry none.
     """
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (a, b, h0)):
+        raise NotImplementedError("rglru_scan_fwd: the RG-LRU scan kernel has no backward "
+                                  "yet (ROADMAP.md B4); its output would carry no gradient")
     _check(a, b, h0)
     B, T, W = a.shape
     h = torch.empty_like(a)

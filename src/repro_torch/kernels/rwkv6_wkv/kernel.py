@@ -87,8 +87,14 @@ def rwkv6_wkv_fwd(r, k, v, w, u, s0=None):
     s0: (B, H, D, D) f32, or None for a zero state.
 
     Returns (y (B, T, H, D) in r.dtype, s_last (B, H, D, D) f32).  Adds one to
-    ``rwkv6_wkv_fwd.launches`` for each launch.
+    ``rwkv6_wkv_fwd.launches`` for each launch.  Raises NotImplementedError
+    when grad mode is on and an input requires grad: the kernel has no
+    backward yet, and its output would silently carry none.
     """
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (r, k, v, w, u, s0)):
+        raise NotImplementedError("rwkv6_wkv_fwd: the WKV kernel has no backward yet "
+                                  "(ROADMAP.md B4); its output would carry no gradient")
     _check(r, k, v, w, u, s0)
     B, T, H, D = r.shape
     y = torch.empty_like(r)

@@ -1,8 +1,10 @@
-"""Shared primitive layers: norms, rope, MLPs (``repro.models.layers`` twin)."""
+"""Shared primitive layers: norms, rope, MLPs, chunked CE loss
+(``repro.models.layers`` twin)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -37,3 +39,45 @@ def mlp_apply(p, x, kind):
     u = torch.matmul(x, p["wu"])
     g = torch.matmul(x, p["wg"]) if "wg" in p else None
     return torch.matmul(_act(kind, g, u), p["wo"])
+
+
+def _chunk_nll(xc, head_w32, labels, mask):
+    """Sum of the chunk's masked negative log-likelihoods, from f32 logits."""
+    logits = torch.matmul(xc.float(), head_w32)              # (B, chunk, V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum(torch.where(mask, lse - picked, 0.0))
+
+
+def chunked_ce_loss(x, head_w, labels, *, chunk=512, label_mask=None):
+    """Cross-entropy over a large vocab without keeping the full f32 logits:
+    a loop over sequence chunks, each under ``torch.utils.checkpoint`` so its
+    (B, chunk, V) f32 logits are recomputed in the backward pass instead of
+    saved.
+
+    x: (B, S, D) final hidden; head_w: (D, V); labels: (B, S) int.  Labels
+    below 0, and positions where ``label_mask`` is False, take no part; label
+    ids are clipped into the vocab before the gather.  The f32 copy of
+    ``head_w`` is made once per call and shared by every chunk.
+    Returns (mean_loss, token_count).
+    """
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+        if label_mask is not None:
+            label_mask = F.pad(label_mask, (0, pad))
+    mask = labels >= 0
+    if label_mask is not None:
+        mask = mask & label_mask.bool()
+    head_w32 = head_w.float()
+    lab = torch.clamp(labels, 0, head_w.shape[-1] - 1).long()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S + pad, chunk):
+        tot = tot + checkpoint(_chunk_nll, x[:, i:i + chunk], head_w32, lab[:, i:i + chunk],
+                               mask[:, i:i + chunk], use_reentrant=False,
+                               preserve_rng_state=False)
+    cnt = torch.sum(mask)
+    return tot / torch.clamp_min(cnt, 1), cnt

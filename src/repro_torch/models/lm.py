@@ -2,28 +2,63 @@
 the RG-LRU hybrid.
 
 Modes:
-  train   — full-sequence forward, no cache
+  train   — full-sequence forward + chunked CE loss (no cache)
   prefill — full-sequence forward that fills the decode cache
   decode  — one token against the cache
 
 The layers are walked by a Python loop: the stacked ``blocks`` (leading
-layer dim) of a uniform model, or the list of per-layer blocks of a hybrid,
-whose cache is a list of per-layer caches too.  The cache's tensors are
-written in place; its ``pos`` is a Python int.
+layer dim) of a uniform model, unbound once into per-layer views, or the
+list of per-layer blocks of a hybrid, whose cache is a list of per-layer
+caches too.  The cache's tensors are written in place; its ``pos`` is a
+Python int.  In train mode the layers are checkpointed as the JAX package's
+``jax.checkpoint`` does (``_maybe_remat``, ``_run_stack``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.types import ArchConfig
 
 from .attention import gqa_block
-from .layers import mlp_apply, rms_norm
+from .layers import chunked_ce_loss, mlp_apply, rms_norm
 from .rglru import rglru_block
 from .rwkv6 import rwkv_block
 from .schema import Param, leaf_dtype, map_schema
 from .schema import abstract_params, init_params, model_schema  # noqa: F401  (re-exported)
+
+
+# Matrix products with no batch dims: what jax's
+# dots_with_no_batch_dims_saveable lets a checkpoint keep.  A product of
+# (..., d) activations by a (d, ...) weight reaches aten as mm (or addmm);
+# products with batch dims (attention's per-head scores) reach it as bmm.
+_SAVEABLE_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVEABLE_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, remat):
+    """remat: 'none' | 'full' (save nothing) | 'dots' (save the outputs of the
+    matrix products with no batch dims, recompute the rest).  Checkpoints are
+    non-reentrant; the models draw no random numbers, so no RNG state is
+    kept."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(remat)
 
 
 def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int):
@@ -98,19 +133,52 @@ def _block_apply(kind, p, x, *, cfg, positions, mode, cache, pos):
     return x, new_cache
 
 
-def _run_stack(params, cfg, x, positions, mode, cache):
+def _per_layer(blocks):
+    """The stacked blocks as one dict of views a layer.  ``unbind`` makes one
+    autograd node whose backward stacks the layers' gradients, where indexing
+    each layer would add a zero-filled full-size gradient a layer."""
+    names = list(blocks)
+    return [dict(zip(names, ws)) for ws in zip(*(torch.unbind(blocks[n]) for n in names))]
+
+
+def _run_stack(params, cfg, x, positions, mode, cache, remat="full", remat_group=8):
     pos = None if cache is None else cache["pos"]
+    kinds = cfg.layer_kinds()
     blocks = params["blocks"]
     layers = None if cache is None else cache["layers"]
-    for i, kind in enumerate(cfg.layer_kinds()):
+    per_layer = blocks if isinstance(blocks, list) else _per_layer(blocks)
+
+    def body(h, lp, kind=kinds[0]):
+        return _block_apply(kind, lp, h, cfg=cfg, positions=positions, mode=mode,
+                            cache=None, pos=pos)[0]
+
+    if mode == "train" and cfg.uniform_blocks and remat != "none":
+        # Checkpoint groups of k layers, and each layer inside a group: the
+        # saved residual stream is L/k layer inputs, and a group's backward
+        # recompute keeps only its layers' inputs live.  k is the first of
+        # (remat_group, 4, 2, 1) that divides L, as in the JAX package.
+        L = cfg.n_layers
+        k = next(g for g in (remat_group, 4, 2, 1) if L % g == 0)
+        layer = _maybe_remat(body, remat)
+
+        def group(h, *lps):
+            for lp in lps:
+                h = layer(h, lp)
+            return h
+
+        for g0 in range(0, L, k):
+            x = _maybe_remat(group, remat)(x, *per_layer[g0:g0 + k])
+        return x
+    for i, kind in enumerate(kinds):
         if isinstance(blocks, list):  # a hybrid: per-layer blocks and caches
-            lp = blocks[i]
             lc = None if layers is None else layers[i]
         else:
-            lp = {k: w[i] for k, w in blocks.items()}
             lc = None if layers is None else {k: c[i] for k, c in layers.items()}
-        x, _ = _block_apply(kind, lp, x, cfg=cfg, positions=positions, mode=mode,
-                            cache=lc, pos=pos)
+        if mode == "train":  # a hybrid, or remat "none": each layer on its own
+            x = _maybe_remat(functools.partial(body, kind=kind), remat)(x, per_layer[i])
+        else:
+            x, _ = _block_apply(kind, per_layer[i], x, cfg=cfg, positions=positions,
+                                mode=mode, cache=lc, pos=pos)
     return x
 
 
@@ -130,21 +198,32 @@ def _head_logits(x, head_w):
 
 
 def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode="train",
-            cache=None):
-    """Returns (final_hidden, new_cache)."""
+            cache=None, remat="full", remat_group=8):
+    """Returns (final_hidden, new_cache).  ``remat`` and ``remat_group`` apply
+    in train mode only (``_run_stack``)."""
     x = embeds if embeds is not None else _embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     if mode == "decode":
         positions = torch.full((B, 1), cache["pos"], dtype=torch.long, device=x.device)
     else:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    x = _run_stack(params, cfg, x, positions, mode, cache)
+    x = _run_stack(params, cfg, x, positions, mode, cache, remat=remat,
+                   remat_group=remat_group)
     x = rms_norm(x, params["final_norm"])
     new_cache = None
     if mode in ("prefill", "decode"):
         base = S if mode == "prefill" else 1
         new_cache = {"pos": cache["pos"] + base, "layers": cache["layers"]}
     return x, new_cache
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, remat="full", ce_chunk=512, remat_group=8):
+    """batch: {"tokens" | "embeds", "labels"}.  Returns (loss, {"tokens": count})."""
+    x, _ = forward(params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+                   mode="train", remat=remat, remat_group=remat_group)
+    loss, count = chunked_ce_loss(x, _head_weight(params, cfg), batch["labels"],
+                                  chunk=ce_chunk)
+    return loss, {"tokens": count}
 
 
 def prefill(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None):

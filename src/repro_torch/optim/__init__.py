@@ -1,0 +1,7 @@
+from .adamw import (  # noqa: F401
+    adamw_init,
+    adamw_update,
+    cosine_schedule,
+    global_norm,
+    init_train_state,
+)

@@ -3,8 +3,9 @@
 The port keeps its own copy so that it imports nothing of the JAX package.
 The fields, the derived properties, the analytic parameter count and
 ``reduced()`` are the same as there, so one config object describes the
-same model in both packages.  The scheduler's types (``ShapeConfig``,
-``HardwareProfile``) are not part of the model path and are not copied.
+same model in both packages.  ``ShapeConfig`` comes too, for
+``train.steps.useful_flops``; the scheduler's ``HardwareProfile`` is not part
+of the model path and is not copied.
 """
 from __future__ import annotations
 
@@ -194,6 +195,16 @@ class ArchConfig:
                 delta += self.n_layers * (de * per + de * self.d_model)
         return delta
 
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: top-k + shared experts only)."""
+        if self.moe is None:
+            return self.n_params()
+        m = self.moe
+        per_exp = (self.d_model * (2 * m.d_expert if self._gated else m.d_expert)
+                   + m.d_expert * self.d_model)
+        inactive = (m.n_experts - m.top_k) * per_exp * self.n_layers
+        return self.n_params() - inactive
+
     # ---- reduced config for CPU smoke tests -------------------------------
     def reduced(self) -> "ArchConfig":
         kw = dict(
@@ -217,3 +228,14 @@ class ArchConfig:
         if self.local_window is not None:
             kw["local_window"] = 16
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of a step: a batch of ``global_batch`` sequences of
+    ``seq_len`` tokens, for a ``kind`` of step ("train", "prefill" or
+    "decode")."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str

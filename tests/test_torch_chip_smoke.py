@@ -112,3 +112,35 @@ def test_device_ms_raises_when_no_run_was_held(monkeypatch):
     with pytest.raises(AssertionError, match="were not queued"):
         chip_smoke.device_ms(card.fn, 10)
     assert len(card.sleeps) == chip_smoke.SLEEP_TRIES
+
+
+@pytest.mark.parametrize("n_layers, want_fwd", [(28, 77), (2, 5), (8, 23), (6, 15)])
+def test_train_launch_counts_follow_the_remat_groups(n_layers, want_fwd):
+    """3 L - L / k forward launches (k the remat group), L backward: the
+    counts tests/test_torch_train.py measures with counting stand-ins."""
+    want = dict.fromkeys(chip_smoke.KERNELS, 0)
+    want.update(flash_attention_fwd=want_fwd, flash_attention_bwd=n_layers)
+    assert chip_smoke.train_launches(n_layers) == want
+
+
+def test_backward_bound_at_qwen3_train_shape():
+    """Five products of 2 x 128 FLOP a visible pair: 8.6e10 FLOP, 0.087 ms at
+    989 TFLOP/s; 0.104 ms with stage (a)'s recompute of Q K^T."""
+    bound_ms, bound_by, flops, nbytes, with_a_ms = chip_smoke.bwd_bound(
+        chip_smoke.QWEN3_TRAIN, torch.bfloat16)
+    pairs = 8 * 16 * 1024 * 1025 // 2
+    assert chip_smoke.visible_pairs(chip_smoke.QWEN3_TRAIN) == pairs
+    assert flops == 2 * pairs * 5 * 128 == 85_983_232_000
+    assert nbytes == 2 * (2 * 8 * 1024 * 16 * 256 + 2 * 8 * 1024 * 8 * 256)
+    assert bound_by == "operations"
+    assert abs(bound_ms - 0.0869) < 1e-4 and abs(with_a_ms - 0.1043) < 1e-4
+
+
+def test_backward_cases_cover_the_masks_at_supported_head_dims():
+    cases = chip_smoke.BWD_CASES
+    assert chip_smoke.QWEN3_TRAIN in cases
+    assert all((c[5], c[6]) in chip_smoke.fa_kernel.BWD_HEAD_DIMS for c in cases)
+    assert any(c[8] is not None for c in cases)             # a window
+    assert any(c[9] and c[4] < c[3] for c in cases)         # q_offset with GQA
+    assert any(c[10] == 0 for c in cases)                   # kv_len 0
+    assert any(c[1] != c[2] for c in cases)                 # ragged lengths

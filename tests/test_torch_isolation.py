@@ -11,6 +11,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch import serve
+from repro_torch.launch import train
 from repro_torch.configs import get_config
 from repro_torch.models import lm
 
@@ -19,7 +20,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
 BANNED = ("jax", "jaxlib", "repro")
 BLOCK = ("import sys; sys.modules.update(dict.fromkeys(('jax', 'jaxlib', 'repro'))); "
          "sys.argv = [{argv}]; import runpy; "
-         "runpy.run_module('repro_torch.serve', run_name='__main__', alter_sys=True)")
+         "runpy.run_module({module!r}, run_name='__main__', alter_sys=True)")
 
 
 def _imported_modules(path):
@@ -51,13 +52,37 @@ def _env():
 
 def test_serve_runs_with_jax_and_repro_blocked():
     argv = "'repro_torch.serve', '--reduced', '--device', 'cpu'"
-    proc = subprocess.run([sys.executable, "-c", BLOCK.format(argv=argv)],
+    proc = subprocess.run([sys.executable, "-c", BLOCK.format(argv=argv,
+                                                               module="repro_torch.serve")],
                           capture_output=True, text=True, env=_env(), timeout=120)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
     assert lines[0].startswith("[serve] prefill 4x24 in ")
     assert lines[1].startswith("[serve] decoded 16 tokens/seq x 4 seqs in ")
     assert lines[2].startswith("[serve] sample: [")
+
+
+def test_train_runs_with_jax_and_repro_blocked(tmp_path):
+    argv = ("'repro_torch.launch.train', '--arch', 'qwen3-1.7b', '--reduced', '--device', "
+            f"'cpu', '--steps', '2', '--log-every', '1', '--ckpt-dir', '{tmp_path}'")
+    proc = subprocess.run([sys.executable, "-c",
+                           BLOCK.format(argv=argv, module="repro_torch.launch.train")],
+                          capture_output=True, text=True, env=_env(), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("[train] arch=qwen3-1.7b params=")
+    assert lines[0].endswith("backend=cpu")
+    assert lines[1].startswith("[train] step     1 loss=")
+    assert lines[2].startswith("[train] step     2 loss=")
+    assert lines[3].startswith("[train] done: ")
+    assert (tmp_path / "step_00000002" / "arrays.npz").exists()
+
+
+def test_train_without_device_raises_when_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present, so the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
 
 
 def test_serve_without_device_raises_when_no_gpu():
