@@ -18,8 +18,9 @@ and prints no result.  It imports nothing of JAX and nothing of ``repro``.
 Standard output ends with a ``{"kernels": [...]}`` line and then the line
 ``{"ok": true, "device": {...}}``.
 
-With ``--tile-sweep`` it builds the kernels and runs tile_sweep only: the
-flash kernel's tensor-core route, its per-tile and per-item cost.
+With ``--tile-sweep`` it builds the kernels and runs tile_sweep and
+bwd_tile_sweep only: the per-tile (per-step) and fixed cost of the flash
+forward's and backward's tensor-core kernels.
 """
 from __future__ import annotations
 
@@ -85,7 +86,8 @@ FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_
 # 256, hubert-xlarge's head dim 80 (bidirectional, 16 heads over 16); on the
 # tensor-core route (in bf16) a ragged q_offset with GQA, a window spanning
 # several tiles, and kv_len 0, where every row sees nothing and must be 0;
-# then the two served prefill shapes.
+# a ragged one with GQA, a window, q_offset and kv_len < Sk (the backward's
+# tile edges); then the two served prefill shapes.
 KERNEL_CASES = [
     (2, 64, 64, 4, 2, 16, 16, True, None, 0, None),
     (1, 128, 128, 8, 8, 32, 32, True, None, 0, None),
@@ -100,6 +102,7 @@ KERNEL_CASES = [
     (2, 37, 93, 8, 2, 128, 128, True, None, 56, None),
     (1, 300, 300, 4, 1, 256, 256, True, 100, 0, None),
     (1, 64, 64, 4, 2, 128, 128, False, None, 0, 0),
+    (2, 250, 333, 8, 2, 128, 128, True, 150, 83, 300),
     QWEN3_PREFILL,
     RECURRENTGEMMA_PREFILL,
 ]
@@ -153,13 +156,20 @@ SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
 # (B, Sq, Sk, H, KH, Dk, Dv, causal, window, q_offset, kv_len): the backward
 # kernel's cases, every case of KERNEL_CASES at a head-dim pair it takes
 # (causal, a window, q_offset with GQA, kv_len 0, ragged lengths), among them
-# qwen3-1.7b's train shape, which is its prefill shape.  Tolerance on
-# ||out - ref|| / ||ref|| of each of dq, dk and dv: both sides compute in f32
-# from the same inputs (1e-5: the order of the sums) and round once to the
-# inputs' dtype (2**-7 in bf16).
+# qwen3-1.7b's train shape, which is its prefill shape; in bf16 the four at
+# head dim 128 take the tensor-core route.  Tolerance on ||out - ref|| /
+# ||ref|| of each of dq, dk and dv: both sides compute in f32 from the same
+# inputs (1e-5: the order of the sums) and round once to the inputs' dtype
+# (2**-7 in bf16; the tensor-core route also rounds P and dS to bf16 for its
+# products, at most 2**-9 of each element).
 BWD_CASES = [c for c in KERNEL_CASES if (c[5], c[6]) in fa_kernel.BWD_HEAD_DIMS]
 QWEN3_TRAIN = QWEN3_PREFILL
 BWD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2**-7}
+# Tolerance on max |lse - lse_reference| of the forward's lse, by route.  The
+# SIMT route sums exp in f32 as the plain version does (order only); the
+# tensor-core route's l sums P rounded to bf16, at most 2**-9 of each term,
+# so its log moves by at most log(1 + 2**-9) < 2**-8.
+LSE_ABS_TOL = {"simt": 1e-4, "wgmma": 2**-8}
 
 # Each kernel by name, with the module whose function of the same name is
 # its wrapper and carries its launch counter, and the call that builds it.
@@ -170,9 +180,11 @@ BUILDS = {"flash_attention_fwd": fa_kernel.build, "flash_attention_bwd": fa_kern
 # How the profiler names the kernels' device functions.
 PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
                        "void (anonymous namespace)::attn_fwd_wgmma<",
-                       "void (anonymous namespace)::attn_bwd_stats<",
+                       "void (anonymous namespace)::attn_bwd_delta<",
                        "void (anonymous namespace)::attn_bwd_dkdv<",
                        "void (anonymous namespace)::attn_bwd_dq<",
+                       "(anonymous namespace)::attn_bwd_dkdv_wgmma(",
+                       "(anonymous namespace)::attn_bwd_dq_wgmma(",
                        "void (anonymous namespace)::wkv_fwd<",
                        "void (anonymous namespace)::rglru_fwd<")
 
@@ -219,6 +231,10 @@ def read_launches() -> dict:
 
 def read_flash_routes() -> dict:
     return dict(fa_kernel.flash_attention_fwd.launches_by_route)
+
+
+def read_bwd_routes() -> dict:
+    return dict(fa_kernel.flash_attention_bwd.launches_by_route)
 
 
 def rel_err(out, ref) -> float:
@@ -284,26 +300,30 @@ def phase_build():
         futures = {name: pool.submit(build) for name, build in BUILDS.items()}
         builds = {name: f.result() for name, f in futures.items()}
     for b in builds.values():
-        log(f"[build] {b.path.name}: nvcc {b.seconds:.1f}s")
+        log(f"[build] {b.path.name}: {b.seconds:.1f}s (nvcc by source: "
+            f"{', '.join(f'{src} {t:.1f}s' for src, t in b.seconds_by_source.items())})")
         for line in ptxas_summary(b.log):
             log(f"[build]   {line}")
     log(f"[build] {len(builds)} kernels in {time.perf_counter() - t0:.1f}s")
-    seen, faults = wgmma_ptxas_faults(builds["flash_attention_fwd"].log)
-    if seen != len(fa_kernel.WGMMA_HEAD_DIMS) or faults:
-        raise AssertionError(f"build: ptxas compiled {seen} instantiations of {WGMMA_SYMBOL} "
-                             f"(expected {len(fa_kernel.WGMMA_HEAD_DIMS)}); faults: {faults}")
-    log(f"[build] {seen} instantiations of {WGMMA_SYMBOL}: no spill, no serialized wgmma")
+    # the forward: one kernel a head-dim pair; the backward: dK/dV and dQ
+    for name, want in (("flash_attention_fwd", len(fa_kernel.WGMMA_HEAD_DIMS)),
+                       ("flash_attention_bwd", 2 * len(fa_kernel.BWD_WGMMA_HEAD_DIMS))):
+        seen, faults = wgmma_ptxas_faults(builds[name].log)
+        if seen != want or faults:
+            raise AssertionError(f"build: ptxas compiled {seen} {WGMMA_SYMBOL} kernels in "
+                                 f"{name} (expected {want}); faults: {faults}")
+        log(f"[build] {name}: {seen} {WGMMA_SYMBOL} kernels, no spill, no serialized wgmma")
 
 
-# Every tensor-core instantiation of the flash kernel has this in its name.
-WGMMA_SYMBOL = "attn_fwd_wgmma"
+# Every tensor-core kernel of the flash libraries has this in its name.
+WGMMA_SYMBOL = "_wgmma"
 
 
 def wgmma_ptxas_faults(log_text):
-    """(instantiations of WGMMA_SYMBOL that ptxas compiled, the faults it
-    reported for them): a spill store or load in one of them, or a note that
-    it serialized wgmma instructions (C7512, C7513 and their kin, which say
-    "serialized"), which only that kernel issues."""
+    """(the kernels with WGMMA_SYMBOL in their name that ptxas compiled, the
+    faults it reported for them): a spill store or load in one of them, or a
+    note that it serialized wgmma instructions (C7512, C7513 and their kin,
+    which say "serialized"), which only those kernels issue."""
     entry, seen, faults = "", 0, []
     for line in log_text.splitlines():
         if m := re.search(r"Compiling entry function '([^']+)'", line):
@@ -318,8 +338,10 @@ def wgmma_ptxas_faults(log_text):
 
 
 def phase_kernel_cases():
-    """Each case in f32 and bf16: the kernel against its plain version."""
-    worst = {}
+    """Each case in f32 and bf16: the kernel against its plain version; then
+    the kernel again with its lse, which must leave the output as it was to
+    the bit and match lse_reference within LSE_ABS_TOL on each route."""
+    worst, worst_lse = {}, {}
     for n, case in enumerate(KERNEL_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = case_inputs(case, dtype, seed=n)
@@ -349,8 +371,27 @@ def phase_kernel_cases():
             if rel > REL_TOL[dtype]:
                 raise AssertionError(f"case {case} {name}: rel_err {rel} > {REL_TOL[dtype]}")
             worst[name] = max(worst.get(name, 0.0), err)
+            n_lse = fa_kernel.flash_attention_fwd.lse_launches
+            again, lse = fa_kernel.flash_attention_fwd(q, k, v, with_lse=True, **case_kwargs(case))
+            lse_ref = fa_ref.lse_reference(q, k, v, **case_kwargs(case))
+            torch.cuda.synchronize()
+            if fa_kernel.flash_attention_fwd.lse_launches != n_lse + 1:
+                raise AssertionError(f"case {case} {name}: the call with lse was not counted")
+            if not torch.equal(again, out):
+                raise AssertionError(f"case {case} {name}: writing the lse changed the output")
+            if lse.shape != lse_ref.shape or not torch.isfinite(lse).all():
+                raise AssertionError(f"case {case} {name}: lse {tuple(lse.shape)}, finite "
+                                     f"{bool(torch.isfinite(lse).all())}")
+            lse_err = (lse - lse_ref).abs().max().item()
+            log(f"[kernels] {case} {name}, route {route}: lse max_abs_err {lse_err:.3e} (tol "
+                f"{LSE_ABS_TOL[route]:.3e}), output with lse equal to the bit")
+            if lse_err > LSE_ABS_TOL[route]:
+                raise AssertionError(f"case {case} {name}: lse max_abs_err {lse_err} > "
+                                     f"{LSE_ABS_TOL[route]}")
+            worst_lse[route] = max(worst_lse.get(route, 0.0), lse_err)
     log(f"[kernels] largest error over {len(KERNEL_CASES)} cases: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + "; lse by route: " + ", ".join(f"{k} {v:.3e}" for k, v in worst_lse.items()))
     return worst
 
 
@@ -637,34 +678,47 @@ def phase_slice():
 
 
 def bwd_inputs(case, dtype, seed):
-    """q, k, v and dout of a case in ``dtype``, and o, the plain forward's output."""
+    """q, k, v and dout of a case in ``dtype``; o, the plain forward's output;
+    and lse, the plain version of the forward's, in a buffer from empty_lse
+    (rows 16 bytes apart, as the tensor-core route reads them)."""
     q, k, v = case_inputs(case, dtype, seed)
     o = fa_ops.chunked_attention(q, k, v, **case_kwargs(case))
     g = torch.Generator("cuda").manual_seed(seed + 1)
     dout = torch.randn(o.shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
-    return q, k, v, o, dout
+    lse = fa_kernel.empty_lse(q.shape[0], q.shape[2], q.shape[1], "cuda")
+    lse.copy_(fa_ref.lse_reference(q, k, v, **case_kwargs(case)))
+    return q, k, v, o, dout, lse
 
 
 def phase_bwd_cases():
     """Each backward case in f32 and bf16: the backward kernel's dq, dk and dv
-    against its plain version on the same inputs and dout.  Each case's
-    kernel call must add exactly one to the launch counter and the plain
-    call none."""
+    against its plain version on the same inputs, dout and lse.  Each case's
+    kernel call must add exactly one to the launch counter, on the route
+    route(..., backward=True) names, and the plain call none; a second
+    kernel call must give the same dq, dk and dv to the bit."""
     kernel = fa_kernel.flash_attention_bwd
     worst = {}
     for n, case in enumerate(BWD_CASES):
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, o, dout = bwd_inputs(case, dtype, seed=3000 + n)
-            before = kernel.launches
-            outs = kernel(q, k, v, o, dout, **case_kwargs(case))
-            mid = kernel.launches
-            refs = fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, **case_kwargs(case))
+            q, k, v, o, dout, lse = bwd_inputs(case, dtype, seed=3000 + n)
+            route = fa_kernel.route(dtype, case[5], case[6], backward=True)
+            before = read_bwd_routes()
+            outs = kernel(q, k, v, o, dout, lse, **case_kwargs(case))
+            mid = read_bwd_routes()
+            refs = fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, lse=lse,
+                                                        **case_kwargs(case))
+            after = read_bwd_routes()
+            repeat = kernel(q, k, v, o, dout, lse, **case_kwargs(case))
             torch.cuda.synchronize()
             name = dtype_name(dtype)
-            if (mid - before, kernel.launches - mid) != (1, 0):
-                raise AssertionError(f"bwd case {case} {name}: the kernel call launched "
-                                     f"{mid - before} times and the plain call "
-                                     f"{kernel.launches - mid}, expected 1 and 0")
+            want = {r: before[r] + (r == route) for r in before}
+            if (mid, after) != (want, want):
+                raise AssertionError(f"bwd case {case} {name}: launches by route {before} "
+                                     f"before the kernel call, {mid} after it and {after} after "
+                                     f"the plain call; expected one {route} launch and none "
+                                     "from the plain call")
+            if any(not torch.equal(a, b) for a, b in zip(outs, repeat)):
+                raise AssertionError(f"bwd case {case} {name}: a second call gave other values")
             for what, out, ref, like in zip(("dq", "dk", "dv"), outs, refs, (q, k, v)):
                 if out.shape != like.shape or out.dtype != dtype:
                     raise AssertionError(f"bwd case {case} {name} {what}: "
@@ -673,9 +727,10 @@ def phase_bwd_cases():
                     raise AssertionError(f"bwd case {case} {name} {what}: non-finite output")
                 err = (out.float() - ref.float()).abs().max().item()
                 rel = rel_err(out, ref)
-                log(f"[bwd] {case} {name} {what}: max_abs_err {err:.3e}, rel_err {rel:.3e} "
-                    f"(tol {BWD_REL_TOL[dtype]:.3e}), max |ref| "
-                    f"{ref.float().abs().max().item():.3f}; launches: kernel call 1, plain call 0")
+                log(f"[bwd] {case} {name}, route {route}, {what}: max_abs_err {err:.3e}, rel_err "
+                    f"{rel:.3e} (tol {BWD_REL_TOL[dtype]:.3e}), max |ref| "
+                    f"{ref.float().abs().max().item():.3f}; launches: kernel call 1, plain call "
+                    "0; a second call equal to the bit")
                 if rel > BWD_REL_TOL[dtype]:
                     raise AssertionError(f"bwd case {case} {name} {what}: rel_err {rel} > "
                                          f"{BWD_REL_TOL[dtype]}")
@@ -685,25 +740,41 @@ def phase_bwd_cases():
     return worst
 
 
+# The autograd wiring's cases: one on each backward route.
+AUTOGRAD_CASES = {torch.float32: BWD_CASES[0],
+                  torch.bfloat16: (2, 37, 93, 8, 2, 128, 128, True, None, 56, None)}
+
+
 def phase_autograd_wiring():
-    """On CUDA tensors that require grad: flash_attention's output has a
-    grad_fn, one forward launch, and its backward is one backward launch
-    giving the backward kernel's own dq, dk and dv; the WKV and scan entry
-    points, which have no backward kernel yet, raise."""
-    case = BWD_CASES[0]
-    q, k, v, _, dout = bwd_inputs(case, torch.float32, seed=99)
-    leaf = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    reset_launches()
-    out = fa_ops.flash_attention(*leaf, **case_kwargs(case))
-    if out.grad_fn is None:
-        raise AssertionError("autograd: flash_attention's output on the card has no grad_fn")
-    grads = torch.autograd.grad(out, leaf, dout)
-    counts = read_launches()
-    want = fa_kernel.flash_attention_bwd(q, k, v, out.detach(), dout, **case_kwargs(case))
-    if (counts["flash_attention_fwd"], counts["flash_attention_bwd"]) != (1, 1):
-        raise AssertionError(f"autograd: launches {counts}, expected one forward, one backward")
-    if any(not torch.equal(a, b) for a, b in zip(grads, want)):
-        raise AssertionError("autograd: the gradients differ from the backward kernel's")
+    """On CUDA tensors that require grad, on each backward route:
+    flash_attention's output has a grad_fn, one forward launch that writes
+    the lse, and its backward is one backward launch giving the backward
+    kernel's own dq, dk and dv from that forward's output and lse, to the
+    bit; the WKV and scan entry points, which have no backward kernel yet,
+    raise."""
+    for dtype, case in AUTOGRAD_CASES.items():
+        q, k, v, _, dout, _ = bwd_inputs(case, dtype, seed=99)
+        leaf = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        reset_launches()
+        out = fa_ops.flash_attention(*leaf, **case_kwargs(case))
+        if out.grad_fn is None:
+            raise AssertionError("autograd: flash_attention's output on the card has no grad_fn")
+        grads = torch.autograd.grad(out, leaf, dout)
+        counts, lse_launches, routes = (read_launches(),
+                                        fa_kernel.flash_attention_fwd.lse_launches,
+                                        read_bwd_routes())
+        o, lse = fa_kernel.flash_attention_fwd(q, k, v, with_lse=True, **case_kwargs(case))
+        want = fa_kernel.flash_attention_bwd(q, k, v, o, dout, lse, **case_kwargs(case))
+        route = fa_kernel.route(dtype, case[5], case[6], backward=True)
+        if (counts["flash_attention_fwd"], lse_launches, counts["flash_attention_bwd"],
+                routes[route]) != (1, 1, 1, 1):
+            raise AssertionError(f"autograd {dtype_name(dtype)}: launches {counts}, "
+                                 f"{lse_launches} with lse, backward by route {routes}; "
+                                 f"expected one forward with lse, one {route} backward")
+        if not torch.equal(out.detach(), o) or any(
+                not torch.equal(a, b) for a, b in zip(grads, want)):
+            raise AssertionError(f"autograd {dtype_name(dtype)}: the output or gradients differ "
+                                 "from the kernels' own")
     refused = []
     wkv_args = wkv_inputs(WKV_CASES[0], torch.float32, seed=98)
     scan_args = list(scan_inputs(SCAN_CASES[0], torch.float32, seed=97))
@@ -716,9 +787,9 @@ def phase_autograd_wiring():
             refused.append(name)
     if refused != ["rwkv6_wkv", "rglru_scan"]:
         raise AssertionError(f"autograd: only {refused} refused inputs that require grad")
-    log("[autograd] flash_attention on the card: grad_fn, 1 forward and 1 backward launch, "
-        "gradients equal to the backward kernel's; rwkv6_wkv and rglru_scan refuse inputs "
-        "that require grad")
+    log("[autograd] flash_attention on the card, f32 (simt) and bf16 (wgmma): grad_fn, 1 "
+        "forward launch with lse and 1 backward launch, output and gradients equal to the "
+        "kernels' own; rwkv6_wkv and rglru_scan refuse inputs that require grad")
 
 
 # One train step with remat "full" launches the forward kernel 3L - L/k
@@ -738,6 +809,26 @@ TRAIN_SLICE = ("qwen3-1.7b", {"n_layers": 2}, 2, 64)  # arch, cut, batch, tokens
 TRAIN_CE_CHUNK = 512
 
 
+def read_train_launches() -> dict:
+    """The launches of each kernel, and the flash kernels' by route and with lse."""
+    return {**read_launches(), "flash_attention_fwd by route": read_flash_routes(),
+            "flash_attention_fwd with lse": fa_kernel.flash_attention_fwd.lse_launches,
+            "flash_attention_bwd by route": read_bwd_routes()}
+
+
+def want_train_launches(n_layers, dtype, head_dim):
+    """read_train_launches() of a train step (or a gradient) of n_layers
+    attention layers in dtype at head_dim: each flash kernel's launches all on
+    its route, and every forward launch writing the lse (its inputs require
+    grad)."""
+    want = train_launches(n_layers)
+    by_route = {}
+    for name, backward in (("flash_attention_fwd", False), ("flash_attention_bwd", True)):
+        route = fa_kernel.route(dtype, head_dim, head_dim, backward=backward)
+        by_route[f"{name} by route"] = {r: want[name] * (r == route) for r in fa_kernel.ROUTES}
+    return {**want, **by_route, "flash_attention_fwd with lse": want["flash_attention_fwd"]}
+
+
 def _train_slice_run(cfg, params, batch):
     """One path of the train slice: the gradients of loss_fn, then one
     make_train_step step from a fresh state, with each part's launches."""
@@ -747,11 +838,11 @@ def _train_slice_run(cfg, params, batch):
     reset_launches()
     loss, _ = lm.loss_fn(params, cfg, batch, remat="full", ce_chunk=TRAIN_CE_CHUNK)
     grads = torch.autograd.grad(loss, weights)
-    grad_launches = read_launches()
+    grad_launches = read_train_launches()
     step = make_train_step(cfg, remat="full", ce_chunk=TRAIN_CE_CHUNK)
     reset_launches()
     state, metrics = step(init_train_state(params), batch)
-    return grads, grad_launches, metrics, state, read_launches()
+    return grads, grad_launches, metrics, state, read_train_launches()
 
 
 def phase_train_slice():
@@ -770,16 +861,19 @@ def phase_train_slice():
     those must have |g| within tol of the leaf's largest (a sign flip beyond
     that fails); in f32 master is held on every element.  The f32 gradients must
     differ somewhere (they come from two computations).  Launches exact on
-    each path: the kernel path train_launches(2) in each part, the plain
+    each path: the kernel path want_train_launches(2, ...) in each part (5
+    forward, each writing the lse, and 2 backward, all on the dtype's route:
+    SIMT in f32, tensor cores in bf16), the plain
     path none."""
     arch, cut, batch_size, seq = TRAIN_SLICE
     cfg = dataclasses.replace(get_config(arch), **cut)
-    none, want = dict.fromkeys(KERNELS, 0), train_launches(cfg.n_layers)
+    none = want_train_launches(0, torch.float32, cfg.head_dim)
     g = torch.Generator("cuda").manual_seed(4)
     toks = torch.randint(0, cfg.vocab, (batch_size, seq + 1), generator=g, device="cuda")
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         label = f"{arch} full width, n_layers 2, {batch_size}x{seq} tokens, {dtype_name(dtype)}"
+        want = want_train_launches(cfg.n_layers, dtype, cfg.head_dim)
 
         def params():
             return lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype, "cuda")
@@ -847,7 +941,8 @@ def phase_train():
     SyntheticLMDataset, remat "full", ce_chunk 512; one warm-up step, then
     TRAIN_STEPS timed steps (host clock after a sync; the batch is made
     before the clock starts), the launch counters set to 0 before each and
-    read after it; then one more step under the profiler."""
+    read after it (77 forward, all wgmma and each writing the lse, and 28
+    backward, all wgmma); then one more step under the profiler."""
     cfg = get_config("qwen3-1.7b")
     params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda")
     n_params = numel(params)
@@ -857,9 +952,8 @@ def phase_train():
     state, metrics = step_fn(state, train_batch(data, 0))  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    want = train_launches(cfg.n_layers)
-    want_routes = {"wgmma": want["flash_attention_fwd"], "simt": 0}
-    times, launches, routes, losses = [], [], [], []
+    want = want_train_launches(cfg.n_layers, torch.bfloat16, cfg.head_dim)
+    times, launches, losses = [], [], []
     for i in range(1, 1 + TRAIN_STEPS):
         batch = train_batch(data, i)
         torch.cuda.synchronize()
@@ -869,19 +963,18 @@ def phase_train():
         loss = metrics["loss"].item()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        launches.append(read_launches())
-        routes.append(read_flash_routes())
+        launches.append(read_train_launches())
         losses.append(loss)
         log(f"[train] step {i + 1}: {times[-1] * 1e3:.3f} ms, loss {loss:.4f}, grad_norm "
             f"{metrics['grad_norm'].item():.4f}, tokens {int(metrics['tokens'])}, launches "
-            f"{launches[-1]}, flash by route {routes[-1]}")
+            f"{launches[-1]}")
         if not (math.isfinite(loss) and torch.isfinite(metrics["grad_norm"])):
             raise AssertionError(f"train: non-finite loss or grad_norm at step {i + 1}")
         if int(metrics["tokens"]) != TRAIN_BATCH * TRAIN_SEQ:
             raise AssertionError(f"train: {int(metrics['tokens'])} tokens in step {i + 1}")
-        if launches[-1] != want or routes[-1] != want_routes:
-            raise AssertionError(f"train: launches {launches[-1]} by route {routes[-1]} in step "
-                                 f"{i + 1}, expected {want} and {want_routes}")
+        if launches[-1] != want:
+            raise AssertionError(f"train: launches {launches[-1]} in step {i + 1}, expected "
+                                 f"{want}")
     peak = torch.cuda.max_memory_allocated()
     if int(state["step"]) != 1 + TRAIN_STEPS:
         raise AssertionError(f"train: state step {int(state['step'])}, expected {1 + TRAIN_STEPS}")
@@ -903,7 +996,7 @@ def phase_train():
     del state, params
     return dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
                 model_flop_share=flops / step_s / PEAK_BF16_FLOPS, peak_bytes=peak,
-                launches=launches, routes=routes)
+                launches=launches)
 
 
 # Per served model, the launches each kernel must show in one serve of
@@ -938,6 +1031,7 @@ def phase_serve(arch):
     reset_launches()
     gen = generate(params, cfg, prompts, SERVE_NEW, cache_dtype=torch.bfloat16)
     launches, routes = read_launches(), read_flash_routes()
+    lse_launches = fa_kernel.flash_attention_fwd.lse_launches
     peak = torch.cuda.max_memory_allocated()
     steps = SERVE_NEW - 1
     log(f"[serve] {cfg.name}: {n_params} params bf16, {cfg.n_layers} layers, batch "
@@ -946,7 +1040,8 @@ def phase_serve(arch):
         f"{gen.decode_s * 1e3:.3f} ms = {gen.decode_s * 1e3 / steps:.3f} ms/step = "
         f"{SERVE_BATCH * steps / gen.decode_s:.1f} tokens/s; launches {launches} "
         f"(expected {SERVE_LAUNCHES[arch]}), flash by route {routes} (expected "
-        f"{SERVE_FLASH_ROUTES[arch]}); max_memory_allocated {peak} bytes")
+        f"{SERVE_FLASH_ROUTES[arch]}), {lse_launches} writing an lse; max_memory_allocated "
+        f"{peak} bytes")
     sample = gen.tokens[0, :16].tolist()
     log(f"[serve] {cfg.name} sample: {sample}")
     if len(set(sample)) == 1:
@@ -971,6 +1066,8 @@ def phase_serve(arch):
     if routes != SERVE_FLASH_ROUTES[arch]:
         raise AssertionError(f"serve {arch}: flash launches by route {routes}, "
                              f"expected {SERVE_FLASH_ROUTES[arch]}")
+    if lse_launches:
+        raise AssertionError(f"serve {arch}: {lse_launches} flash launches wrote an lse")
     return params, cfg, prompts, launches, routes
 
 
@@ -1127,62 +1224,129 @@ def phase_timings():
 
 
 def bwd_bound(case, dtype):
-    """Least time on the card for the backward: q, k, v, o and dout read
-    once, dq, dk and dv written once; the five products over the visible
-    pairs (S = Q K^T, dP = dout V^T, dV = P^T dout, dQ = dS K, dK = dS^T Q)
-    at the peak rate.  The larger of the two; and the FLOPs with stage (a)'s
-    recompute of Q K^T."""
+    """Least time on the card for the backward: q, k, v, o, dout and the
+    forward's f32 lse read once, dq, dk and dv written once; the five
+    products over the visible pairs (S = Q K^T, dP = dout V^T, dV = P^T dout,
+    dQ = dS K, dK = dS^T Q) at the peak rate.  The larger of the two."""
     B, Sq, Sk, H, KH, Dk, Dv = case[:7]
     item = torch.finfo(dtype).bits // 8
-    nbytes = item * (2 * B * Sq * H * (Dk + Dv) + 2 * B * Sk * KH * (Dk + Dv))
-    pairs = visible_pairs(case)
-    flops = 2 * pairs * (3 * Dk + 2 * Dv)
+    nbytes = (item * (2 * B * Sq * H * (Dk + Dv) + 2 * B * Sk * KH * (Dk + Dv))
+              + 4 * B * H * Sq)
+    flops = 2 * visible_pairs(case) * (3 * Dk + 2 * Dv)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops,
-            nbytes, (flops + 2 * pairs * Dk) / PEAK_BF16_FLOPS * 1e3)
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+# Profiler sessions ms_a_launch may take before it gives up.
+PROFILE_TRIES = 4
+
+
+def ms_a_launch(profile_once, symbols, calls):
+    """Device ms a launch of each kernel of ``symbols`` ({name: a part of its
+    symbol}), from the events (key_averages()) of profile_once(), which makes
+    ``calls`` calls under the profiler: each kernel's time over the launches
+    the profiler recorded.  It does not record every launch (it has missed
+    the first call's first kernels, and every launch of one kernel in a
+    session), so the divisor is the launches recorded, not the calls made,
+    and a session that recorded no launch of a kernel is taken again,
+    PROFILE_TRIES sessions at most; then it raises."""
+    for _ in range(PROFILE_TRIES):
+        events = profile_once()
+        hits = {name: [e for e in events if symbol in e.key] for name, symbol in symbols.items()}
+        counts = {name: sum(e.count for e in hit) for name, hit in hits.items()}
+        if any(n != calls for n in counts.values()):
+            log(f"[timings] the profiler recorded {counts} launches of {calls} calls")
+        if all(counts.values()):
+            return {name: sum(e.self_device_time_total for e in hit) / 1e3 / counts[name]
+                    for name, hit in hits.items()}
+    raise AssertionError(f"the profiler recorded no launch of one of {list(symbols)} in "
+                         f"{PROFILE_TRIES} sessions")
+
+
+def bwd_device_ms(case, calls=5):
+    """Device time a launch of each kernel of the backward (delta, dK/dV,
+    dQ) at a bf16 case, from the profiler over `calls` calls after 3
+    warm-ups (ms_a_launch)."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = case_inputs(case, torch.bfloat16, seed=0)
+    kw = case_kwargs(case)
+    o, lse = fa_kernel.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    dout = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(1),
+                       device="cuda").to(torch.bfloat16)
+    for _ in range(3):
+        fa_kernel.flash_attention_bwd(q, k, v, o, dout, lse, **kw)
+    torch.cuda.synchronize()
+
+    def profile_once():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fa_kernel.flash_attention_bwd(q, k, v, o, dout, lse, **kw)
+            torch.cuda.synchronize()
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    return ms_a_launch(profile_once, {"delta": "attn_bwd_delta", "dkdv": "attn_bwd_dkdv_wgmma",
+                                      "dq": "attn_bwd_dq_wgmma"}, calls)
 
 
 def phase_bwd_timings():
-    """The backward kernel at qwen3-1.7b's train shape, bf16, in turns with its
-    plain version and with the library's attention backward, by CUDA events
-    around back-to-back calls.  The library has no backward alone: its time
-    is SDPA forward + backward less SDPA forward, a yardstick only (the port
-    never calls it)."""
+    """The backward kernel at qwen3-1.7b's train shape, bf16 (its route as
+    route() names it), given the forward kernel's output and lse, in turns
+    with its plain version and with the library's attention backward, by
+    CUDA events around back-to-back calls; then kernel and library by device
+    time a call (device_ms); then each of its kernels' device time a launch
+    (delta, dK/dV, dQ: bwd_device_ms).  The library has no
+    backward alone: its time is SDPA forward + backward less SDPA forward, a
+    yardstick only (the port never calls it)."""
     case = QWEN3_TRAIN
     kw = case_kwargs(case)
     q, k, v = case_inputs(case, torch.bfloat16, seed=124)
-    o = fa_kernel.flash_attention_fwd(q, k, v, **kw)
+    o, lse = fa_kernel.flash_attention_fwd(q, k, v, with_lse=True, **kw)
     dout = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(125),
                        device="cuda").to(torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
     dt = dout.transpose(1, 2).contiguous()
+    route = fa_kernel.route(torch.bfloat16, case[5], case[6], backward=True)
 
     def sdpa_fwd():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
     def sdpa_fwd_bwd():
         return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
-    mine = fa_kernel.flash_attention_bwd(q, k, v, o, dout, **kw)
+
+    def kernel():
+        return fa_kernel.flash_attention_bwd(q, k, v, o, dout, lse, **kw)
     lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
-                  for a, b in zip(sdpa_fwd_bwd(), mine))
+                  for a, b in zip(sdpa_fwd_bwd(), kernel()))
     ms, times = in_turns({
-        "kernel": (lambda: fa_kernel.flash_attention_bwd(q, k, v, o, dout, **kw), 10),
-        "plain": (lambda: fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, **kw), 3),
+        "kernel": (kernel, 20),
+        "plain": (lambda: fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, lse=lse, **kw),
+                  3),
         "sdpa_fwd_bwd": (sdpa_fwd_bwd, 20),
         "sdpa_fwd": (sdpa_fwd, 20),
     })
     library = ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"]
-    bound_ms, bound_by, flops, nbytes, with_a_ms = bwd_bound(case, torch.bfloat16)
-    log(f"[timings] flash_attention_bwd, qwen3-1.7b train: q {tuple(q.shape)} k,v "
-        f"{tuple(k.shape)} bf16 causal, median of 4: kernel {ms['kernel']:.4f} ms; plain "
+    bound_ms, bound_by, flops, nbytes = bwd_bound(case, torch.bfloat16)
+    log(f"[timings] flash_attention_bwd, qwen3-1.7b train, route {route}: q {tuple(q.shape)} "
+        f"k,v {tuple(k.shape)} bf16 causal, median of 4: kernel {ms['kernel']:.4f} ms; plain "
         f"{ms['plain']:.4f} ms; scaled_dot_product_attention backward {library:.4f} ms (forward "
         f"+ backward {ms['sdpa_fwd_bwd']:.4f} less forward {ms['sdpa_fwd']:.4f}; its gradients "
         f"against the kernel's: max_abs_err {lib_err:.3e}); bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({flops:.3e} FLOP, {nbytes} bytes; {with_a_ms:.4f} ms with stage (a)'s "
-        "recompute of Q K^T)")
+        f"{bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
     log(f"[timings] all runs (ms): {json.dumps(times)}")
+    dev, dev_times = in_turns({"kernel": (kernel, 20), "sdpa_fwd_bwd": (sdpa_fwd_bwd, 20),
+                               "sdpa_fwd": (sdpa_fwd, 20)}, device_ms)
+    log(f"[timings] flash_attention_bwd, qwen3-1.7b train, device time a call, median of 4: "
+        f"kernel {dev['kernel']:.4f} ms; scaled_dot_product_attention backward "
+        f"{dev['sdpa_fwd_bwd'] - dev['sdpa_fwd']:.4f} ms (forward + backward "
+        f"{dev['sdpa_fwd_bwd']:.4f} less forward {dev['sdpa_fwd']:.4f}); all runs (ms): "
+        f"{json.dumps(dev_times)}")
+    stages = bwd_device_ms(case)
+    log(f"[timings] flash_attention_bwd, qwen3-1.7b train, device ms a launch by kernel "
+        f"(profiler): {json.dumps(stages)}")
     return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library)
+                library_ms=library, device_ms=dev["kernel"],
+                library_device_ms=dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"],
+                stage_device_ms=stages)
 
 
 def phase_wkv_timings():
@@ -1281,6 +1445,31 @@ def tile_sweep():
             f"it), fixed cost of an item {(t[1] - c) * 1e3:.3f} us")
 
 
+def bwd_tile_sweep():
+    """Per-step and fixed cost of the backward's tensor-core kernels, bf16 at
+    head dim 128, non-causal, 16 heads over 8, batch 8, each kernel's blocks
+    in one wave (64 dK/dV blocks, or 128 dQ blocks, at most the SMs): the
+    dK/dV kernel at Sk 128 with Sq 4096 and 8192 (128 and 256 q steps of 64
+    rows a block), the dQ kernel at Sq 128 with Sk 4096 and 8192 (64 and 128
+    kv steps of 64 a block).  Per step c = (t(long) - t(short)) / steps more,
+    and the tensor rate it implies for one SM (a dK/dV step is 4 products of
+    2 x 64 x 64 x 128 FLOP in each of 2 consumers, a dQ step 3)."""
+    for kernel, cases, steps, products in (
+            ("dkdv", [(8, s, 128, 16, 8, 128, 128, False, None, 0, None) for s in (4096, 8192)],
+             (128, 256), 4),
+            ("dq", [(8, 128, s, 16, 8, 128, 128, False, None, 0, None) for s in (4096, 8192)],
+             (64, 128), 3)):
+        t = [bwd_device_ms(c)[kernel] for c in cases]
+        c = (t[1] - t[0]) / (steps[1] - steps[0])
+        flops = 2 * products * 2 * 64 * 64 * 128
+        log(f"[sweep] backward {kernel}: {t[0]:.4f} ms at {steps[0]} steps a block, {t[1]:.4f} ms "
+            f"at {steps[1]}; per step {c * 1e3:.3f} us = {flops / c / 1e9:.3f} TFLOP/s on one "
+            f"SM (the card's peak is {PEAK_BF16_FLOPS / 132 / 1e12:.3f}); fixed "
+            f"{(t[0] - steps[0] * c) * 1e3:.3f} us")
+    log(f"[sweep] backward at qwen3-1.7b's train shape, device ms a launch by kernel: "
+        f"{json.dumps(bwd_device_ms(QWEN3_TRAIN))}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the GPU only",
@@ -1301,6 +1490,7 @@ def main() -> int:
     phase_build()
     if sweep:
         tile_sweep()
+        bwd_tile_sweep()
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
     fa_worst = phase_kernel_cases()
@@ -1331,7 +1521,7 @@ def main() -> int:
                 [{"model": arch, "launches": counts[kernel], **(timed or {}).get(arch, {})}
                  for arch, counts in by_path.items()])
 
-    log(f"[train] summary: {json.dumps({k: v for k, v in train.items() if k != 'routes'})}")
+    log(f"[train] summary: {json.dumps(train)}")
     fa_launches, fa_by_path = launches("flash_attention_fwd", fa_t)
     for entry in fa_by_path:
         entry["launches_by_route"] = routes_by_path[entry["model"]]
@@ -1343,8 +1533,12 @@ def main() -> int:
     n_train, train_entry = train_path("flash_attention_fwd")
     fa_launches += n_train
     fa_by_path.append({**train_entry, "launches_by_route": {
-        r: sum(c[r] for c in train["routes"]) for r in fa_kernel.ROUTES}})
+        r: sum(c["flash_attention_fwd by route"][r] for c in train["launches"])
+        for r in fa_kernel.ROUTES}})
     bwd_launches, bwd_entry = train_path("flash_attention_bwd")
+    bwd_entry["launches_by_route"] = {
+        r: sum(c["flash_attention_bwd by route"][r] for c in train["launches"])
+        for r in fa_kernel.ROUTES}
     wkv_launches, wkv_by_path = launches("rwkv6_wkv_fwd")
     scan_launches, scan_by_path = launches("rglru_scan_fwd")
     print(json.dumps({"kernels": [{
@@ -1367,11 +1561,16 @@ def main() -> int:
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_sm90.cu",
+        "sources": {"wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
+                             "flash_attention_bwd_sm90.cu",
+                    "simt": "src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention_bwd.cu"},
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82 (forward only: the Pallas "
                     "kernel has no backward; jax.grad differentiates the plain chunked "
                     "attention, src/repro/kernels/flash_attention/ops.py:36)",
         "launches": bwd_launches,
+        "launches_by_route": bwd_entry["launches_by_route"],
         "by_path": [bwd_entry],
         "max_abs_err": max(bwd_worst.values()),
         "max_abs_err_by_dtype": bwd_worst,

@@ -11,14 +11,14 @@
 // rounded once to the inputs' type.
 //
 // Layout: q, dq (B, Sq, H, Dk); k, dk (B, Sk, KH, Dk); v, dv (B, Sk, KH, Dv);
-// o, dout (B, Sq, H, Dv), all contiguous; lse and delta (B, H, Sq) f32
-// buffers that the caller allocates.
+// o, dout (B, Sq, H, Dv), all contiguous; lse and delta (B, H, Sq) f32, rows
+// ld elements apart: lse as the forward wrote it (each row's log-sum-exp over
+// the keys it sees, 0 where it sees none), delta a buffer the caller
+// allocates.
 //
-// Three kernels, run in order on the caller's stream by one entry point:
-//   (a) row statistics: one block per (q tile, head, batch) recomputes each
-//       row's log-sum-exp lse = m + log(l) with the forward's online max and
-//       sum over the visible kv tiles (the forward kernels return no lse),
-//       and delta = rowsum(dout * o);
+// Three kernels, run in order on the caller's stream:
+//   (a) delta = rowsum(dout * o), a warp a row, its own entry point
+//       (flash_attention_bwd_delta), which the tensor-core route shares;
 //   (b) dk, dv: one block per (kv tile, kv head, batch) walks the query
 //       heads of its GQA group and the q tiles that can see the tile, with
 //       P = exp(S - lse) under the masks and dS = P * (dP - delta), dP =
@@ -26,9 +26,9 @@
 //       the group's sum needs no atomics;
 //   (c) dq: one block per (q tile, head, batch) walks the visible kv tiles
 //       and keeps dq += dS K in registers.
-// (b) and (c) each recompute S and dP: eight products over the visible
+// (b) and (c) each recompute S and dP: seven products over the visible
 // pairs where five would do, in exchange for no atomics and no buffer
-// beyond lse and delta.
+// beyond delta.
 //
 // What bounds it.  At qwen3-1.7b's train shape (q 8x1024x16x128, k/v
 // 8x1024x8x128, bf16, causal) the gradient needs five products over the
@@ -39,31 +39,42 @@
 // shared memory that feeds it: each thread keeps a register tile of each
 // product so that a value read from shared memory feeds several FMAs, and
 // rows in shared memory are padded to odd strides so that a warp's reads
-// fall in distinct banks.  Tensor cores (wgmma, TMA) are a later redesign.
+// fall in distinct banks.  route() in kernel.py sends bf16 at head dims
+// (128, 128) to the tensor-core route (flash_attention_bwd_sm90.cu) and
+// everything else here; f32 stays here, held to 1e-5 of the plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include <type_traits>
+
+// BF16_ON_WGMMA: route()'s rule for this library, a condition on DK and DV
+// that kernel.py's build defines (route_condition), true where route()
+// sends bf16 to the tensor-core entry point.  No SIMT kernel is compiled
+// for those.
+#ifndef BF16_ON_WGMMA
+#error "BF16_ON_WGMMA is not defined: build this library through kernel.py"
+#endif
+
 namespace {
 
 constexpr int kThreads = 128;      // 4 warps
 constexpr int kTY = 16;            // threads laid out 16 (rows) x 8 (columns)
 constexpr int kTX = 8;             //   for every product
-constexpr float kNegInf = -1e30f;  // start of the running max, as in the forward
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const void* o;
   const void* dout;
   void* dq;
   void* dk;
   void* dv;
-  float* lse;    // (B, H, Sq)
-  float* delta;  // (B, H, Sq)
+  const float* lse;    // (B, H, Sq), rows ld apart
+  const float* delta;  // (B, H, Sq), rows ld apart
+  int ld;
   int B, Sq, Sk, H, KH;
   int causal;
   int window;    // <= 0: no sliding window
@@ -171,107 +182,25 @@ __device__ __forceinline__ void kv_span(const Params& p, int first, int last, in
   begin = p.window > 0 ? max(0, first - p.window + 1) : 0;
 }
 
-// (a) lse and delta of each row of one (q tile, head, batch).
-template <typename T, int DK, int DV, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads) attn_bwd_stats(const Params p) {
-  constexpr int RQ = BQ / kTY, CS = BK / kTX, TPR = kThreads / BQ;
-  constexpr int kQS = DK + 1, kKS = DK + 1, kPS = BK + 1;
-  static_assert(BQ % kTY == 0 && BK % kTX == 0, "tile shape");
-  static_assert(kThreads % BQ == 0 && 32 % TPR == 0 && BK % TPR == 0, "softmax split");
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * kQS;
-  float* sP = sK + BK * kKS;
-  float* sM = sP + BQ * kPS;
-  float* sL = sM + BQ;
-
-  const T* __restrict__ q = static_cast<const T*>(p.q);
-  const T* __restrict__ k = static_cast<const T*>(p.k);
-  const T* __restrict__ o = static_cast<const T*>(p.o);
-  const T* __restrict__ dout = static_cast<const T*>(p.dout);
-
-  const int tid = threadIdx.x, ty = tid / kTX, tx = tid % kTX;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tile first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KH);
-  const int nq = min(BQ, p.Sq - q0);
-  const int q_first = p.q_offset + q0;
-  const size_t q_row = (size_t)p.H * DK, k_row = (size_t)p.KH * DK, o_row = (size_t)p.H * DV;
-  const size_t stat = ((size_t)b * p.H + h) * p.Sq + q0;
-
-  load_tile<T, BQ, DK>(sQ, kQS, q, ((size_t)b * p.Sq + q0) * q_row + (size_t)h * DK, q_row, nq);
-  for (int r = tid; r < BQ; r += kThreads) {
-    sM[r] = kNegInf;
-    sL[r] = 0.f;
+// (a) delta = rowsum(dout * o) of each of the B Sq H rows, a warp a row,
+// lanes over the columns.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    attn_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+                   int ld, int Sq, int H, int Dv, long long rows) {
+  const int lane = threadIdx.x % 32;
+  for (long long row = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32; row < rows;
+       row += (long long)gridDim.x * (kThreads / 32)) {
+    const size_t base = (size_t)row * Dv;  // row = (b Sq + q) H + h
+    float acc = 0.f;
+    for (int d = lane; d < Dv; d += 32)
+      acc = fmaf(load_f32(dout, base + d), load_f32(o, base + d), acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    const int h = (int)(row % H);
+    const long long bq = row / H;
+    if (lane == 0) delta[((bq / Sq) * H + h) * (size_t)ld + bq % Sq] = acc;
   }
-
-  // delta = rowsum(dout * o): a warp a row, lanes over the columns.
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    const size_t base = ((size_t)b * p.Sq + q0) * o_row + (size_t)h * DV;
-    for (int r = warp; r < nq; r += kThreads / 32) {
-      float acc = 0.f;
-      for (int d = lane; d < DV; d += 32)
-        acc = fmaf(load_f32(dout, base + r * o_row + d), load_f32(o, base + r * o_row + d), acc);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) p.delta[stat + r] = acc;
-    }
-  }
-
-  int kv_begin, kv_end;
-  kv_span(p, q_first, q_first + nq - 1, kv_begin, kv_end);
-  const int t_begin = kv_begin / BK;
-  const int t_end = kv_end > kv_begin ? (kv_end + BK - 1) / BK : t_begin;
-  const size_t k_base = (size_t)b * p.Sk * k_row + (size_t)kvh * DK;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers are done with sK and sP
-    load_tile<T, BK, DK>(sK, kKS, k, k_base + (size_t)k0 * k_row, k_row, min(BK, p.Sk - k0));
-    __syncthreads();
-    float s[RQ][CS];
-    zero(s);
-    mma_abt<RQ, CS, DK>(s, sQ, kQS, sK, kKS, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int r = ty + kTY * i;
-#pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        const int c = tx + kTX * j;
-        sP[r * kPS + c] =
-            r < nq && visible(p, q_first + r, k0 + c) ? s[i][j] * p.scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-    // Online max and sum over this tile: TPR neighbouring threads share a row.
-    {
-      const int r = tid / TPR, part = tid % TPR;
-      const float* row = sP + r * kPS;
-      float mx = -INFINITY;
-      for (int c = part; c < BK; c += TPR) mx = fmaxf(mx, row[c]);
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = part; c < BK; c += TPR) sum += row[c] == -INFINITY ? 0.f : expf(row[c] - m_new);
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();  // every thread of the row has read sM[r] before it changes
-      if (part == 0) {
-        sL[r] = expf(m_prev - m_new) * sL[r] + sum;
-        sM[r] = m_new;
-      }
-    }
-  }
-  __syncthreads();  // sM and sL are final, also when no tile was visible
-  // A row that sees no key keeps l = 0; its lse is never read (its P is
-  // masked to 0), so it is written as 0.
-  for (int r = tid; r < nq; r += kThreads)
-    p.lse[stat + r] = sL[r] > 0.f ? sM[r] + logf(sL[r]) : 0.f;
 }
 
 // S and dP of one (BQ x BK) tile pair, then P = exp(S * scale - lse) and
@@ -370,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv(const Params p) {
                            nq);
       load_tile<T, BQ, DV>(sdO, kOS, dout, ((size_t)b * p.Sq + q0) * o_row + (size_t)h * DV,
                            o_row, nq);
-      load_stats(sLse, sDelta, p, ((size_t)b * p.H + h) * p.Sq + q0, nq, BQ);
+      load_stats(sLse, sDelta, p, ((size_t)b * p.H + h) * p.ld + q0, nq, BQ);
       __syncthreads();
       probs_and_dscores<RQ, CS, DK, DV>(p, sQ, kQS, sK, kQS, sdO, kOS, sV, kOS, sLse, sDelta, sP,
                                         sdS, kPS, p.q_offset + q0, nq, k0, ty, tx);
@@ -429,7 +358,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq(const Params p) {
   load_tile<T, BQ, DK>(sQ, kQS, q, q_base, q_row, nq);
   load_tile<T, BQ, DV>(sdO, kOS, dout, ((size_t)b * p.Sq + q0) * o_row + (size_t)h * DV, o_row,
                        nq);
-  load_stats(sLse, sDelta, p, ((size_t)b * p.H + h) * p.Sq + q0, nq, BQ);
+  load_stats(sLse, sDelta, p, ((size_t)b * p.H + h) * p.ld + q0, nq, BQ);
 
   int kv_begin, kv_end;
   kv_span(p, q_first, q_first + nq - 1, kv_begin, kv_end);
@@ -470,28 +399,28 @@ cudaError_t launch_one(Kernel kernel, dim3 grid, size_t bytes, const Params& p,
   return cudaGetLastError();
 }
 
-// The three kernels in order.  Tiles (rows x rows): (a) BQ x BK as the
-// forward's SIMT route; (b) BKV kv rows a block, BQB query rows a step; (c)
-// BQ query rows a block, BK kv rows a step.  Each keeps its register tiles
-// at 64 floats a thread or fewer for the accumulators.
+// (b) then (c).  Tiles (rows x rows): (b) BKV kv rows a block, BQB query
+// rows a step; (c) BQ query rows a block, BK kv rows a step.  Each keeps its
+// register tiles at 64 floats a thread or fewer for the accumulators.
 template <typename T, int DK, int DV, int BQ, int BK, int BQB, int BKV>
 cudaError_t launch(const Params& p, cudaStream_t s) {
-  constexpr int kQS = DK + 1, kOS = DV + 1;
-  const size_t stats_bytes = sizeof(float) * ((size_t)BQ * kQS + BK * kQS + BQ * (BK + 1) + 2 * BQ);
-  const size_t dkdv_bytes =
-      sizeof(float) * ((size_t)BKV * (kQS + kOS) + BQB * (kQS + kOS) + 2 * BQB * (BKV + 1) + 2 * BQB);
-  const size_t dq_bytes =
-      sizeof(float) * ((size_t)BQ * (kQS + kOS) + BK * (kQS + kOS) + BQ * (BK + 1) + 2 * BQ);
-  const dim3 q_grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  const dim3 kv_grid((p.Sk + BKV - 1) / BKV, p.KH, p.B);
-  cudaError_t err = launch_one(attn_bwd_stats<T, DK, DV, BQ, BK>, q_grid, stats_bytes, p, s);
-  if (err != cudaSuccess) return err;
-  err = launch_one(attn_bwd_dkdv<T, DK, DV, BQB, BKV>, kv_grid, dkdv_bytes, p, s);
-  if (err != cudaSuccess) return err;
-  return launch_one(attn_bwd_dq<T, DK, DV, BQ, BK>, q_grid, dq_bytes, p, s);
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && (BF16_ON_WGMMA)) {
+    return cudaErrorInvalidValue;  // never sent here
+  } else {
+    constexpr int kQS = DK + 1, kOS = DV + 1;
+    const size_t dkdv_bytes = sizeof(float) * ((size_t)BKV * (kQS + kOS) + BQB * (kQS + kOS) +
+                                               2 * BQB * (BKV + 1) + 2 * BQB);
+    const size_t dq_bytes =
+        sizeof(float) * ((size_t)BQ * (kQS + kOS) + BK * (kQS + kOS) + BQ * (BK + 1) + 2 * BQ);
+    const dim3 q_grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
+    const dim3 kv_grid((p.Sk + BKV - 1) / BKV, p.KH, p.B);
+    cudaError_t err = launch_one(attn_bwd_dkdv<T, DK, DV, BQB, BKV>, kv_grid, dkdv_bytes, p, s);
+    if (err != cudaSuccess) return err;
+    return launch_one(attn_bwd_dq<T, DK, DV, BQ, BK>, q_grid, dq_bytes, p, s);
+  }
 }
 
-// Keep the pairs in step with BWD_HEAD_DIMS in kernel.py.
+// The pairs are BWD_HEAD_DIMS in kernel.py.
 template <typename T>
 cudaError_t dispatch(const Params& p, int dk, int dv, cudaStream_t s) {
   if (dk == 16 && dv == 16) return launch<T, 16, 16, 64, 64, 32, 64>(p, s);
@@ -503,25 +432,46 @@ cudaError_t dispatch(const Params& p, int dk, int dv, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  lse and delta: (B, H, Sq) f32 buffers.
-// Returns the first CUDA error of the three launches (0 on success), or
-// cudaErrorInvalidValue for arguments the kernels do not take.
-extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                   const void* dout, void* dq, void* dk, void* dv, float* lse,
-                                   float* delta, int dtype, int B, int Sq, int Sk, int H, int KH,
-                                   int Dk, int Dv, int causal, int window, int q_offset,
-                                   int kv_len, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 ||
-      H > 65535 || kv_len < 0 || kv_len > Sk)
+// (a), for either route.  dtype: 0 float32, 1 bfloat16; delta: (B, H, Sq)
+// f32, rows ld apart.  Returns cudaGetLastError() after the launch.
+extern "C" int flash_attention_bwd_delta(const void* o, const void* dout, float* delta, int ld,
+                                         int dtype, int B, int Sq, int H, int Dv,
+                                         void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0 || Dv <= 0 || ld < Sq) return cudaErrorInvalidValue;
+  const long long rows = (long long)B * Sq * H, blocks = (rows + 3) / 4;  // 4 warps a block
+  const int grid = static_cast<int>(blocks < 65536 ? blocks : 65536);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    attn_bwd_delta<<<grid, kThreads, 0, s>>>(static_cast<const float*>(o),
+                                             static_cast<const float*>(dout), delta, ld, Sq, H,
+                                             Dv, rows);
+  else if (dtype == 1)
+    attn_bwd_delta<<<grid, kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(o),
+                                             static_cast<const __nv_bfloat16*>(dout), delta, ld,
+                                             Sq, H, Dv, rows);
+  else
     return cudaErrorInvalidValue;
-  const Params p{q,  k,  v,  o,  dout, dq,     dk,     dv,       lse,    delta,
-                 B,  Sq, Sk, H,  KH,   causal, window, q_offset, kv_len, scale};
+  return cudaGetLastError();
+}
+
+// (b) and (c), the SIMT route's entry point.  dtype: 0 float32, 1 bfloat16;
+// lse and delta: (B, H, Sq) f32, rows ld apart, delta written by
+// flash_attention_bwd_delta before.  Returns the first CUDA error of the two
+// launches (0 on success), or cudaErrorInvalidValue for arguments the
+// kernels do not take.
+extern "C" int flash_attention_bwd_simt(const void* q, const void* k, const void* v,
+                                        const void* dout, void* dq, void* dk, void* dv,
+                                        const float* lse, const float* delta, int ld, int dtype,
+                                        int B, int Sq, int Sk, int H, int KH, int Dk, int Dv,
+                                        int causal, int window, int q_offset, int kv_len,
+                                        float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 ||
+      H > 65535 || kv_len < 0 || kv_len > Sk || ld < Sq)
+    return cudaErrorInvalidValue;
+  const Params p{q,  k,  v,  dout, dq,     dk,     dv,       lse,    delta, ld,
+                 B,  Sq, Sk, H,    KH,     causal, window,   q_offset, kv_len, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(p, Dk, Dv, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(p, Dk, Dv, s);
   return cudaErrorInvalidValue;
-}
-
-extern "C" const char* flash_attention_bwd_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

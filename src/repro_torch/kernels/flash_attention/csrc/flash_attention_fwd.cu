@@ -30,12 +30,16 @@
 // a warp's reads fall in distinct banks.  Nothing but q, k, v and o touches
 // device memory.  Causal q tiles are launched heaviest first.
 //
-// Two routes.  bf16 at (Dk, Dv) = (128, 128) and (256, 256), the served
-// shapes, goes to the tensor-core kernel in flash_attention_fwd_sm90.cu
-// (wgmma, TMA); everything else comes here: f32 at every head dim (its
-// callers hold it to 1e-5 of the plain version, which TF32 would not meet)
-// and bf16 at the other head dims.  The rule is fixed by dtype and head dims
-// and matches route() in kernel.py; neither route falls back to the other.
+// Two routes, each its own entry point.  route() in kernel.py, the rule's
+// only copy, sends bf16 at (Dk, Dv) = (128, 128) and (256, 256), the served
+// shapes, to the tensor-core kernel in flash_attention_fwd_sm90.cu (wgmma,
+// TMA) and everything else here: f32 at every head dim (its callers hold it
+// to 1e-5 of the plain version, which TF32 would not meet) and bf16 at the
+// other head dims.  Neither route falls back to the other.
+//
+// When the caller passes an lse buffer (training), each row's log-sum-exp
+// m + log(l) over the keys it sees goes there for the backward, 0 where it
+// sees none.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,6 +47,14 @@
 #include <stddef.h>
 
 #include <type_traits>
+
+// BF16_ON_WGMMA: route()'s rule for this library, a condition on DK and DV
+// that kernel.py's build defines (route_condition), true where route()
+// sends bf16 to the tensor-core entry point.  No SIMT kernel is compiled
+// for those.
+#ifndef BF16_ON_WGMMA
+#error "BF16_ON_WGMMA is not defined: build this library through kernel.py"
+#endif
 
 namespace {
 
@@ -56,6 +68,8 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;    // (B, H, Sq) rows lse_ld apart, or nullptr: nothing written
+  int lse_ld;
   int B, Sq, Sk, H, KH;
   int causal;
   int window;    // <= 0: no sliding window
@@ -262,24 +276,31 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(const Params p) {
     for (int j = 0; j < CV; ++j)
       store_f32(o, o_base + r * o_row + tx + kTX * j, l > 0.f ? acc[i][j] / l : 0.f);
   }
+  if (p.lse != nullptr)
+    for (int r = tid; r < nq; r += kThreads)
+      p.lse[((size_t)b * p.H + h) * p.lse_ld + q0 + r] = sL[r] > 0.f ? sM[r] + logf(sL[r]) : 0.f;
 }
 
 template <typename T, int DK, int DV, int BQ, int BK>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  using L = Layout<DK, DV, BQ, BK>;
-  auto kernel = attn_fwd<T, DK, DV, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  kernel<<<grid, kThreads, L::kBytes, stream>>>(p);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && (BF16_ON_WGMMA)) {
+    return cudaErrorInvalidValue;  // never sent here
+  } else {
+    using L = Layout<DK, DV, BQ, BK>;
+    auto kernel = attn_fwd<T, DK, DV, BQ, BK>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
+    kernel<<<grid, kThreads, L::kBytes, stream>>>(p);
+    return cudaGetLastError();
+  }
 }
 
 // Tiles per head-dim pair: BQ x BK = 64 x 64 up to Dk 64, 64 x 32 at Dk 80,
 // 96 and 128, 32 x 32 at 256.  That keeps acc at 64 registers a thread or fewer
-// and lets two or more blocks share an SM.  Keep the pairs in step with
-// HEAD_DIMS and route() in kernel.py.
+// and lets two or more blocks share an SM.  The pairs are HEAD_DIMS in
+// kernel.py.
 template <typename T>
 cudaError_t dispatch(const Params& p, int dk, int dv, cudaStream_t s) {
   if (dk == 16 && dv == 16) return launch<T, 16, 16, 64, 64>(p, s);
@@ -287,42 +308,29 @@ cudaError_t dispatch(const Params& p, int dk, int dv, cudaStream_t s) {
   if (dk == 64 && dv == 64) return launch<T, 64, 64, 64, 64>(p, s);
   if (dk == 80 && dv == 80) return launch<T, 80, 80, 64, 32>(p, s);
   if (dk == 96 && dv == 64) return launch<T, 96, 64, 64, 32>(p, s);
-  if constexpr (std::is_same_v<T, float>) {  // bf16 takes the tensor-core route here
-    if (dk == 128 && dv == 128) return launch<T, 128, 128, 64, 32>(p, s);
-    if (dk == 256 && dv == 256) return launch<T, 256, 256, 32, 32>(p, s);
-  }
+  if (dk == 128 && dv == 128) return launch<T, 128, 128, 64, 32>(p, s);
+  if (dk == 256 && dv == 256) return launch<T, 256, 256, 32, 32>(p, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B,
-                             int Sq, int Sk, int H, int KH, int Dk, int Dv, int causal,
-                             int window, int q_offset, int kv_len, float scale,
-                             cudaStream_t s);
-const char* flash_attention_fwd_sm90_error_string(int err);
-
-// dtype: 0 float32, 1 bfloat16.  Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for arguments the kernel does not
-// take.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int Sq, int Sk, int H, int KH,
-                                   int Dk, int Dv, int causal, int window, int q_offset,
-                                   int kv_len, float scale, void* stream) {
+// The SIMT route's entry point.  dtype: 0 float32, 1 bfloat16.  lse: (B, H,
+// Sq) f32, rows lse_ld apart, or nullptr.  Returns cudaGetLastError() after
+// the launch (0 on success), or cudaErrorInvalidValue for arguments the
+// kernel does not take.
+extern "C" int flash_attention_fwd_simt(const void* q, const void* k, const void* v, void* o,
+                                        float* lse, int lse_ld, int dtype, int B, int Sq,
+                                        int Sk, int H, int KH, int Dk, int Dv, int causal,
+                                        int window, int q_offset, int kv_len, float scale,
+                                        void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 || H > 65535 ||
-      kv_len < 0 || kv_len > Sk)
+      kv_len < 0 || kv_len > Sk || (lse != nullptr && lse_ld < Sq))
     return cudaErrorInvalidValue;
-  const Params p{q, k, v, o, B, Sq, Sk, H, KH, causal, window, q_offset, kv_len, scale};
+  const Params p{q,  k, v,  o,      lse,    lse_ld,   B,      Sq,
+                 Sk, H, KH, causal, window, q_offset, kv_len, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(p, Dk, Dv, s);
-  if (dtype == 1 && ((Dk == 128 && Dv == 128) || (Dk == 256 && Dv == 256)))
-    return flash_attention_fwd_sm90(q, k, v, o, B, Sq, Sk, H, KH, Dk, Dv, causal, window,
-                                    q_offset, kv_len, scale, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(p, Dk, Dv, s);
   return cudaErrorInvalidValue;
-}
-
-extern "C" const char* flash_attention_fwd_error_string(int err) {
-  if (const char* msg = flash_attention_fwd_sm90_error_string(err)) return msg;
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

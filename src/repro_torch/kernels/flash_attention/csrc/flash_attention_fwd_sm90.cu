@@ -1,16 +1,17 @@
 // Flash attention, forward, on the Hopper tensor cores (sm_90a).
 //
-// The bf16 route of flash_attention_fwd at head dims (Dk, Dv) = (128, 128)
-// and (256, 256); every other dtype and head dim goes to attn_fwd in
-// flash_attention_fwd.cu, whose C entry point dispatches here.  Like that
-// kernel it replaces the Pallas TPU kernel
+// The route of flash_attention_fwd that route() in kernel.py sends bf16 at
+// head dims (Dk, Dv) = (128, 128) and (256, 256) to; everything else goes to
+// attn_fwd in flash_attention_fwd.cu.  Like that kernel it replaces the
+// Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py :: flash_attention_kernel
 // (body _attn_kernel) and computes what it computes: online softmax with f32
 // running max m, denominator l and accumulator; head h reads kv head
 // h / (H / KH); causal, sliding-window, kv_len and q_offset masks; tiles that
 // no (query, key) pair can see are skipped; a row that sees no key outputs 0.
 // Layout: q (B, Sq, H, D), k and v (B, Sk, KH, D), o (B, Sq, H, D), bf16,
-// contiguous.
+// contiguous.  When the caller passes an lse buffer (training), each row's
+// log-sum-exp over the keys it sees goes there, for the backward.
 //
 // What bounds it.  At the served prefill shapes the function needs 3.4e10
 // FLOP (qwen3-1.7b, q 8x1024x16x128) and 8.3e11 FLOP (recurrentgemma-2b, q
@@ -45,24 +46,20 @@
 // 128 x 64 at D 256: Q 64 KB + 2 stages x (K 32 KB + V 32 KB) = 192 KB of
 // shared memory.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int kThreads = 384;   // three warpgroups: producer, two consumers
 constexpr int kBQ = 128;        // query rows of a work item, 64 per consumer
-constexpr int kChunk = 64;      // bf16 elements in one 128-byte swizzle row
-constexpr int kRowBytes = 128;
 constexpr int kStages = 2;
-// Returned, or'ed with the CUresult, when a tensor map cannot be encoded.
-constexpr int kTensorMapError = 1 << 16;
 
 struct Args {
   __nv_bfloat16* o;
+  float* lse;      // (B, H, Sq) rows lse_ld apart, or nullptr: nothing written
+  int lse_ld;
   int B, Sq, H, KH;
   int causal;
   int window;      // <= 0: no sliding window
@@ -86,188 +83,6 @@ struct Smem {
   static constexpr int kBars = 2 + 4 * kStages;
   static constexpr int kBytes = kBarOff + 8 * kBars + 1024;  // + room to align the base
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Whether the phase of parity `parity` has completed (after a short wait in
-// the hardware).
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Returns once the phase of parity `parity` has completed.  (A bounded wait
-// that traps on timeout makes ptxas 12.9 ignore setmaxnreg and spill.)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-// One box of a 4-D tensor map, at coordinates (d, head, row, batch), into
-// shared memory; its bytes complete on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int d, int head, int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// wgmma's shared-memory matrix descriptor, 128-byte swizzle.  For a K-major
-// operand (Q, K) the stride byte offset (SBO) steps from one group of 8 rows
-// to the next (8 x 128 bytes) and the leading byte offset is unused; for an
-// MN-major operand (V) SBO steps over 8 rows of k and LBO from one 64-element
-// chunk of the N dimension to the next.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Waits until at most N committed groups of this warpgroup are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous products that own it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define D8(i)                                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// S (64 x 64) = A (64 x 16) B^T (+ S if accumulate), A and B K-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        D8(0), D8(8), D8(16), D8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// S (64 x 128) = A (64 x 16) B^T (+ S if accumulate), A and B K-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// O (64 x 128) += A (64 x 16) B, A in registers, B MN-major in shared memory
-// (the last 1: B transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O (64 x 256) += A (64 x 16) B, A in registers, B MN-major in shared memory
-// (the last 1: B transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      :
-        D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
-        D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-#undef D8
-
-// Accumulator fragments of wgmma m64nN (f32): thread t of the warpgroup, in
-// warp w = t / 32 with lane = 4 g + c, holds for each 8-column block j the
-// values d[4j + 2h + e] at row 16 w + g + 8 h and column 8 j + 2 c + e
-// (h, e in {0, 1}).  The A operand of m64n?k16 from registers has the same
-// shape for its 16 columns, so S's block pair (2 kk, 2 kk + 1) packed as bf16
-// pairs is P's A fragment for k-step kk.
-
-// Issues S = Q K^T over D in k16 steps; step kk reads 32 bytes into chunk
-// kk / 4 of Q's 64 rows (q_smem) and of the K tile (k_smem).
-template <int DK, int BK>
-__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_smem, uint32_t k_smem) {
-#pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk) {
-    const uint32_t step = (kk % 4) * 32;
-    wgmma_ss(sc, smem_desc(q_smem + (kk / 4) * kBQ * kRowBytes + step, 16, 8 * kRowBytes),
-             smem_desc(k_smem + (kk / 4) * BK * kRowBytes + step, 16, 8 * kRowBytes), kk > 0);
-  }
-}
-
-// Issues O += P V over the tile's keys in k16 steps; step kk reads keys
-// 16 kk .. 16 kk + 15 of the V tile, 2048 bytes on.
-template <int DV, int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&p)[BK / 16][4],
-                                         uint32_t v_smem) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs(o, p[kk], smem_desc(v_smem + kk * 16 * kRowBytes, BK * kRowBytes, 8 * kRowBytes));
-}
 
 // Masks and online softmax of one tile's scores, for this thread's two rows
 // (qpos0 and qpos0 + 8) and the keys from k0: updates the running max m,
@@ -318,19 +133,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2],
         rs[hh] += x;
       }
   }
-}
-
-// P's A fragments from the weights softmax_tile left in sc (exact: they are
-// bf16 values already).
-template <int BK>
-__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2], uint32_t (&p)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const __nv_bfloat162 pk = __floats2bfloat162_rn(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-      p[kk][r] = *reinterpret_cast<const uint32_t*>(&pk);
-    }
 }
 
 // One work item: 128 query rows of one (b, h), and the kv tiles that some
@@ -460,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = g % kStages;
         mbar_wait(full_k(s), (g / kStages) & 1);
         wgmma_fence();
-        issue_qk<DK, BK>(sc, q_smem, k_smem(s));
+        issue_qk<DK, BK, kBQ>(sc, q_smem, k_smem(s));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
@@ -473,7 +275,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int gi = g + t - it.t_begin, s = gi % kStages, sp = (gi - 1) % kStages;
         mbar_wait(full_k(s), (gi / kStages) & 1);
         wgmma_fence();
-        issue_qk<DK, BK>(sc, q_smem, k_smem(s));
+        issue_qk<DK, BK, kBQ>(sc, q_smem, k_smem(s));
         wgmma_commit();
         mbar_wait(full_v(sp), ((gi - 1) / kStages) & 1);
         fence_regs(o);
@@ -511,7 +313,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       g += it.t_end - it.t_begin;
 
-      // O / l, or 0 where the row saw no key.
+      // O / l, or 0 where the row saw no key; and, when asked, the row's
+      // lse = m sqrt(Dk)^-1 + log(l), 0 where it saw no key.
       const int col0 = 2 * (lane % 4);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -521,6 +324,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int r = row0 + 8 * hh;
         if (r >= it.nq) continue;
         const float inv = sum > 0.f ? 1.f / sum : 0.f;
+        if (a.lse != nullptr && col0 == 0)
+          a.lse[((size_t)it.b * a.H + it.h) * a.lse_ld + it.q0 + r] =
+              sum > 0.f ? (m[hh] * a.scale_log2 + log2f(sum)) * 0.6931471805599453f : 0.f;
         __nv_bfloat16* out =
             a.o + ((size_t)it.b * a.Sq + it.q0 + r) * a.H * DV + (size_t)it.h * DV + col0;
 #pragma unroll
@@ -530,41 +336,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled (its CUDA 12.0 signature), through the
-// runtime, so that the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A 4-D map over a contiguous bf16 (B, S, heads, D) tensor, innermost first,
-// whose box is 64 elements of D x 1 head x `rows` rows x 1 batch, with the
-// 128-byte swizzle.  Out-of-range rows are filled with zeros.
-CUresult encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kChunk, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <int DK, int DV, int BK>
@@ -593,26 +364,30 @@ int launch(const void* q, const void* k, const void* v, const Args& a, int Sk,
 
 }  // namespace
 
-// The bf16 tensor-core route, called by flash_attention_fwd's C entry point
-// for the (Dk, Dv) pairs below; keep them in step with WGMMA_HEAD_DIMS in
-// kernel.py.  Returns cudaGetLastError() after the launch, cudaErrorInvalidValue
-// for head dims it does not take, or kTensorMapError | CUresult when a tensor
-// map cannot be encoded (an address not 16-byte aligned, say): see
-// flash_attention_fwd_sm90_error_string.
-int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B,
-                             int Sq, int Sk, int H, int KH, int Dk, int Dv, int causal,
-                             int window, int q_offset, int kv_len, float scale,
-                             cudaStream_t s) {
-  const Args a{static_cast<__nv_bfloat16*>(o), B, Sq, H, KH, causal, window, q_offset, kv_len,
-               scale * 1.4426950408889634f};
+// The tensor-core route's entry point, bf16 only; route() in kernel.py
+// decides which launches come here.  lse: (B, H, Sq) f32, rows lse_ld apart,
+// or nullptr.  Returns cudaGetLastError() after the launch,
+// cudaErrorInvalidValue for arguments it does not take, or
+// kTensorMapError | CUresult when a tensor map cannot be encoded (an address
+// not 16-byte aligned, say): see flash_attention_fwd_error_string.
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                                         float* lse, int lse_ld, int B, int Sq, int Sk, int H,
+                                         int KH, int Dk, int Dv, int causal, int window,
+                                         int q_offset, int kv_len, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || kv_len < 0 || kv_len > Sk ||
+      (lse != nullptr && lse_ld < Sq))
+    return cudaErrorInvalidValue;
+  const Args a{static_cast<__nv_bfloat16*>(o), lse, lse_ld, B, Sq, H, KH, causal, window,
+               q_offset, kv_len, scale * 1.4426950408889634f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dk == 128 && Dv == 128) return launch<128, 128, 128>(q, k, v, a, Sk, s);
   if (Dk == 256 && Dv == 256) return launch<256, 256, 64>(q, k, v, a, Sk, s);
   return cudaErrorInvalidValue;
 }
 
-// The message for a code of flash_attention_fwd_sm90's own, else nullptr.
-const char* flash_attention_fwd_sm90_error_string(int err) {
+// The message for any code the forward library's entry points return.
+extern "C" const char* flash_attention_fwd_error_string(int err) {
   if (err & kTensorMapError)
     return "cuTensorMapEncodeTiled refused a tensor map (its CUresult is the code's low 16 bits)";
-  return nullptr;
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -2,8 +2,9 @@
 
 * ``flash_attention`` — the entry point the models call.  A CUDA tensor goes
   through ``FlashAttention``: forward by the hand-written kernel
-  (``kernel.flash_attention_fwd``), gradient by the backward kernel
-  (``kernel.flash_attention_bwd``), whether or not grad is on.  A CPU tensor
+  (``kernel.flash_attention_fwd``, which also writes each row's lse when an
+  input requires grad), gradient by the backward kernel
+  (``kernel.flash_attention_bwd``, which reads it).  A CPU tensor
   goes to ``chunked_attention``, which torch differentiates.  There is no
   other switch.
 * ``chunked_attention`` — the kernel's plain PyTorch version: the same online
@@ -104,23 +105,25 @@ def decode_attention(q, k_cache, v_cache, length: int):
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention with a kernel each way: the forward saves q, k, v and its
-    output, and the backward hands them with the output's gradient to the
-    backward kernel.  The masks take no gradient."""
+    """Attention with a kernel each way.  When an input requires grad, the
+    forward kernel also writes each row's lse, and the forward saves q, k,
+    v, its output and the lse for the backward kernel; otherwise (serving)
+    it writes and saves nothing.  The masks take no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
-        o = flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                                kv_len=kv_len)
-        ctx.save_for_backward(q, k, v, o)
         ctx.masks = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention_fwd(q, k, v, **ctx.masks)
+        o, lse = flash_attention_fwd(q, k, v, with_lse=True, **ctx.masks)
+        ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, dout.contiguous(), **ctx.masks)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, dout.contiguous(), lse, **ctx.masks)
         return dq, dk, dv, None, None, None, None
 
 

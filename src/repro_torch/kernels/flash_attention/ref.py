@@ -1,5 +1,5 @@
 """Naive attention oracle (``repro.kernels.flash_attention.ref`` twin), and the
-plain version of the backward kernel.
+plain versions of the forward's lse and of the backward kernel.
 
 Both compute in f32, or in f64 for f64 inputs (which the tests' gradcheck
 uses).  Used only by the tests and by ``chip_smoke.py``; no model path calls
@@ -49,13 +49,35 @@ def _mask(Sq, Sk, causal, window, q_offset, kv_len, device):
     return mask
 
 
+def lse_reference(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None):
+    """The plain version of the lse that ``kernel.flash_attention_fwd`` writes
+    with ``with_lse``: each row's log-sum-exp of the scaled scores over the
+    keys it sees, 0 for a row that sees none.  q, k, v and the masks as in
+    ``attention_reference`` (v is not read).  Returns (B, H, Sq) in f32 (f64
+    for f64 inputs)."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = _masked_scores(q.to(acc).reshape(B, Sq, KH, H // KH, D), k.to(acc),
+                       _mask(Sq, k.shape[1], causal, window, q_offset, kv_len, q.device))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(torch.isfinite(lse), lse, 0.0).reshape(B, Sq, H).transpose(1, 2)
+
+
+def _masked_scores(qf, kf, mask):
+    """scale q k^T over (B, Sq, KH, G, Sk), -inf where the mask hides a key."""
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kf) * (1.0 / (qf.shape[-1] ** 0.5))
+    return torch.where(mask[None, :, None, None, :], s, -torch.inf)
+
+
 def flash_attention_bwd_reference(q, k, v, o, dout, *, causal=True, window=None,
-                                  q_offset=0, kv_len=None):
+                                  q_offset=0, kv_len=None, lse=None):
     """The plain version of ``kernel.flash_attention_bwd``, with its arithmetic.
 
     q: (B, Sq, H, Dk); k: (B, Sk, KH, Dk); v: (B, Sk, KH, Dv); o: the
-    forward's output and dout its gradient, (B, Sq, H, Dv).  Recomputes each
-    row's log-sum-exp lse over the visible keys, then P = exp(S - lse),
+    forward's output and dout its gradient, (B, Sq, H, Dv); lse: each row's
+    log-sum-exp as the forward wrote it, (B, H, Sq), or None to recompute it
+    (as ``lse_reference``).  P = exp(S - lse) under the masks,
     delta = rowsum(dout * o), dS = P * (dP - delta) with dP = dout V^T, and
     dq = scale dS K, dk = scale dS^T Q, dv = P^T dout, dk and dv summed over
     each kv head's query heads.  A row that sees no key has P = 0: dq = 0,
@@ -69,10 +91,13 @@ def flash_attention_bwd_reference(q, k, v, o, dout, *, causal=True, window=None,
     qf = q.to(acc).reshape(B, Sq, KH, G, D)
     kf, vf = k.to(acc), v.to(acc)
     dof = dout.to(acc).reshape(B, Sq, KH, G, Dv)
-    mask = _mask(Sq, Sk, causal, window, q_offset, kv_len, q.device)[None, :, None, None, :]
-    s = torch.where(mask, torch.einsum("bqhgd,bkhd->bqhgk", qf, kf) * scale, -torch.inf)
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)), 0.0)
+    mask = _mask(Sq, Sk, causal, window, q_offset, kv_len, q.device)
+    s = _masked_scores(qf, kf, mask)
+    if lse is None:
+        lse = lse_reference(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                            kv_len=kv_len)
+    lse = lse.to(acc).transpose(1, 2).reshape(B, Sq, KH, G, 1)
+    p = torch.where(mask[None, :, None, None, :], torch.exp(s - lse), 0.0)
     delta = torch.sum(dof * o.to(acc).reshape(B, Sq, KH, G, Dv), dim=-1, keepdim=True)
     dp = torch.einsum("bqhgd,bkhd->bqhgk", dof, vf)
     ds = p * (dp - delta)

@@ -21,7 +21,8 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, warmup=100, total=10_000, remat
     batch: {"tokens" | "embeds", "labels"} tensors on the params' device.
     microbatch > 1: split the global batch into that many sequential
     micro-batches with f32 gradient accumulation — activation memory scales
-    1/microbatch at (nearly) constant FLOPs.
+    1/microbatch at (nearly) constant FLOPs.  A batch whose size is not a
+    multiple of microbatch raises, as the reference's reshape does.
     metrics: {"loss", "tokens", "grad_norm"}, tensors on the device.
     """
     schedule = cosine_schedule(lr, warmup, total)
@@ -40,7 +41,11 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, warmup=100, total=10_000, remat
         if microbatch == 1:
             loss, tokens, grads = loss_and_grads(params, batch)
         else:
-            size = next(iter(batch.values())).shape[0] // microbatch
+            B = next(iter(batch.values())).shape[0]
+            if B % microbatch:
+                raise ValueError(f"make_train_step: a batch of {B} rows does not split into "
+                                 f"microbatch={microbatch} equal micro-batches")
+            size = B // microbatch
             grads = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
                      for w in leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)

@@ -5,7 +5,7 @@ port's ``flash_attention`` runs its plain version (``chunked_attention``);
 the JAX side runs its Pallas kernel in interpret mode and its oracle.
 Tolerances are those of tests/test_kernels_attention.py: 2e-6 in f32,
 2e-2 in bf16 (one bf16 rounding of outputs of magnitude about 1).  The CUDA
-kernels cannot run here; their route rule, their instantiations (read from
+kernels cannot run here; their route rule, their entry points (read from
 the sources) and the wrapper's checks are tested without a card.
 """
 import re
@@ -138,6 +138,28 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     assert not list(tmp_path.glob("*.so"))
 
 
+
+def test_build_compiles_each_source_alone_with_the_route_rule(tmp_path, monkeypatch):
+    """Each source goes to an nvcc of its own, with the header of the
+    library's defines included first, then the objects are linked: the SIMT
+    source reads route()'s rule from that header."""
+    calls, fake = tmp_path / "calls", tmp_path / "nvcc"
+    fake.write_text(f'#!/bin/sh\necho "$@" >> {calls}\n'
+                    'while [ $# -gt 0 ]; do [ "$1" = -o ] && touch "$2"; shift; done\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(build_mod, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build_mod, "_nvcc", lambda: str(fake))
+    built = fa_kernel.build()
+    lines = calls.read_text().splitlines()
+    compiles = [ln.split() for ln in lines if " -c " in ln]
+    assert sorted(c[-1] for c in compiles) == sorted(map(str, fa_kernel.SOURCES))
+    headers = {c[c.index("-include") + 1] for c in compiles}
+    assert len(headers) == 1
+    assert Path(headers.pop()).read_text() == (
+        f"#define BF16_ON_WGMMA {fa_kernel.route_condition(fa_kernel.WGMMA_HEAD_DIMS)}\n")
+    assert "-shared" in lines[-1].split() and built.path.exists()
+    assert set(built.seconds_by_source) == {src.name for src in fa_kernel.SOURCES}
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_head_dim_80_matches_pallas_and_reference(dtype):
     """hubert-xlarge's head dim 80: bidirectional, 16 heads over 16 kv heads."""
@@ -158,38 +180,65 @@ def test_route_takes_the_tensor_cores_for_bf16_at_128_and_256_only(dtype, dims):
     assert fa_kernel.route(dtype, *dims) == want
 
 
-def _dispatch_pairs(text, pattern):
-    """(Dk, Dv) of each dispatch line, checked against its template arguments."""
-    pairs = set()
-    for dk, dv, tdk, tdv in re.findall(pattern, text):
-        assert (dk, dv) == (tdk, tdv), f"dispatch line for ({dk}, {dv}) launches ({tdk}, {tdv})"
-        pairs.add((int(dk), int(dv)))
-    return pairs
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", sorted(fa_kernel.BWD_HEAD_DIMS))
+def test_backward_route_takes_the_tensor_cores_for_bf16_at_128_only(dtype, dims):
+    want = "wgmma" if dtype == torch.bfloat16 and dims == (128, 128) else "simt"
+    assert fa_kernel.route(dtype, *dims, backward=True) == want
 
 
-def test_every_head_dim_pair_has_a_dispatch_line_on_its_route():
-    """A pair the wrapper takes but no kernel is instantiated for would fail
-    only on the card, as cudaErrorInvalidValue; here it fails on the CPU."""
+@pytest.mark.parametrize("direction, sources", [("fwd", fa_kernel.SOURCES),
+                                                ("bwd", fa_kernel.BWD_SOURCES)])
+def test_each_route_has_its_entry_point(direction, sources):
+    """The wrappers call ``flash_attention_<direction>_<route()>``: each
+    library exports one entry point a route (and the backward its delta
+    pre-pass), so route() is the only place that picks a kernel."""
+    text = "".join(src.read_text() for src in sources)
+    entries = set(re.findall(rf'extern "C" int flash_attention_{direction}_(\w+)\(', text))
+    assert entries == set(fa_kernel.ROUTES) | ({"delta"} if direction == "bwd" else set())
+
+
+
+def _dispatch_pairs(text, start, pattern):
+    """(Dk, Dv) of each dispatch line in the function that begins at
+    ``start``, each checked against the pair its launch instantiates."""
+    body = text[text.index(start):]
+    lines = re.findall(pattern, body[:body.index("\n}\n")])
+    assert all((dk, dv) == (tdk, tdv) for dk, dv, tdk, tdv in lines), lines
+    return {(int(dk), int(dv)) for dk, dv, _, _ in lines}
+
+
+def test_forward_head_dims_have_dispatch_lines():
+    """A pair the wrapper sends to a route on which no kernel is instantiated
+    for it would fail only on the card, as cudaErrorInvalidValue; here it
+    fails on the CPU.  The SIMT dispatch has a line for every pair of
+    HEAD_DIMS, the tensor-core entry point one for every pair of
+    WGMMA_HEAD_DIMS."""
     csrc = Path(fa_kernel.__file__).parent / "csrc"
-    simt = (csrc / "flash_attention_fwd.cu").read_text()
-    sm90 = (csrc / "flash_attention_fwd_sm90.cu").read_text()
-    body = simt[simt.index("cudaError_t dispatch("):]
-    both, f32_only = body[:body.index("\n}\n")].split("if constexpr (std::is_same_v<T, float>)")
-    line = r"if \(dk == (\d+) && dv == (\d+)\) return launch<T, (\d+), (\d+),"
-    simt_pairs = {torch.float32: _dispatch_pairs(both + f32_only, line),
-                  torch.bfloat16: _dispatch_pairs(both, line)}
-    wgmma_pairs = _dispatch_pairs(sm90[sm90.index("int flash_attention_fwd_sm90("):],
-                                  r"if \(Dk == (\d+) && Dv == (\d+)\) return launch<(\d+), (\d+),")
-    rule = re.search(r"if \(dtype == 1 && \((.*)\)\)\n", simt).group(1)
-    entry = {(int(a), int(b)) for a, b in re.findall(r"Dk == (\d+) && Dv == (\d+)", rule)}
-    assert entry == wgmma_pairs == fa_kernel.WGMMA_HEAD_DIMS
-    assert simt_pairs[torch.float32] | wgmma_pairs <= fa_kernel.HEAD_DIMS
-    for dtype, pairs in simt_pairs.items():
-        for dims in fa_kernel.HEAD_DIMS:
-            on_route = wgmma_pairs if fa_kernel.route(dtype, *dims) == "wgmma" else pairs
-            assert dims in on_route, f"{dtype} {dims}: no dispatch line on its route"
-    assert simt_pairs[torch.bfloat16].isdisjoint(wgmma_pairs)
+    simt = _dispatch_pairs((csrc / "flash_attention_fwd.cu").read_text(),
+                           "cudaError_t dispatch(",
+                           r"if \(dk == (\d+) && dv == (\d+)\) return launch<T, (\d+), (\d+),")
+    wgmma = _dispatch_pairs((csrc / "flash_attention_fwd_sm90.cu").read_text(),
+                            'extern "C" int flash_attention_fwd_wgmma(',
+                            r"if \(Dk == (\d+) && Dv == (\d+)\) return launch<(\d+), (\d+),")
+    assert simt == fa_kernel.HEAD_DIMS
+    assert wgmma == fa_kernel.WGMMA_HEAD_DIMS
 
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_route_condition_holds_where_route_picks_the_tensor_cores(backward):
+    """The condition the SIMT source is built with (BF16_ON_WGMMA) is true
+    exactly where route() sends bf16 to the tensor cores, and the SIMT
+    launch compiles no kernel where it holds."""
+    dims = fa_kernel.BWD_WGMMA_HEAD_DIMS if backward else fa_kernel.WGMMA_HEAD_DIMS
+    cond = fa_kernel.route_condition(dims).replace("&&", "and").replace("||", "or")
+    for dk, dv in fa_kernel.BWD_HEAD_DIMS if backward else fa_kernel.HEAD_DIMS:
+        on_wgmma = fa_kernel.route(torch.bfloat16, dk, dv, backward=backward) == "wgmma"
+        assert eval(cond, {"DK": dk, "DV": dv}) == on_wgmma, (dk, dv)
+    simt = fa_kernel.BWD_SOURCES[0] if backward else fa_kernel.SOURCES[0]
+    launch = simt.read_text().split("cudaError_t launch(", 1)[1]
+    assert launch.lstrip().split("\n")[1].strip() == (
+        "if constexpr (std::is_same_v<T, __nv_bfloat16> && (BF16_ON_WGMMA)) {")
 
 class _OnCuda:
     """A CPU tensor that reports a CUDA device, so the wrapper's checks run here."""
@@ -239,6 +288,8 @@ def test_kernel_wrapper_refuses_misaligned_inputs_on_the_tensor_core_route():
 def test_reset_launches_zeroes_both_counters():
     flash_attention_fwd.launches = 3
     flash_attention_fwd.launches_by_route["wgmma"] = 2
+    fa_kernel.flash_attention_bwd.launches_by_route["simt"] = 4
     fa_kernel.reset_launches()
     assert flash_attention_fwd.launches == 0
-    assert flash_attention_fwd.launches_by_route == dict.fromkeys(fa_kernel.ROUTES, 0)
+    for wrapper in (flash_attention_fwd, fa_kernel.flash_attention_bwd):
+        assert wrapper.launches_by_route == dict.fromkeys(fa_kernel.ROUTES, 0)

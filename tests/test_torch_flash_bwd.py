@@ -1,14 +1,17 @@
-"""The flash-attention backward's plain version and its wiring, on the CPU.
+"""The flash-attention backward's plain versions and its wiring, on the CPU.
 
-``flash_attention_bwd_reference`` (the backward kernel's plain version) is
+``flash_attention_bwd_reference`` (the backward kernels' plain version) is
 held against ``jax.vjp`` of the JAX package's ``chunked_attention`` and
 ``attention_reference`` and against ``torch.autograd`` of the port's
-``chunked_attention``, in f32, on the same numpy inputs.  Tolerance 1e-5
-relative (||a - b|| / ||b||) and 1e-5 absolute per element: every side
-computes in f32 from the same inputs and differs only in the order of its
-sums (the gradients are of magnitude about 1).  ``FlashAttention`` is checked
-by ``torch.autograd.gradcheck`` in float64 with both kernel calls stood in
-by their plain versions.  The CUDA kernels cannot run here; the wrappers'
+``chunked_attention``, and ``lse_reference`` (the plain version of the lse
+the forward writes) against ``jax.nn.logsumexp``, in f32, on the same numpy
+inputs.  Tolerance 1e-5 relative (||a - b|| / ||b||) and 1e-5 absolute per
+element: every side computes in f32 from the same inputs and differs only
+in the order of its sums (the gradients are of magnitude about 1).  The
+tensor-core backward's tile schedule is emulated in numpy and held against
+the plain backward at the same tolerance.  ``FlashAttention`` is checked by
+``torch.autograd.gradcheck`` in float64 with both kernel calls stood in by
+their plain versions.  The CUDA kernels cannot run here; the wrappers'
 checks, the head-dim rule and the refusals of WKV and scan are tested
 without a card.
 """
@@ -25,7 +28,7 @@ from repro.kernels.flash_attention import attention_reference as jax_reference
 from repro.kernels.flash_attention.ops import chunked_attention as jax_chunked
 from repro_torch.kernels.flash_attention import (FlashAttention, attention_reference,
                                                  chunked_attention, flash_attention_bwd,
-                                                 flash_attention_bwd_reference)
+                                                 flash_attention_bwd_reference, lse_reference)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rglru_scan import kernel as scan_kernel
@@ -109,6 +112,200 @@ def test_plain_backward_matches_torch_autograd(case):
         _close(mine.numpy(), theirs.numpy())
 
 
+def _jax_lse(q, k, case):
+    """jax.nn.logsumexp of the JAX reference's masked, scaled scores (its
+    attention_reference's s, before the softmax), 0 where a row sees no key;
+    (B, H, Sq)."""
+    B, Sq, Sk, H, KH, D, causal, window, q_offset, kv_len = case
+    s = jnp.einsum("bqhgd,bkhd->bqhgk", jnp.asarray(q).reshape(B, Sq, KH, H // KH, D),
+                   jnp.asarray(k)) * (1.0 / D ** 0.5)
+    qi, kj = q_offset + jnp.arange(Sq)[:, None], jnp.arange(Sk)[None, :]
+    mask = jnp.ones((Sq, Sk), dtype=bool)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    if kv_len is not None:
+        mask &= kj < kv_len
+    lse = jax.nn.logsumexp(jnp.where(mask[None, :, None, None, :], s, -jnp.inf), axis=-1)
+    lse = jnp.where(jnp.isfinite(lse), lse, 0.0)
+    return np.asarray(lse).reshape(B, Sq, H).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_lse_reference_matches_jax_logsumexp(case):
+    """Each row's log-sum-exp over the keys it sees, 0 for a row that sees
+    none (kv_len 0, and the first rows at q_offset -4).  Tolerance 1e-5: both
+    sides sum the same f32 scores in another order."""
+    q, k, v, _ = _inputs(300 + CASES.index(case), case)
+    lse = lse_reference(*map(torch.from_numpy, (q, k, v)), **_kw(case))
+    B, Sq, H = case[0], case[1], case[3]
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    _close(lse.numpy(), _jax_lse(q, k, case))
+    if _sees_nothing(case):
+        rows = slice(None) if case[9] == 0 else slice(0, -case[8])
+        assert np.all(lse.numpy()[:, :, rows] == 0)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_given_the_lse_equals_itself_without(case):
+    """The backward's plain version reading lse_reference's lse, as the
+    kernels read the forward's, gives the very values it gives when it
+    recomputes the lse itself."""
+    q, k, v, do = map(torch.from_numpy, _inputs(400 + CASES.index(case), case))
+    kw = _kw(case)
+    o = chunked_attention(q, k, v, **kw)
+    given = flash_attention_bwd_reference(q, k, v, o, do, lse=lse_reference(q, k, v, **kw), **kw)
+    for a, b in zip(given, flash_attention_bwd_reference(q, k, v, o, do, **kw)):
+        assert torch.equal(a, b)
+
+
+# The tensor-core backward's tiles (csrc/flash_attention_bwd_sm90.cu): a dK/dV
+# block owns BKV kv rows, 64 a consumer, and takes BQ query rows a step; a dQ
+# block owns QROWS query rows, 64 a consumer, and takes KROWS kv rows a step.
+BKV, BQ, QROWS, KROWS, CROWS = 128, 64, 128, 64, 64
+
+
+def _visible(qpos, kpos, causal, window, kv_len):
+    """Element-wise: key position kpos visible to query position qpos."""
+    vis = kpos < kv_len
+    if causal:
+        vis = vis & (kpos <= qpos)
+    if window > 0:
+        vis = vis & (kpos > qpos - window)
+    return vis
+
+
+def _emulate_wgmma_backward(q, k, o, dout, lse, v, case):
+    """numpy, block by block and step by step as the two kernels schedule the
+    work: which q steps a dK/dV block walks (every head of its group) and
+    which kv tiles a dQ block walks, each consumer's "none visible" skip
+    and "all visible" fast path (held here against the element-wise
+    masks), the
+    masks, and the ragged tails (rows beyond Sq or Sk read as 0).  In f32,
+    without the kernels' bf16 rounding of P and dS: the schedule is the
+    point."""
+    B, Sq, Sk, H, KH, D, causal, window, q_offset, kv_len = case
+    win = -1 if window is None else window
+    kv_len = Sk if kv_len is None else min(kv_len, Sk)
+    G, scale = H // KH, 1.0 / D ** 0.5
+    pad = max(BKV, QROWS)
+
+    def padded(x, rows):  # (B, S, heads, D) with zero rows to a multiple of the tiles
+        return np.concatenate([x, np.zeros((x.shape[0], rows, *x.shape[2:]), x.dtype)], 1)
+    qp, kp, vp, dop = padded(q, pad), padded(k, pad), padded(v, pad), padded(dout, pad)
+    delta = np.pad((dout * o).sum(-1).transpose(0, 2, 1), ((0, 0), (0, 0), (0, pad)))
+    lsep = np.pad(lse, ((0, 0), (0, 0), (0, pad)))
+    dq = np.zeros_like(q)
+    dk, dv = np.zeros_like(k), np.zeros_like(v)
+
+    def probs(qrows, krows, h, kvh, b):
+        """P and dS of query rows qrows and kv rows krows, masked."""
+        s = qp[b, qrows, h] @ kp[b, krows, kvh].T * scale
+        vis = (qrows[:, None] < Sq) & _visible(q_offset + qrows[:, None], krows[None, :],
+                                                causal, win, kv_len)
+        p = np.where(vis, np.exp(s - lsep[b, h, qrows][:, None]), 0.0)
+        dp = dop[b, qrows, h] @ vp[b, krows, kvh].T
+        return p, p * (dp - delta[b, h, qrows][:, None]), vis
+
+    for b in range(B):
+        for kvh in range(KH):
+            for k0 in range(0, Sk, BKV):  # a dK/dV block
+                nk = min(BKV, Sk - k0)
+                i_lo, i_hi = 0, Sq
+                if causal:
+                    i_lo = max(i_lo, k0 - q_offset)
+                if win > 0:
+                    i_hi = min(i_hi, k0 + nk - 1 + win - q_offset)
+                if k0 >= kv_len:
+                    i_hi = i_lo
+                t_begin = i_lo // BQ
+                n_t = (i_hi + BQ - 1) // BQ - t_begin if i_hi > i_lo else 0
+                for cw in range(2):
+                    kr0 = k0 + CROWS * cw
+                    krows = np.arange(kr0, kr0 + CROWS)
+                    for g in range(G * n_t):
+                        h, q0 = kvh * G + g // n_t, (t_begin + g % n_t) * BQ
+                        qp0 = q_offset + q0
+                        none = (kr0 >= kv_len or (causal and kr0 > qp0 + BQ - 1)
+                                or (win > 0 and kr0 + CROWS - 1 <= qp0 - win))
+                        qrows = np.arange(q0, q0 + BQ)
+                        p, ds, vis = probs(qrows, krows, h, kvh, b)
+                        if none:
+                            assert not vis.any()
+                            continue
+                        all_ = (kr0 + CROWS - 1 < kv_len and q0 + BQ <= Sq
+                                and (not causal or kr0 + CROWS - 1 <= qp0)
+                                and (win <= 0 or kr0 > qp0 + BQ - 1 - win))
+                        assert not all_ or vis.all()
+                        keep = krows < Sk
+                        dv[b, krows[keep], kvh] += (p.T @ dop[b, qrows, h])[keep]
+                        dk[b, krows[keep], kvh] += (ds.T @ qp[b, qrows, h])[keep] * scale
+    for b in range(B):
+        for h in range(H):
+            kvh = h // G
+            for q0 in range(0, Sq, QROWS):  # a dQ block
+                nq = min(QROWS, Sq - q0)
+                q_first = q_offset + q0
+                kv_end = min(kv_len, q_first + nq) if causal else kv_len
+                kv_begin = max(0, q_first - win + 1) if win > 0 else 0
+                t_begin = kv_begin // KROWS
+                t_end = (kv_end + KROWS - 1) // KROWS if kv_end > kv_begin else t_begin
+                for cw in range(2):
+                    qp_lo = q_first + CROWS * cw
+                    qp_hi = qp_lo + CROWS - 1
+                    qrows = np.arange(q0 + CROWS * cw, q0 + CROWS * cw + CROWS)
+                    for t in range(t_begin, t_end):
+                        kp0 = t * KROWS
+                        none = (CROWS * cw >= nq or kp0 >= kv_len or (causal and kp0 > qp_hi)
+                                or (win > 0 and kp0 + KROWS - 1 <= qp_lo - win))
+                        krows = np.arange(kp0, kp0 + KROWS)
+                        _, ds, vis = probs(qrows, krows, h, kvh, b)
+                        if none:
+                            assert not vis.any()
+                            continue
+                        all_ = (kp0 + KROWS <= kv_len and CROWS * cw + CROWS <= nq
+                                and (not causal or kp0 + KROWS - 1 <= qp_lo)
+                                and (win <= 0 or kp0 > qp_hi - win))
+                        assert not all_ or vis.all()
+                        keep = qrows < Sq
+                        dq[b, qrows[keep], h] += (ds @ kp[b, krows, kvh])[keep] * scale
+    return dq, dk, dv
+
+
+SCHEDULE_CASES = [
+    (2, 250, 333, 8, 2, 16, True, 150, 83, 300),     # ragged, GQA, window, q_offset, kv_len
+    (1, 300, 300, 4, 2, 16, True, None, 0, None),    # causal, ragged last tiles
+    (1, 130, 200, 2, 1, 16, False, None, 0, 150),    # bidirectional, kv_len < Sk
+    (1, 64, 64, 2, 1, 16, False, None, 0, 0),        # kv_len 0: no row sees a key
+    (1, 200, 200, 2, 2, 16, True, None, -70, None),  # the first 70 rows see no key
+    (1, 100, 300, 4, 1, 16, True, 64, 200, None),    # a short window far into the keys
+    # tile edges: the last q row that sees kv tile 0 (row 192, window 66) and the
+    # first key q tile 128 sees (key 63) each alone in their tile; causal
+    # diagonals 1 and 62 rows off the 64-row grid
+    (1, 260, 260, 2, 1, 16, True, 66, 0, None),
+    (1, 200, 256, 2, 1, 16, True, None, 1, None),
+    (1, 130, 256, 2, 1, 16, True, None, 62, None),
+    (1, 256, 256, 2, 1, 16, False, 63, 0, None),     # a window's edge on the grid, no causal
+]
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_wgmma_backward_tile_schedule_matches_plain_backward(case):
+    """The emulated schedule of the tensor-core backward against the plain
+    backward on the same inputs and lse, 1e-5 relative and absolute (f32
+    on both sides, sums in another order)."""
+    q, k, v, do = _inputs(500 + SCHEDULE_CASES.index(case), case)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    kw = _kw(case)
+    o = chunked_attention(tq, tk, tv, **kw)
+    lse = lse_reference(tq, tk, tv, **kw)
+    want = flash_attention_bwd_reference(tq, tk, tv, o, tdo, lse=lse, **kw)
+    got = _emulate_wgmma_backward(q, k, o.numpy(), do, lse.numpy(), v, case)
+    for mine, ref in zip(got, want):
+        _close(mine, ref.numpy())
+
+
 @pytest.mark.parametrize("case", [(1, 8, 8, 4, 2, 8, True, None, 0, None),
                                   (1, 6, 9, 2, 1, 8, True, 4, 3, 8),
                                   (2, 5, 5, 2, 2, 8, False, None, 0, 3),
@@ -119,13 +316,14 @@ def test_function_gradcheck_with_plain_stand_ins(case, monkeypatch):
     stood in by its plain version, and each is counted."""
     calls = {"fwd": 0, "bwd": 0}
 
-    def fwd(q, k, v, **kw):
+    def fwd(q, k, v, with_lse=False, **kw):
         calls["fwd"] += 1
-        return attention_reference(q, k, v, **kw)
+        o = attention_reference(q, k, v, **kw)
+        return (o, lse_reference(q, k, v, **kw)) if with_lse else o
 
-    def bwd(q, k, v, o, dout, **kw):
+    def bwd(q, k, v, o, dout, lse, **kw):
         calls["bwd"] += 1
-        return flash_attention_bwd_reference(q, k, v, o, dout, **kw)
+        return flash_attention_bwd_reference(q, k, v, o, dout, lse=lse, **kw)
 
     monkeypatch.setattr(fa_ops, "flash_attention_fwd", fwd)
     monkeypatch.setattr(fa_ops, "flash_attention_bwd", bwd)
@@ -142,11 +340,12 @@ def test_function_gradcheck_with_plain_stand_ins(case, monkeypatch):
 
 
 class _OnCuda:
-    """A CPU tensor that reports a CUDA device, so the wrappers' checks run here."""
+    """A CPU tensor that reports a CUDA device (and, if given, another
+    address), so the wrappers' checks run here."""
     device = torch.device("cuda", 0)
 
-    def __init__(self, t, requires_grad=False):
-        self._t, self.requires_grad = t, requires_grad
+    def __init__(self, t, requires_grad=False, ptr=None):
+        self._t, self.requires_grad, self._ptr = t, requires_grad, ptr
 
     dtype = property(lambda self: self._t.dtype)
     shape = property(lambda self: self._t.shape)
@@ -157,8 +356,11 @@ class _OnCuda:
     def is_contiguous(self):
         return self._t.is_contiguous()
 
+    def stride(self, *dim):
+        return self._t.stride(*dim)
+
     def data_ptr(self):
-        return self._t.data_ptr()
+        return self._t.data_ptr() if self._ptr is None else self._ptr
 
 
 @pytest.fixture
@@ -175,15 +377,66 @@ def no_build(monkeypatch):
 def test_backward_wrapper_refuses_cpu_tensors(no_build):
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="not a CUDA device"):
-        flash_attention_bwd(q, q, q, q, q)
+        flash_attention_bwd(q, q, q, q, q, torch.zeros(1, 2, 8))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dk, dv", [(80, 80), (96, 64), (256, 256), (48, 48)])
-def test_backward_wrapper_refuses_unsupported_head_dims(dk, dv, no_build):
-    q, v = _OnCuda(torch.zeros(1, 8, 2, dk)), _OnCuda(torch.zeros(1, 8, 2, dv))
+def test_backward_wrapper_refuses_unsupported_head_dims(dk, dv, dtype, no_build):
+    q = _OnCuda(torch.zeros(1, 8, 2, dk, dtype=dtype))
+    v = _OnCuda(torch.zeros(1, 8, 2, dv, dtype=dtype))
     with pytest.raises(ValueError, match=r"flash_attention_bwd: head dims .* not supported "
                                          r"yet .*ROADMAP.md B4"):
-        flash_attention_bwd(q, q, v, v, v)
+        flash_attention_bwd(q, q, v, v, v, _OnCuda(torch.zeros(1, 2, 8)))
+
+
+def _bwd_args(dtype, Sq=8, dims=(128, 128), lse_t=None, **ptrs):
+    """q, k, v, o, dout, lse of one batch, 4 query heads over 2, as _OnCuda;
+    ``ptrs`` moves a tensor to another address."""
+    dk, dv = dims
+    shapes = {"q": (1, Sq, 4, dk), "k": (1, 8, 2, dk), "v": (1, 8, 2, dv),
+              "o": (1, Sq, 4, dv), "dout": (1, Sq, 4, dv)}
+    args = [_OnCuda(torch.zeros(shape, dtype=dtype), ptr=ptrs.get(name))
+            for name, shape in shapes.items()]
+    lse = fa_kernel.empty_lse(1, 4, Sq, "cpu") if lse_t is None else lse_t
+    return args + [_OnCuda(lse, ptr=ptrs.get("lse"))]
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "dout", "lse"])
+def test_backward_wrapper_refuses_misaligned_inputs_on_the_tensor_core_route(name, no_build):
+    """TMA reads q, k, v, dout and the lse rows from 16-byte aligned
+    addresses; the SIMT route (f32 here, and bf16 at head dim 64) does not,
+    and gets past the checks to the allocation, which fails on this CPU."""
+    for dtype, dims, raises in ((torch.bfloat16, (128, 128), True),
+                                (torch.float32, (128, 128), False),
+                                (torch.bfloat16, (64, 64), False)):
+        args = _bwd_args(dtype, dims=dims, **{name: 8})
+        if raises:
+            with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+                flash_attention_bwd(*args)
+        else:
+            with pytest.raises(Exception) as err:
+                flash_attention_bwd(*args)
+            assert "16-byte" not in str(err.value)
+
+
+def test_backward_wrapper_refuses_lse_rows_off_16_bytes_on_the_tensor_core_route(no_build):
+    """A contiguous (B, H, 7) lse has rows 28 bytes apart: TMA cannot read
+    it.  ``empty_lse`` pads each row to 8 floats."""
+    lse = torch.zeros(1, 4, 7)
+    with pytest.raises(ValueError, match="16 bytes apart"):
+        flash_attention_bwd(*_bwd_args(torch.bfloat16, Sq=7, lse_t=lse))
+    assert fa_kernel.empty_lse(1, 4, 7, "cpu").stride() == (32, 8, 1)
+
+
+@pytest.mark.parametrize("lse, match", [(torch.zeros(1, 4, 9), "lse has shape"),
+                                        (torch.zeros(1, 4, 8, dtype=torch.float64),
+                                         "lse is torch.float64"),
+                                        (torch.zeros(1, 8, 4).transpose(1, 2),
+                                         "rows of contiguous floats")])
+def test_backward_wrapper_checks_the_lse(lse, match, no_build):
+    with pytest.raises((ValueError, TypeError), match=match):
+        flash_attention_bwd(*_bwd_args(torch.float32, dims=(16, 16), lse_t=lse))
 
 
 @pytest.mark.parametrize("dims", sorted(fa_kernel.BWD_HEAD_DIMS))
@@ -200,7 +453,8 @@ def test_backward_wrapper_takes_its_head_dims(dims, dtype):
 def test_backward_wrapper_checks_the_gradient_shape(no_build):
     q, k = _OnCuda(torch.zeros(1, 8, 4, 16)), _OnCuda(torch.zeros(1, 8, 2, 16))
     with pytest.raises(ValueError, match="dout has shape"):
-        flash_attention_bwd(q, k, k, q, _OnCuda(torch.zeros(1, 8, 2, 16)))
+        flash_attention_bwd(q, k, k, q, _OnCuda(torch.zeros(1, 8, 2, 16)),
+                            _OnCuda(torch.zeros(1, 4, 8)))
 
 
 def test_backward_head_dims_have_dispatch_lines():
@@ -216,8 +470,10 @@ def test_backward_head_dims_have_dispatch_lines():
 
 def test_reset_launches_zeroes_the_backward_counter():
     fa_kernel.flash_attention_bwd.launches = 5
+    fa_kernel.flash_attention_bwd.launches_by_route["wgmma"] = 5
     fa_kernel.reset_launches()
     assert fa_kernel.flash_attention_bwd.launches == 0
+    assert fa_kernel.flash_attention_bwd.launches_by_route == dict.fromkeys(fa_kernel.ROUTES, 0)
 
 
 def _wkv_args(requires_grad):

@@ -233,6 +233,22 @@ def test_train_step_matches_reference(qwen, jax_steps, remat, microbatch):
         _close(mine.detach().numpy(), theirs)
 
 
+def test_train_step_refuses_a_batch_microbatch_does_not_divide(qwen):
+    """5 rows in 2 micro-batches: the reference's reshape raises, and so does
+    the port, before any row is taken (no step that silently drops a row)."""
+    jcfg, jparams, _ = qwen
+    batch = JaxDataset(jcfg.vocab, S, seed=3).batch(0, 5)
+    jstep = jax_make_train_step(jcfg, remat="none", microbatch=2, **STEP_KW)
+    with pytest.raises(TypeError, match="cannot reshape"):
+        jstep(jax_init_train_state(jparams), jax.tree.map(jnp.asarray, batch))
+    state = init_train_state(_port(jparams))
+    step = make_train_step(get_config("qwen3-1.7b").reduced(), remat="none", microbatch=2,
+                           **STEP_KW)
+    with pytest.raises(ValueError, match=r"batch of 5 rows .* microbatch=2"):
+        step(state, _torch_batch(batch))
+    assert int(state["step"]) == 0
+
+
 @pytest.mark.parametrize("name", ["rwkv6-7b", "recurrentgemma-2b"])
 def test_loss_fn_with_remat_matches_reference(name):
     """A uniform stack in groups (rwkv6) and a hybrid a layer at a time
@@ -258,15 +274,17 @@ def test_loss_fn_with_remat_matches_reference(name):
 def counting(monkeypatch):
     """The flash entry point sent through FlashAttention on the CPU, both
     kernel calls stood in by their plain versions and counted."""
-    n = {"fwd": 0, "bwd": 0}
+    n = {"fwd": 0, "bwd": 0, "lse": 0}
 
-    def fwd(q, k, v, **kw):
+    def fwd(q, k, v, with_lse=False, **kw):
         n["fwd"] += 1
-        return fa_ops.chunked_attention(q, k, v, **kw)
+        n["lse"] += with_lse
+        o = fa_ops.chunked_attention(q, k, v, **kw)
+        return (o, fa_ref.lse_reference(q, k, v, **kw)) if with_lse else o
 
-    def bwd(q, k, v, o, dout, **kw):
+    def bwd(q, k, v, o, dout, lse, **kw):
         n["bwd"] += 1
-        return fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, **kw)
+        return fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, lse=lse, **kw)
 
     def entry(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None):
         return fa_ops.FlashAttention.apply(q, k, v, causal, window, q_offset, kv_len)
@@ -298,6 +316,7 @@ def test_remat_launch_counts(counting, name, n_layers, remat, group, want):
     step = make_train_step(cfg, remat=remat, remat_group=group, ce_chunk=8)
     step(init_train_state(params), {"tokens": toks, "labels": toks})
     assert (counting["fwd"], counting["bwd"]) == want
+    assert counting["lse"] == counting["fwd"]  # each forward of a train step keeps its lse
 
 
 class _CountMatmuls(TorchDispatchMode):
