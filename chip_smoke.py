@@ -8,10 +8,10 @@ Builds every CUDA kernel of the port from this checkout's sources, holds
 each against its plain PyTorch version on the card, serves qwen3-1.7b (28
 layers), rwkv6-7b (32 layers) and recurrentgemma-2b (26 layers) at their
 full published widths (bf16, random weights from a seed) through the
-port's entry point, trains qwen3-1.7b at full width for a few steps
-(AdamW, chunked cross-entropy, remat), checks that each serve and each
-train step went through its kernels, and times each kernel beside its
-bound.  Any failure raises, so the exit code is
+port's entry point, trains qwen3-1.7b and recurrentgemma-2b at full width
+for a few steps (AdamW, chunked cross-entropy, remat), checks that each
+serve and each train step went through its kernels, and times each kernel
+beside its bound.  Any failure raises, so the exit code is
 not 0.  With no CUDA device, or away from the checkout, it exits non-zero
 and prints no result.  It imports nothing of JAX and nothing of ``repro``.
 
@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import json
 import math
 import re
@@ -53,9 +54,10 @@ from repro_torch.kernels.rglru_scan import ref as scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
 from repro_torch.models import attention, lm, rglru, rwkv6  # noqa: E402
-from repro_torch.optim import init_train_state  # noqa: E402
+from repro_torch.optim import adamw_update, init_train_state  # noqa: E402
 from repro_torch.serve import generate  # noqa: E402
 from repro_torch.train import make_train_step, useful_flops  # noqa: E402
+from repro_torch.train import steps as train_steps  # noqa: E402
 from repro_torch.tree import leaves, paths  # noqa: E402
 from repro_torch.types import ShapeConfig  # noqa: E402
 
@@ -156,13 +158,29 @@ SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
 # (B, Sq, Sk, H, KH, Dk, Dv, causal, window, q_offset, kv_len): the backward
 # kernel's cases, every case of KERNEL_CASES at a head-dim pair it takes
 # (causal, a window, q_offset with GQA, kv_len 0, ragged lengths), among them
-# qwen3-1.7b's train shape, which is its prefill shape; in bf16 the four at
-# head dim 128 take the tensor-core route.  Tolerance on ||out - ref|| /
-# ||ref|| of each of dq, dk and dv: both sides compute in f32 from the same
-# inputs (1e-5: the order of the sums) and round once to the inputs' dtype
-# (2**-7 in bf16; the tensor-core route also rounds P and dS to bf16 for its
-# products, at most 2**-9 of each element).
-BWD_CASES = [c for c in KERNEL_CASES if (c[5], c[6]) in fa_kernel.BWD_HEAD_DIMS]
+# qwen3-1.7b's train shape, which is its prefill shape, but recurrentgemma's
+# prefill shape (batch 8); in bf16 the four at head dim 128 take the
+# tensor-core route.  Then head dim 256 (SIMT in both dtypes): GQA 16:1 with
+# a window across the tiles' edges (16 and 32 rows) past q_offset, ragged;
+# a window, q_offset and kv_len < Sk with GQA; kv_len 0; and
+# recurrentgemma-2b's train shape (2 x 4096 tokens, 10 heads padded to 16
+# over 1 kv head of 256, a 2048-token window).  Where recurrentgemma's 16
+# heads hold 10 real ones (BWD_REAL_HEADS), dout is 0 on the padded heads,
+# as gqa_block zeroes their output: their dq must come back exactly 0.
+# Tolerance on ||out - ref|| / ||ref|| of each of dq, dk and dv: both sides
+# compute in f32 from the same inputs (1e-5: the order of the sums) and
+# round once to the inputs' dtype (2**-7 in bf16; the tensor-core route also
+# rounds P and dS to bf16 for its products, at most 2**-9 of each element).
+RECURRENTGEMMA_TRAIN = (2, 4096, 4096, 16, 1, 256, 256, True, 2048, 0, None)
+RECURRENTGEMMA_EDGES = (2, 77, 130, 16, 1, 256, 256, True, 33, 20, None)
+BWD_CASES = [c for c in KERNEL_CASES
+             if (c[5], c[6]) in fa_kernel.BWD_HEAD_DIMS and c != RECURRENTGEMMA_PREFILL] + [
+    RECURRENTGEMMA_EDGES,
+    (2, 250, 333, 8, 2, 256, 256, True, 150, 83, 300),
+    (1, 64, 64, 4, 2, 256, 256, False, None, 0, 0),
+    RECURRENTGEMMA_TRAIN,
+]
+BWD_REAL_HEADS = {RECURRENTGEMMA_EDGES: 10, RECURRENTGEMMA_TRAIN: 10}
 QWEN3_TRAIN = QWEN3_PREFILL
 BWD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2**-7}
 # Tolerance on max |lse - lse_reference| of the forward's lse, by route.  The
@@ -171,12 +189,31 @@ BWD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2**-7}
 # so its log moves by at most log(1 + 2**-9) < 2**-8.
 LSE_ABS_TOL = {"simt": 1e-4, "wgmma": 2**-8}
 
+# (B, T, W, random h0, a cotangent on h_last, decay): the scan backward's
+# cases, a ragged T and W with and without h0 and dh_last, T = 1 at the
+# model's width, and recurrentgemma-2b's train shape with the model's own a
+# (h_last takes no gradient in train mode).  The kernel runs the plain
+# version's f32 steps in its order (__fmul_rn, __fadd_rn): f32 must agree to
+# the bit; in bf16 both round da and db once, within 2**-7 relative.
+SCAN_BWD_CASES = [
+    (1, 32, 32, True, True, "sigmoid"),
+    (2, 37, 100, True, True, "sigmoid"),
+    (3, 64, 96, False, True, "sigmoid"),
+    (2, 37, 100, True, False, "sigmoid"),
+    (8, 1, 2560, True, True, "sigmoid"),
+    (2, 4096, 2560, False, False, "model"),
+]
+SCAN_TRAIN_CASE = SCAN_BWD_CASES[-1]
+SCAN_BWD_REL_TOL = {torch.float32: 0.0, torch.bfloat16: 2**-7}
+
 # Each kernel by name, with the module whose function of the same name is
 # its wrapper and carries its launch counter, and the call that builds it.
 KERNELS = {"flash_attention_fwd": fa_kernel, "flash_attention_bwd": fa_kernel,
-           "rwkv6_wkv_fwd": wkv_kernel, "rglru_scan_fwd": scan_kernel}
+           "rwkv6_wkv_fwd": wkv_kernel, "rglru_scan_fwd": scan_kernel,
+           "rglru_scan_bwd": scan_kernel}
 BUILDS = {"flash_attention_fwd": fa_kernel.build, "flash_attention_bwd": fa_kernel.build_bwd,
-          "rwkv6_wkv_fwd": wkv_kernel.build, "rglru_scan_fwd": scan_kernel.build}
+          "rwkv6_wkv_fwd": wkv_kernel.build, "rglru_scan_fwd": scan_kernel.build,
+          "rglru_scan_bwd": scan_kernel.build_bwd}
 # How the profiler names the kernels' device functions.
 PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
                        "void (anonymous namespace)::attn_fwd_wgmma<",
@@ -186,7 +223,8 @@ PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
                        "(anonymous namespace)::attn_bwd_dkdv_wgmma(",
                        "(anonymous namespace)::attn_bwd_dq_wgmma(",
                        "void (anonymous namespace)::wkv_fwd<",
-                       "void (anonymous namespace)::rglru_fwd<")
+                       "void (anonymous namespace)::rglru_fwd<",
+                       "void (anonymous namespace)::rglru_bwd<")
 
 
 def log(msg):
@@ -313,6 +351,14 @@ def phase_build():
             raise AssertionError(f"build: ptxas compiled {seen} {WGMMA_SYMBOL} kernels in "
                                  f"{name} (expected {want}); faults: {faults}")
         log(f"[build] {name}: {seen} {WGMMA_SYMBOL} kernels, no spill, no serialized wgmma")
+    # this slice's kernels: the scan's backward and the SIMT backward at 256
+    for name, pattern in (("rglru_scan_bwd", "rglru_bwd"),
+                          ("flash_attention_bwd", r"attn_bwd_(dkdv|dq)I.*Li256ELi256E")):
+        seen, spills = spilling_entries(builds[name].log, pattern)
+        if not seen or spills:
+            raise AssertionError(f"build: {name}: {seen} kernels match {pattern!r}; spills: "
+                                 f"{spills}")
+        log(f"[build] {name}: {seen} kernels match {pattern!r}, no spill")
 
 
 # Every tensor-core kernel of the flash libraries has this in its name.
@@ -324,17 +370,23 @@ def wgmma_ptxas_faults(log_text):
     faults it reported for them): a spill store or load in one of them, or a
     note that it serialized wgmma instructions (C7512, C7513 and their kin,
     which say "serialized"), which only those kernels issue."""
-    entry, seen, faults = "", 0, []
+    seen, faults = spilling_entries(log_text, WGMMA_SYMBOL)
+    return seen, faults + [line.strip() for line in log_text.splitlines()
+                           if re.search(r"\(C751[23]\)|serialized", line)]
+
+
+def spilling_entries(log_text, pattern):
+    """(the kernels whose ptxas name matches the regex ``pattern``, the ptxas
+    lines that report a spill store or load in one of them)."""
+    entry, seen, spills = "", 0, []
     for line in log_text.splitlines():
         if m := re.search(r"Compiling entry function '([^']+)'", line):
             entry = m[1]
-            seen += WGMMA_SYMBOL in entry
+            seen += bool(re.search(pattern, entry))
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
-            if WGMMA_SYMBOL in entry and (int(m[1]) or int(m[2])):
-                faults.append(f"{entry}: {line.strip()}")
-        elif re.search(r"\(C751[23]\)|serialized", line):
-            faults.append(line.strip())
-    return seen, faults
+            if re.search(pattern, entry) and (int(m[1]) or int(m[2])):
+                spills.append(f"{entry}: {line.strip()}")
+    return seen, spills
 
 
 def phase_kernel_cases():
@@ -538,6 +590,61 @@ def phase_scan_cases():
     return worst
 
 
+def scan_bwd_inputs(case, dtype, seed):
+    """a, h0 and h (the forward kernel's output) of a scan case, and the
+    cotangents dh in ``dtype`` and dh_last (f32, or None)."""
+    B, T, W, with_h0, with_dl, decay = case
+    a, b, h0 = scan_inputs((B, T, W, with_h0, decay), dtype, seed)
+    h, _ = scan_kernel.rglru_scan_fwd(a, b, h0)
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    dh = torch.randn((B, T, W), generator=g, device="cuda").to(dtype)
+    dh_last = torch.randn((B, W), generator=g, device="cuda") if with_dl else None
+    return a, h, h0, dh, dh_last
+
+
+def phase_scan_bwd_cases():
+    """Each scan backward case in f32 and bf16: the backward kernel's da, db
+    and dh0 against its plain version on the same inputs.  Each case's kernel
+    call must add exactly one to its launch counter and the plain call none;
+    f32 must agree to the bit (SCAN_BWD_REL_TOL)."""
+    kernel = scan_kernel.rglru_scan_bwd
+    worst = {}
+    for n, case in enumerate(SCAN_BWD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_bwd_inputs(case, dtype, seed=5000 + n)
+            before = kernel.launches
+            outs = kernel(*args)
+            mid = kernel.launches
+            refs = scan_ref.rglru_scan_bwd_reference(*args)
+            torch.cuda.synchronize()
+            name = dtype_name(dtype)
+            if (mid - before, kernel.launches - mid) != (1, 0):
+                raise AssertionError(f"scan bwd case {case} {name}: the kernel call launched "
+                                     f"{mid - before} times and the plain call "
+                                     f"{kernel.launches - mid}, expected 1 and 0")
+            for what, out, ref in zip(("da", "db", "dh0"), outs, refs):
+                want = torch.float32 if what == "dh0" else dtype
+                if out.shape != ref.shape or out.dtype != want:
+                    raise AssertionError(f"scan bwd case {case} {name} {what}: "
+                                         f"{tuple(out.shape)} {out.dtype}")
+                if not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"scan bwd case {case} {name} {what}: non-finite")
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = rel_err(out, ref)
+                tol = SCAN_BWD_REL_TOL[dtype] if what != "dh0" else 0.0
+                log(f"[scan-bwd] {case} {name} {what}: max_abs_err {err:.3e}, rel_err {rel:.3e} "
+                    f"(tol {tol:.3e}), bit-identical elements "
+                    f"{(out == ref).float().mean().item():.6f}, max |ref| "
+                    f"{ref.float().abs().max().item():.3f}; launches: kernel call 1, plain call 0")
+                if rel > tol:
+                    raise AssertionError(f"scan bwd case {case} {name} {what}: rel_err {rel} > "
+                                         f"{tol}")
+                worst[name] = max(worst.get(name, 0.0), err)
+    log(f"[scan-bwd] largest error over {len(SCAN_BWD_CASES)} cases: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
 def _slice_run(params, cfg, prompts, follow):
     """One path of the slice, with the launches of each part.  First a
     train-mode forward over the prompts: the final hidden state at every
@@ -680,11 +787,13 @@ def phase_slice():
 def bwd_inputs(case, dtype, seed):
     """q, k, v and dout of a case in ``dtype``; o, the plain forward's output;
     and lse, the plain version of the forward's, in a buffer from empty_lse
-    (rows 16 bytes apart, as the tensor-core route reads them)."""
+    (rows 16 bytes apart, as the tensor-core route reads them).  dout is 0
+    on the heads past BWD_REAL_HEADS[case], where there is an entry."""
     q, k, v = case_inputs(case, dtype, seed)
     o = fa_ops.chunked_attention(q, k, v, **case_kwargs(case))
     g = torch.Generator("cuda").manual_seed(seed + 1)
     dout = torch.randn(o.shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
+    dout[:, :, BWD_REAL_HEADS.get(case, case[3]):] = 0
     lse = fa_kernel.empty_lse(q.shape[0], q.shape[2], q.shape[1], "cuda")
     lse.copy_(fa_ref.lse_reference(q, k, v, **case_kwargs(case)))
     return q, k, v, o, dout, lse
@@ -719,6 +828,15 @@ def phase_bwd_cases():
                                      "from the plain call")
             if any(not torch.equal(a, b) for a, b in zip(outs, repeat)):
                 raise AssertionError(f"bwd case {case} {name}: a second call gave other values")
+            real = BWD_REAL_HEADS.get(case, case[3])
+            if real < case[3]:
+                padded = outs[0][:, :, real:]
+                if not torch.all(padded == 0):
+                    raise AssertionError(f"bwd case {case} {name}: dq of the padded heads "
+                                         f"{real}.. is not 0 (finite: "
+                                         f"{bool(torch.isfinite(padded.float()).all())})")
+                log(f"[bwd] {case} {name}: dout 0 on heads {real}..{case[3] - 1}, their dq "
+                    "exactly 0")
             for what, out, ref, like in zip(("dq", "dk", "dv"), outs, refs, (q, k, v)):
                 if out.shape != like.shape or out.dtype != dtype:
                     raise AssertionError(f"bwd case {case} {name} {what}: "
@@ -750,8 +868,11 @@ def phase_autograd_wiring():
     flash_attention's output has a grad_fn, one forward launch that writes
     the lse, and its backward is one backward launch giving the backward
     kernel's own dq, dk and dv from that forward's output and lse, to the
-    bit; the WKV and scan entry points, which have no backward kernel yet,
-    raise."""
+    bit.  The scan likewise in f32 and bf16, with h0 and a cotangent on
+    h_last: rglru_scan's h and h_last have a grad_fn, one forward and one
+    backward launch, and the gradients of a, b and h0 equal the backward
+    kernel's own.  The WKV entry point, which has no backward kernel yet,
+    raises."""
     for dtype, case in AUTOGRAD_CASES.items():
         q, k, v, _, dout, _ = bwd_inputs(case, dtype, seed=99)
         leaf = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -775,21 +896,41 @@ def phase_autograd_wiring():
                 not torch.equal(a, b) for a, b in zip(grads, want)):
             raise AssertionError(f"autograd {dtype_name(dtype)}: the output or gradients differ "
                                  "from the kernels' own")
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b, h0 = scan_inputs((2, 37, 100, True, "sigmoid"), dtype, seed=97)
+        g = torch.Generator("cuda").manual_seed(96)
+        dh = torch.randn(a.shape, generator=g, device="cuda").to(dtype)
+        dh_last = torch.randn(h0.shape, generator=g, device="cuda")
+        leaf = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+        reset_launches()
+        out, out_last = rglru.rglru_scan(*leaf)
+        if out.grad_fn is None or out_last.grad_fn is None:
+            raise AssertionError("autograd: rglru_scan's outputs on the card have no grad_fn")
+        grads = torch.autograd.grad((out, out_last), leaf, (dh, dh_last))
+        counts = read_launches()
+        h, _ = scan_kernel.rglru_scan_fwd(a, b, h0)
+        want = scan_kernel.rglru_scan_bwd(a, h, h0, dh, dh_last)
+        if (counts["rglru_scan_fwd"], counts["rglru_scan_bwd"]) != (1, 1):
+            raise AssertionError(f"autograd scan {dtype_name(dtype)}: launches {counts}, "
+                                 "expected one forward and one backward")
+        if not torch.equal(out.detach(), h) or any(
+                not torch.equal(x, y) for x, y in zip(grads, want)):
+            raise AssertionError(f"autograd scan {dtype_name(dtype)}: the output or gradients "
+                                 "differ from the kernels' own")
     refused = []
     wkv_args = wkv_inputs(WKV_CASES[0], torch.float32, seed=98)
-    scan_args = list(scan_inputs(SCAN_CASES[0], torch.float32, seed=97))
-    for name, fn, args in (("rwkv6_wkv", rwkv6.rwkv6_wkv, wkv_args),
-                           ("rglru_scan", rglru.rglru_scan, scan_args)):
-        args[0] = args[0].clone().requires_grad_(True)
-        try:
-            fn(*args)
-        except NotImplementedError:
-            refused.append(name)
-    if refused != ["rwkv6_wkv", "rglru_scan"]:
+    wkv_args[0] = wkv_args[0].clone().requires_grad_(True)
+    try:
+        rwkv6.rwkv6_wkv(*wkv_args)
+    except NotImplementedError:
+        refused.append("rwkv6_wkv")
+    if refused != ["rwkv6_wkv"]:
         raise AssertionError(f"autograd: only {refused} refused inputs that require grad")
     log("[autograd] flash_attention on the card, f32 (simt) and bf16 (wgmma): grad_fn, 1 "
         "forward launch with lse and 1 backward launch, output and gradients equal to the "
-        "kernels' own; rwkv6_wkv and rglru_scan refuse inputs that require grad")
+        "kernels' own; rglru_scan, f32 and bf16, h0 and a cotangent on h_last: grad_fn, 1 "
+        "forward and 1 backward launch, gradients of a, b and h0 equal to the kernel's own; "
+        "rwkv6_wkv refuses inputs that require grad")
 
 
 # One train step with remat "full" launches the forward kernel 3L - L/k
@@ -805,8 +946,34 @@ def train_launches(n_layers, remat_group=8):
             "flash_attention_bwd": n_layers}
 
 
-TRAIN_SLICE = ("qwen3-1.7b", {"n_layers": 2}, 2, 64)  # arch, cut, batch, tokens
+def hybrid_train_launches(cfg):
+    """A hybrid checkpoints each layer on its own (remat "full"): each kernel
+    runs forward in the step's forward and in its layer's recompute, and
+    backward once; flash in the attention layers, the scan in the RG-LRU
+    layers (tests/test_torch_train.py measures the same with counting
+    stand-ins)."""
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in ("attn", "attn_local") for k in kinds)
+    n_scan = kinds.count("rglru")
+    return {**dict.fromkeys(KERNELS, 0),
+            "flash_attention_fwd": 2 * n_attn, "flash_attention_bwd": n_attn,
+            "rglru_scan_fwd": 2 * n_scan, "rglru_scan_bwd": n_scan}
+
+
+# Each train slice: the arch, its cut (full width), batch and tokens, and the
+# entry points the plain path swaps for their plain versions, which torch
+# differentiates.  recurrentgemma: layers rglru, rglru, attn_local, rglru at
+# a 128-token window under 256 tokens, so the windowed backward runs.
+TRAIN_SLICES = [
+    ("qwen3-1.7b", {"n_layers": 2}, 2, 64,
+     [(attention, "flash_attention", fa_ops.chunked_attention)]),
+    ("recurrentgemma-2b", {"n_layers": 4, "local_window": 128}, 2, 256,
+     [(attention, "flash_attention", fa_ops.chunked_attention),
+      (rglru, "rglru_scan", scan_ref.rglru_reference)]),
+]
 TRAIN_CE_CHUNK = 512
+# adamw_update's eps, which make_train_step leaves at its default.
+ADAM_EPS = inspect.signature(adamw_update).parameters["eps"].default
 
 
 def read_train_launches() -> dict:
@@ -816,22 +983,30 @@ def read_train_launches() -> dict:
             "flash_attention_bwd by route": read_bwd_routes()}
 
 
-def want_train_launches(n_layers, dtype, head_dim):
-    """read_train_launches() of a train step (or a gradient) of n_layers
-    attention layers in dtype at head_dim: each flash kernel's launches all on
-    its route, and every forward launch writing the lse (its inputs require
-    grad)."""
-    want = train_launches(n_layers)
+def want_train_launches(cfg, dtype):
+    """read_train_launches() of a train step (or a gradient) of cfg in dtype,
+    remat "full": each flash kernel's launches all on its route, and every
+    forward launch writing the lse (its inputs require grad)."""
+    want = train_launches(cfg.n_layers) if cfg.uniform_blocks else hybrid_train_launches(cfg)
     by_route = {}
     for name, backward in (("flash_attention_fwd", False), ("flash_attention_bwd", True)):
-        route = fa_kernel.route(dtype, head_dim, head_dim, backward=backward)
+        route = fa_kernel.route(dtype, cfg.head_dim, cfg.head_dim, backward=backward)
         by_route[f"{name} by route"] = {r: want[name] * (r == route) for r in fa_kernel.ROUTES}
     return {**want, **by_route, "flash_attention_fwd with lse": want["flash_attention_fwd"]}
 
 
+def no_train_launches():
+    """read_train_launches() after a run that launched nothing."""
+    return {**dict.fromkeys(KERNELS, 0),
+            "flash_attention_fwd by route": dict.fromkeys(fa_kernel.ROUTES, 0),
+            "flash_attention_fwd with lse": 0,
+            "flash_attention_bwd by route": dict.fromkeys(fa_kernel.ROUTES, 0)}
+
+
 def _train_slice_run(cfg, params, batch):
     """One path of the train slice: the gradients of loss_fn, then one
-    make_train_step step from a fresh state, with each part's launches."""
+    make_train_step step from a fresh state, with each part's launches, and
+    what the step's AdamW update took (first_step_seen)."""
     weights = leaves(params)
     for w in weights:
         w.requires_grad_(True)
@@ -840,122 +1015,205 @@ def _train_slice_run(cfg, params, batch):
     grads = torch.autograd.grad(loss, weights)
     grad_launches = read_train_launches()
     step = make_train_step(cfg, remat="full", ce_chunk=TRAIN_CE_CHUNK)
+    seen = {}
     reset_launches()
-    state, metrics = step(init_train_state(params), batch)
-    return grads, grad_launches, metrics, state, read_train_launches()
+    with mock.patch.object(train_steps, "adamw_update", first_step_seen(seen)):
+        state, metrics = step(init_train_state(params), batch)
+    return grads, grad_launches, metrics, state, read_train_launches(), seen
+
+
+def first_step_seen(seen):
+    """adamw_update, keeping in ``seen`` what its step's direction is made
+    of: the gradients, the step's lr and the clip factor, as it forms them."""
+    def update(state, grads, *, lr, clip, **kw):
+        state, aux = adamw_update(state, grads, lr=lr, clip=clip, **kw)
+        seen.update(grads=leaves(grads), lr=lr(state["step"]).item(),
+                    scale=torch.clamp(clip / torch.clamp(aux["grad_norm"], min=1e-12), max=1.0))
+        return state, aux
+    return update
+
+
+def first_step_excess(a, b, seen_k, seen_p, leaf, chunk=1 << 24):
+    """The two paths' masters a and b of one leaf after the first AdamW step
+    from the same master m0, against the difference their own gradients
+    make.  A path's step is m0 - lr_1 (u + weight_decay m0) with u = x /
+    (|x| + eps), x its clipped gradient, so a - b = lr_1 (u_p - u_k) to
+    within f32 rounding: 1e-5 of each step for the moments' roundings and
+    bias corrections, an ulp of each master, and f32's least normal for
+    results under it.  Holds every element, however near eps its x.
+    Returns (the elements beyond that, the largest error over its slack,
+    held <= 1); by chunks of ``chunk`` elements, so a vocab-sized leaf needs
+    no full-size temporaries."""
+    lr = seen_k["lr"]
+    if seen_p["lr"] != lr:
+        raise AssertionError(f"the paths' first steps take lr {lr} and {seen_p['lr']}")
+    over, worst = 0, 0.0
+    for ak, bp, gk, gp in zip(*(t.reshape(-1).split(chunk) for t in (
+            a, b, seen_k["grads"][leaf], seen_p["grads"][leaf]))):
+        xk, xp = gk.float() * seen_k["scale"], gp.float() * seen_p["scale"]
+        uk, up = xk / (xk.abs() + ADAM_EPS), xp / (xp.abs() + ADAM_EPS)
+        slack = (lr * 1e-5 * (uk.abs() + up.abs()) + 2.0**-23 * (ak.abs() + bp.abs())
+                 + torch.finfo(torch.float32).tiny)
+        ratio = ((ak - bp) - lr * (up - uk)).abs() / slack
+        over += int((ratio > 1).sum())
+        worst = max(worst, ratio.max().item())
+    return over, worst
+
+
+def sign_flips(gk, gp, tol):
+    """The elements of a bf16 gradient leaf that change sign between the
+    paths, and the largest one's |g| over the leaf's largest.  Raises where
+    one's |g| is above tol of the leaf's largest."""
+    top = gp.float().abs().max()
+    flips = gp.float().abs()[torch.sign(gk.float()) != torch.sign(gp.float())]
+    if (flips > tol * top).any():
+        raise AssertionError(f"a gradient changes sign between the paths at |g| "
+                             f"{flips.max().item()}, more than {tol} of the leaf's largest "
+                             f"{top.item()}")
+    return flips.numel(), (flips.max() / top).item() if flips.numel() else 0.0
 
 
 def phase_train_slice():
-    """qwen3-1.7b at full width and 2 layers, 2 x 64 tokens: the kernel path
-    against the plain path (attention.flash_attention swapped for
-    chunked_attention, which torch differentiates), in f32 and bf16.
+    """Each of TRAIN_SLICES at full width and a few layers (qwen3-1.7b at 2
+    layers, 2 x 64 tokens; recurrentgemma-2b at 4, 2 x 256 tokens): the
+    kernel path against the plain path (the slice's entry points swapped for
+    their plain versions, which torch differentiates), in f32 and bf16.
     Tolerance on ||a - b|| / ||b||: 1e-4 in f32 (the kernels and the plain
     versions differ in the order of f32 sums), 2e-2 in bf16 (one bf16
     rounding of each kernel output, carried through the layers).  Held so:
     the loss, every gradient leaf, and after one make_train_step step the
-    loss, grad_norm and every master leaf.  The first AdamW step moves an
-    element by about lr * sign(g), so in bf16, where the two paths' gradients
-    differ by up to tol of the leaf, an element whose gradient changes sign
-    between them moves the other way: master is held on the elements whose
-    gradients agree in sign, the count of the others is logged, and each of
-    those must have |g| within tol of the leaf's largest (a sign flip beyond
-    that fails); in f32 master is held on every element.  The f32 gradients must
-    differ somewhere (they come from two computations).  Launches exact on
-    each path: the kernel path want_train_launches(2, ...) in each part (5
-    forward, each writing the lse, and 2 backward, all on the dtype's route:
-    SIMT in f32, tensor cores in bf16), the plain
-    path none."""
-    arch, cut, batch_size, seq = TRAIN_SLICE
-    cfg = dataclasses.replace(get_config(arch), **cut)
-    none = want_train_launches(0, torch.float32, cfg.head_dim)
-    g = torch.Generator("cuda").manual_seed(4)
-    toks = torch.randint(0, cfg.vocab, (batch_size, seq + 1), generator=g, device="cuda")
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        label = f"{arch} full width, n_layers 2, {batch_size}x{seq} tokens, {dtype_name(dtype)}"
-        want = want_train_launches(cfg.n_layers, dtype, cfg.head_dim)
+    loss and grad_norm.  Every element of every master leaf after the step,
+    in both dtypes, is held to the difference that the two paths' own
+    gradients make through the first AdamW step (first_step_excess: a - b =
+    lr_1 (u_p - u_k), u = x / (|x| + eps), to within f32 rounding), and in
+    f32 every master leaf also at tol.  In bf16 a tolerance on the master
+    leaf would not follow from the gradients' one: the first step moves an
+    element by lr_1 x / (|x| + eps), about lr_1 sign(x), so an element whose
+    gradient changes sign between the paths moves the other way, and one
+    whose x is near eps carries its own relative error, which the leaf's
+    norm does not bound (a leaf that starts at zero is its step alone; one
+    such element in 2560 moves recurrentgemma's gate bias by 2 %).  So in
+    bf16 the gradients' sign flips are counted and logged, and each must
+    have |g| within tol of the leaf's largest (sign_flips).  The f32
+    gradients must differ somewhere (they come from two computations).
+    Launches exact on
+    each path: the kernel path want_train_launches(cfg, dtype) in each part
+    (qwen3: 5 forward, each writing the lse, and 2 backward, all on the
+    dtype's route: SIMT in f32, tensor cores in bf16; recurrentgemma: 2
+    forward, on the dtype's route, 1 backward, SIMT, 6 scan forward and 3
+    scan backward), the plain path none."""
+    none = no_train_launches()
+    for arch, cut, batch_size, seq, patches in TRAIN_SLICES:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        g = torch.Generator("cuda").manual_seed(4)
+        toks = torch.randint(0, cfg.vocab, (batch_size, seq + 1), generator=g, device="cuda")
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        what_cut = ", ".join(f"{k} {v}" for k, v in cut.items())
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            label = f"{arch} full width, {what_cut}, {batch_size}x{seq} tokens, {dtype_name(dtype)}"
+            want = want_train_launches(cfg, dtype)
 
-        def params():
-            return lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype, "cuda")
-        kernel = _train_slice_run(cfg, params(), batch)
-        with mock.patch.object(attention, "flash_attention", fa_ops.chunked_attention):
-            plain = _train_slice_run(cfg, params(), batch)
-        log(f"[train-slice] {label}: launches {kernel[1]} in the gradient and {kernel[4]} in the "
-            f"step on the kernel path (expected {want} each), {plain[1]} and {plain[4]} on the "
-            "plain path (expected all 0)")
-        if (kernel[1], kernel[4], plain[1], plain[4]) != (want, want, none, none):
-            raise AssertionError(f"train slice {label}: launches {kernel[1]}, {kernel[4]}, "
-                                 f"{plain[1]}, {plain[4]}")
-        differ = 0
-        for path, a, b in zip(paths(kernel[3]["params"]), kernel[0], plain[0]):
-            rel = rel_err(a, b)
-            differ += int(not torch.equal(a, b))
-            log(f"[train-slice] {label}, gradient {path}: rel_err {rel:.3e} (tol {tol})")
-            if not torch.isfinite(a.float()).all() or rel > tol:
-                raise AssertionError(f"train slice {label}: gradient {path} rel_err {rel}")
-        if dtype == torch.float32 and differ == 0:
-            raise AssertionError(f"train slice {label}: the f32 gradients of the two paths agree "
-                                 "bit for bit")
-        for what in ("loss", "grad_norm"):
-            a, b = kernel[2][what], plain[2][what]
-            rel = rel_err(a, b)
-            log(f"[train-slice] {label}, step {what}: {a.item():.6f} against {b.item():.6f}, "
-                f"rel_err {rel:.3e} (tol {tol})")
-            if not torch.isfinite(a) or rel > tol:
-                raise AssertionError(f"train slice {label}: {what} rel_err {rel}")
-        left_out = {}
-        for path, a, b, gk, gp in zip(paths(kernel[3]["master"]), leaves(kernel[3]["master"]),
-                                      leaves(plain[3]["master"]), kernel[0], plain[0]):
-            held = torch.ones_like(a, dtype=torch.bool)
-            if dtype == torch.bfloat16:
-                held = torch.sign(gk.float()) == torch.sign(gp.float())
-                top = gp.float().abs().max()
-                flips = gp.float().abs()[~held]
-                if flips.numel():
-                    left_out[path] = (flips.numel(), round((flips.max() / top).item(), 6))
-                if (flips > tol * top).any():
-                    raise AssertionError(f"train slice {label}: {path}'s gradient changes sign "
-                                         f"between the paths at |g| {flips.max().item()}, more "
-                                         f"than {tol} of the leaf's largest {top.item()}")
-            rel = rel_err(a[held], b[held])
-            if not torch.isfinite(a).all() or rel > tol:
-                raise AssertionError(f"train slice {label}: master {path} rel_err {rel}")
-        log(f"[train-slice] {label}: {differ} of {len(kernel[0])} gradient leaves differ between "
-            f"the paths; every master leaf after the step within {tol}; elements whose gradient "
-            f"changes sign between the paths, left out (count, largest |g| over the leaf's "
-            f"largest): {left_out or 'none'}")
-        del kernel, plain
+            def params():
+                return lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype, "cuda")
+            kernel = _train_slice_run(cfg, params(), batch)
+            with contextlib.ExitStack() as stack:
+                for module, attr, plain in patches:
+                    stack.enter_context(mock.patch.object(module, attr, plain))
+                plain = _train_slice_run(cfg, params(), batch)
+            log(f"[train-slice] {label}: launches {kernel[1]} in the gradient and {kernel[4]} in "
+                f"the step on the kernel path (expected {want} each), {plain[1]} and {plain[4]} "
+                "on the plain path (expected all 0)")
+            if (kernel[1], kernel[4], plain[1], plain[4]) != (want, want, none, none):
+                raise AssertionError(f"train slice {label}: launches {kernel[1]}, {kernel[4]}, "
+                                     f"{plain[1]}, {plain[4]}")
+            differ = 0
+            for path, a, b in zip(paths(kernel[3]["params"]), kernel[0], plain[0]):
+                rel = rel_err(a, b)
+                differ += int(not torch.equal(a, b))
+                log(f"[train-slice] {label}, gradient {path}: rel_err {rel:.3e} (tol {tol})")
+                if not torch.isfinite(a.float()).all() or rel > tol:
+                    raise AssertionError(f"train slice {label}: gradient {path} rel_err {rel}")
+            if dtype == torch.float32 and differ == 0:
+                raise AssertionError(f"train slice {label}: the f32 gradients of the two paths "
+                                     "agree bit for bit")
+            for what in ("loss", "grad_norm"):
+                a, b = kernel[2][what], plain[2][what]
+                rel = rel_err(a, b)
+                log(f"[train-slice] {label}, step {what}: {a.item():.6f} against {b.item():.6f}, "
+                    f"rel_err {rel:.3e} (tol {tol})")
+                if not torch.isfinite(a) or rel > tol:
+                    raise AssertionError(f"train slice {label}: {what} rel_err {rel}")
+            flipped, largest = {}, 0.0
+            for i, (path, a, b) in enumerate(zip(paths(kernel[3]["master"]),
+                                                 leaves(kernel[3]["master"]),
+                                                 leaves(plain[3]["master"]))):
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"train slice {label}: master {path} is not finite")
+                over, worst = first_step_excess(a, b, kernel[5], plain[5], i)
+                largest = max(largest, worst)
+                if over:
+                    raise AssertionError(f"train slice {label}: master {path}: {over} elements "
+                                         "differ from what the two paths' first steps make by "
+                                         f"more than f32 rounding (up to {worst:.3e} times it)")
+                if dtype == torch.float32:
+                    rel = rel_err(a, b)
+                    if rel > tol:
+                        raise AssertionError(f"train slice {label}: master {path} rel_err {rel}")
+                    continue
+                try:
+                    n_flips, ratio = sign_flips(kernel[0][i], plain[0][i], tol)
+                except AssertionError as err:
+                    raise AssertionError(f"train slice {label}: {path}: {err}") from None
+                if n_flips:
+                    flipped[path] = (n_flips, round(ratio, 6))
+            log(f"[train-slice] {label}: {differ} of {len(kernel[0])} gradient leaves differ "
+                "between the paths; every element of every master leaf after the step within "
+                f"f32 rounding of the two first steps' difference (largest error over its "
+                f"slack {largest:.3e}, held <= 1)"
+                + (f", and every master leaf within {tol}" if dtype == torch.float32 else
+                   f"; gradient sign flips (count, largest |g| over the leaf's largest): "
+                   f"{flipped or 'none'}"))
+            del kernel, plain
+            torch.cuda.empty_cache()
 
 
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 3
+# Each main train path at full width: batch x tokens a step.  qwen3-1.7b
+# takes 8 x 1024; recurrentgemma-2b the reference's train_4k sequence of
+# 4096 tokens with its global batch of 256 cut to 2 for one card.
+TRAIN_SHAPES = {"qwen3-1.7b": (8, 1024), "recurrentgemma-2b": (2, 4096)}
+TRAIN_STEPS = 3
 
 
-def train_batch(data, step):
+def train_batch(data, step, batch_size):
     return {k: torch.from_numpy(v).long().to("cuda")
-            for k, v in data.batch(step, TRAIN_BATCH).items()}
+            for k, v in data.batch(step, batch_size).items()}
 
 
-def phase_train():
-    """The main train path: qwen3-1.7b at full width, 28 layers, bf16, AdamW
-    with f32 master, mu and nu, batches of 8 x 1024 from the port's
+def phase_train(arch):
+    """A main train path: arch at full width, all its layers, bf16, AdamW
+    with f32 master, mu and nu, batches of TRAIN_SHAPES[arch] from the port's
     SyntheticLMDataset, remat "full", ce_chunk 512; one warm-up step, then
     TRAIN_STEPS timed steps (host clock after a sync; the batch is made
     before the clock starts), the launch counters set to 0 before each and
-    read after it (77 forward, all wgmma and each writing the lse, and 28
-    backward, all wgmma); then one more step under the profiler."""
-    cfg = get_config("qwen3-1.7b")
+    read after it (want_train_launches: qwen3-1.7b 77 forward, all wgmma and
+    each writing the lse, and 28 backward, all wgmma; recurrentgemma-2b 16
+    forward, all wgmma and each writing the lse, 8 backward, all SIMT, 36
+    scan forward and 18 scan backward); then one more step under the
+    profiler."""
+    cfg = get_config(arch)
+    batch_size, seq = TRAIN_SHAPES[arch]
     params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda")
     n_params = numel(params)
     state = init_train_state(params)
-    data = SyntheticLMDataset(cfg.vocab, TRAIN_SEQ, seed=0)
+    data = SyntheticLMDataset(cfg.vocab, seq, seed=0)
     step_fn = make_train_step(cfg, remat="full", ce_chunk=TRAIN_CE_CHUNK)
-    state, metrics = step_fn(state, train_batch(data, 0))  # warm-up: cuBLAS, allocator
+    state, metrics = step_fn(state, train_batch(data, 0, batch_size))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    want = want_train_launches(cfg.n_layers, torch.bfloat16, cfg.head_dim)
+    want = want_train_launches(cfg, torch.bfloat16)
     times, launches, losses = [], [], []
     for i in range(1, 1 + TRAIN_STEPS):
-        batch = train_batch(data, i)
+        batch = train_batch(data, i, batch_size)
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -965,33 +1223,34 @@ def phase_train():
         times.append(time.perf_counter() - t0)
         launches.append(read_train_launches())
         losses.append(loss)
-        log(f"[train] step {i + 1}: {times[-1] * 1e3:.3f} ms, loss {loss:.4f}, grad_norm "
-            f"{metrics['grad_norm'].item():.4f}, tokens {int(metrics['tokens'])}, launches "
-            f"{launches[-1]}")
+        log(f"[train] {cfg.name} step {i + 1}: {times[-1] * 1e3:.3f} ms, loss {loss:.4f}, "
+            f"grad_norm {metrics['grad_norm'].item():.4f}, tokens {int(metrics['tokens'])}, "
+            f"launches {launches[-1]}")
         if not (math.isfinite(loss) and torch.isfinite(metrics["grad_norm"])):
-            raise AssertionError(f"train: non-finite loss or grad_norm at step {i + 1}")
-        if int(metrics["tokens"]) != TRAIN_BATCH * TRAIN_SEQ:
-            raise AssertionError(f"train: {int(metrics['tokens'])} tokens in step {i + 1}")
+            raise AssertionError(f"train {arch}: non-finite loss or grad_norm at step {i + 1}")
+        if int(metrics["tokens"]) != batch_size * seq:
+            raise AssertionError(f"train {arch}: {int(metrics['tokens'])} tokens in step {i + 1}")
         if launches[-1] != want:
-            raise AssertionError(f"train: launches {launches[-1]} in step {i + 1}, expected "
-                                 f"{want}")
+            raise AssertionError(f"train {arch}: launches {launches[-1]} in step {i + 1}, "
+                                 f"expected {want}")
     peak = torch.cuda.max_memory_allocated()
     if int(state["step"]) != 1 + TRAIN_STEPS:
-        raise AssertionError(f"train: state step {int(state['step'])}, expected {1 + TRAIN_STEPS}")
+        raise AssertionError(f"train {arch}: state step {int(state['step'])}, expected "
+                             f"{1 + TRAIN_STEPS}")
     bad = [p for p, t in zip(paths(state["params"]), leaves(state["params"]))
            if not torch.isfinite(t).all()]
     if bad:
-        raise AssertionError(f"train: non-finite parameters {bad}")
+        raise AssertionError(f"train {arch}: non-finite parameters {bad}")
     step_s = statistics.median(times)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = useful_flops(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    tokens = batch_size * seq
+    flops = useful_flops(cfg, ShapeConfig("train", seq, batch_size, "train"))
     log(f"[train] {cfg.name}: {n_params} params bf16, {cfg.n_layers} layers, batch "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat full, ce_chunk {TRAIN_CE_CHUNK}: step "
+        f"{batch_size} x {seq} tokens, remat full, ce_chunk {TRAIN_CE_CHUNK}: step "
         f"{step_s * 1e3:.3f} ms (median of {TRAIN_STEPS}; {[round(t * 1e3, 3) for t in times]}), "
         f"{tokens / step_s:.1f} tokens/s, useful_flops {flops:.4e} = model-FLOP share "
         f"{flops / step_s / PEAK_BF16_FLOPS:.4f} of {PEAK_BF16_FLOPS:.0e}; "
         f"max_memory_allocated {peak} bytes; losses {losses}")
-    batch = train_batch(data, 1 + TRAIN_STEPS)
+    batch = train_batch(data, 1 + TRAIN_STEPS, batch_size)
     profile_call(f"{cfg.name} train step", lambda: step_fn(state, batch))
     del state, params
     return dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
@@ -1007,11 +1266,9 @@ def phase_train():
 # in each of its 8 attn_local layers and the scan once in each of its 18
 # rglru layers, in prefill only (decode is plain, as in the JAX package).
 SERVE_LAUNCHES = {
-    "qwen3-1.7b": {"flash_attention_fwd": 28, "flash_attention_bwd": 0, "rwkv6_wkv_fwd": 0,
-                   "rglru_scan_fwd": 0},
-    "rwkv6-7b": {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                 "rwkv6_wkv_fwd": 32 * SERVE_NEW, "rglru_scan_fwd": 0},
-    "recurrentgemma-2b": {"flash_attention_fwd": 8, "flash_attention_bwd": 0, "rwkv6_wkv_fwd": 0,
+    "qwen3-1.7b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 28},
+    "rwkv6-7b": {**dict.fromkeys(KERNELS, 0), "rwkv6_wkv_fwd": 32 * SERVE_NEW},
+    "recurrentgemma-2b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 8,
                           "rglru_scan_fwd": 18},
 }
 # Every served flash launch is bf16 at head dim 128 or 256: the tensor-core route.
@@ -1265,8 +1522,8 @@ def ms_a_launch(profile_once, symbols, calls):
 
 def bwd_device_ms(case, calls=5):
     """Device time a launch of each kernel of the backward (delta, dK/dV,
-    dQ) at a bf16 case, from the profiler over `calls` calls after 3
-    warm-ups (ms_a_launch)."""
+    dQ, on the case's route) at a bf16 case, from the profiler over `calls`
+    calls after 3 warm-ups (ms_a_launch)."""
     from torch.profiler import ProfilerActivity, profile
     q, k, v = case_inputs(case, torch.bfloat16, seed=0)
     kw = case_kwargs(case)
@@ -1284,20 +1541,40 @@ def bwd_device_ms(case, calls=5):
             torch.cuda.synchronize()
         return [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    return ms_a_launch(profile_once, {"delta": "attn_bwd_delta", "dkdv": "attn_bwd_dkdv_wgmma",
-                                      "dq": "attn_bwd_dq_wgmma"}, calls)
+    # a kernel's symbol goes on with "_wgmma(" on the tensor-core route, with
+    # its template arguments ("<") on the SIMT route
+    tail = "_wgmma" if fa_kernel.route(torch.bfloat16, case[5], case[6], backward=True) == "wgmma" \
+        else "<"
+    return ms_a_launch(profile_once, {"delta": "attn_bwd_delta", "dkdv": f"attn_bwd_dkdv{tail}",
+                                      "dq": f"attn_bwd_dq{tail}"}, calls)
+
+
+# Each train path's backward shape, bf16, and the calls a timed run makes of
+# (kernel, plain version, library forward + backward, library forward), and
+# the calls of each profiler session (bwd_device_ms).
+BWD_PATHS = {"qwen3-1.7b": (QWEN3_TRAIN, (20, 3, 20, 20), 5),
+             "recurrentgemma-2b": (RECURRENTGEMMA_TRAIN, (3, 1, 3, 3), 3)}
 
 
 def phase_bwd_timings():
-    """The backward kernel at qwen3-1.7b's train shape, bf16 (its route as
-    route() names it), given the forward kernel's output and lse, in turns
-    with its plain version and with the library's attention backward, by
-    CUDA events around back-to-back calls; then kernel and library by device
-    time a call (device_ms); then each of its kernels' device time a launch
-    (delta, dK/dV, dQ: bwd_device_ms).  The library has no
-    backward alone: its time is SDPA forward + backward less SDPA forward, a
-    yardstick only (the port never calls it)."""
-    case = QWEN3_TRAIN
+    """The backward kernel at each train path's shape (BWD_PATHS), bf16 (its
+    route as route() names it: wgmma at qwen3-1.7b's head dim 128, SIMT at
+    recurrentgemma-2b's 256), given the forward kernel's output and lse, in
+    turns with its plain version and with the library's attention backward
+    (the window as a boolean mask where there is one), by CUDA events around
+    back-to-back calls; then kernel and library by device time a call
+    (device_ms); then each of its kernels' device time a launch (delta,
+    dK/dV, dQ: bwd_device_ms).  The library has no backward alone: its time
+    is SDPA forward + backward less SDPA forward, a yardstick only (the port
+    never calls it)."""
+    out = {}
+    for arch, (case, iters, calls) in BWD_PATHS.items():
+        out[arch] = _bwd_timings(arch, case, iters, calls)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bwd_timings(arch, case, iters, calls):
     kw = case_kwargs(case)
     q, k, v = case_inputs(case, torch.bfloat16, seed=124)
     o, lse = fa_kernel.flash_attention_fwd(q, k, v, with_lse=True, **kw)
@@ -1306,9 +1583,16 @@ def phase_bwd_timings():
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
     dt = dout.transpose(1, 2).contiguous()
     route = fa_kernel.route(torch.bfloat16, case[5], case[6], backward=True)
+    window = case[8]
+    if window is None:
+        mask = {"is_causal": True}
+    else:
+        i = torch.arange(case[1], device="cuda")[:, None]
+        j = torch.arange(case[2], device="cuda")[None, :]
+        mask = {"attn_mask": (j <= i) & (j > i - window)}
 
     def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **mask)
 
     def sdpa_fwd_bwd():
         return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
@@ -1317,31 +1601,33 @@ def phase_bwd_timings():
         return fa_kernel.flash_attention_bwd(q, k, v, o, dout, lse, **kw)
     lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
                   for a, b in zip(sdpa_fwd_bwd(), kernel()))
+    it_kernel, it_plain, it_fwd_bwd, it_fwd = iters
     ms, times = in_turns({
-        "kernel": (kernel, 20),
+        "kernel": (kernel, it_kernel),
         "plain": (lambda: fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, lse=lse, **kw),
-                  3),
-        "sdpa_fwd_bwd": (sdpa_fwd_bwd, 20),
-        "sdpa_fwd": (sdpa_fwd, 20),
+                  it_plain),
+        "sdpa_fwd_bwd": (sdpa_fwd_bwd, it_fwd_bwd),
+        "sdpa_fwd": (sdpa_fwd, it_fwd),
     })
     library = ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"]
     bound_ms, bound_by, flops, nbytes = bwd_bound(case, torch.bfloat16)
-    log(f"[timings] flash_attention_bwd, qwen3-1.7b train, route {route}: q {tuple(q.shape)} "
-        f"k,v {tuple(k.shape)} bf16 causal, median of 4: kernel {ms['kernel']:.4f} ms; plain "
-        f"{ms['plain']:.4f} ms; scaled_dot_product_attention backward {library:.4f} ms (forward "
-        f"+ backward {ms['sdpa_fwd_bwd']:.4f} less forward {ms['sdpa_fwd']:.4f}; its gradients "
-        f"against the kernel's: max_abs_err {lib_err:.3e}); bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
+    log(f"[timings] flash_attention_bwd, {arch} train, route {route}: q {tuple(q.shape)} "
+        f"k,v {tuple(k.shape)} bf16 causal, window {window}, median of 4: kernel "
+        f"{ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; scaled_dot_product_attention "
+        f"backward {library:.4f} ms (forward + backward {ms['sdpa_fwd_bwd']:.4f} less forward "
+        f"{ms['sdpa_fwd']:.4f}; its gradients against the kernel's: max_abs_err {lib_err:.3e}); "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
     log(f"[timings] all runs (ms): {json.dumps(times)}")
-    dev, dev_times = in_turns({"kernel": (kernel, 20), "sdpa_fwd_bwd": (sdpa_fwd_bwd, 20),
-                               "sdpa_fwd": (sdpa_fwd, 20)}, device_ms)
-    log(f"[timings] flash_attention_bwd, qwen3-1.7b train, device time a call, median of 4: "
+    dev, dev_times = in_turns({"kernel": (kernel, it_kernel),
+                               "sdpa_fwd_bwd": (sdpa_fwd_bwd, it_fwd_bwd),
+                               "sdpa_fwd": (sdpa_fwd, it_fwd)}, device_ms)
+    log(f"[timings] flash_attention_bwd, {arch} train, device time a call, median of 4: "
         f"kernel {dev['kernel']:.4f} ms; scaled_dot_product_attention backward "
         f"{dev['sdpa_fwd_bwd'] - dev['sdpa_fwd']:.4f} ms (forward + backward "
         f"{dev['sdpa_fwd_bwd']:.4f} less forward {dev['sdpa_fwd']:.4f}); all runs (ms): "
         f"{json.dumps(dev_times)}")
-    stages = bwd_device_ms(case)
-    log(f"[timings] flash_attention_bwd, qwen3-1.7b train, device ms a launch by kernel "
+    stages = bwd_device_ms(case, calls)
+    log(f"[timings] flash_attention_bwd, {arch} train, device ms a launch by kernel "
         f"(profiler): {json.dumps(stages)}")
     return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library, device_ms=dev["kernel"],
@@ -1407,6 +1693,37 @@ def phase_scan_timings():
     log(f"[timings] rglru_scan_fwd at a, b {tuple(a.shape)} f32, h0 None, median of 4, "
         f"CUDA events: kernel {ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; bound "
         f"{bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
+    log(f"[timings] all runs (ms): {json.dumps(times)}")
+    return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by)
+
+
+def scan_bwd_bound(case, dtype):
+    """Least time on the card for the scan's backward: dh, a and h read once
+    (h0 and dh_last when given), da and db written once and dh0; 3 FLOP an
+    element at the f32 rate outside the tensor cores.  The larger of the two."""
+    B, T, W, with_h0, with_dl, _ = case
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * 5 * B * T * W + 4 * B * W * (1 + with_h0 + with_dl)
+    flops = 3 * B * T * W
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def phase_scan_bwd_timings():
+    """The scan's backward kernel and its plain version at recurrentgemma-2b's
+    train shape, f32 (what _lru_coeffs hands the scan), h0 and dh_last None
+    as in train mode, by CUDA events around back-to-back calls, in turns.
+    Each call moves 419 MB, eight times the L2 cache.  No single PyTorch call
+    computes the recurrence's gradient, so there is no library time."""
+    args = scan_bwd_inputs(SCAN_TRAIN_CASE, torch.float32, seed=655)
+    ms, times = in_turns({
+        "kernel": (lambda: scan_kernel.rglru_scan_bwd(*args), 20),
+        "plain": (lambda: scan_ref.rglru_scan_bwd_reference(*args), 1),
+    })
+    bound_ms, bound_by, flops, nbytes = scan_bwd_bound(SCAN_TRAIN_CASE, torch.float32)
+    log(f"[timings] rglru_scan_bwd at a, h, dh {tuple(args[0].shape)} f32, h0 and dh_last None, "
+        f"median of 4, CUDA events: kernel {ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
     log(f"[timings] all runs (ms): {json.dumps(times)}")
     return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1498,6 +1815,7 @@ def main() -> int:
     phase_autograd_wiring()
     wkv_worst = phase_wkv_cases()
     scan_worst = phase_scan_cases()
+    scan_bwd_worst = phase_scan_bwd_cases()
     phase_slice()
     phase_train_slice()
     by_path, routes_by_path = {}, {}
@@ -1506,41 +1824,59 @@ def main() -> int:
         phase_profile(params, cfg, prompts)
         del params  # free one model's weights before the next
         torch.cuda.empty_cache()
-    train = phase_train()
-    torch.cuda.empty_cache()
+    train = {}
+    for arch in TRAIN_SHAPES:  # one model's weights and state at a time
+        train[arch] = phase_train(arch)
+        torch.cuda.empty_cache()
     fa_t = phase_timings()
     bwd_t = phase_bwd_timings()
     wkv_t = phase_wkv_timings()
     scan_t = phase_scan_timings()
+    scan_bwd_t = phase_scan_bwd_timings()
     log(f"[timings] device_ms: {DEVICE_MS_TALLY['measurements']} measurements in "
         f"{DEVICE_MS_TALLY['runs']} timed runs")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def launches(kernel, timed=None):
+        """Each serve's launches of kernel, with timed[model] where given."""
         return (sum(counts[kernel] for counts in by_path.values()),
                 [{"model": arch, "launches": counts[kernel], **(timed or {}).get(arch, {})}
                  for arch, counts in by_path.items()])
+
+    def train_paths(kernel, timed=None):
+        """Each train path's launches of kernel over its timed steps (by route
+        for the flash kernels), with timed[model] where given."""
+        entries = []
+        for arch, t in train.items():
+            n = sum(c[kernel] for c in t["launches"])
+            if not n:
+                continue
+            entry = {"model": arch, "path": f"train, {TRAIN_STEPS} steps", "launches": n,
+                     "launches_per_step": t["launches"][0][kernel], **(timed or {}).get(arch, {})}
+            if f"{kernel} by route" in t["launches"][0]:
+                entry["launches_by_route"] = {
+                    r: sum(c[f"{kernel} by route"][r] for c in t["launches"])
+                    for r in fa_kernel.ROUTES}
+            entries.append(entry)
+        return sum(e["launches"] for e in entries), entries
+
+    def by_route(entries):
+        return {r: sum(e["launches_by_route"][r] for e in entries) for r in fa_kernel.ROUTES}
 
     log(f"[train] summary: {json.dumps(train)}")
     fa_launches, fa_by_path = launches("flash_attention_fwd", fa_t)
     for entry in fa_by_path:
         entry["launches_by_route"] = routes_by_path[entry["model"]]
-
-    def train_path(kernel):
-        n = sum(c[kernel] for c in train["launches"])
-        return n, {"model": "qwen3-1.7b", "path": f"train, {TRAIN_STEPS} steps", "launches": n,
-                   "launches_per_step": train["launches"][0][kernel]}
-    n_train, train_entry = train_path("flash_attention_fwd")
+    n_train, fa_train = train_paths("flash_attention_fwd")
     fa_launches += n_train
-    fa_by_path.append({**train_entry, "launches_by_route": {
-        r: sum(c["flash_attention_fwd by route"][r] for c in train["launches"])
-        for r in fa_kernel.ROUTES}})
-    bwd_launches, bwd_entry = train_path("flash_attention_bwd")
-    bwd_entry["launches_by_route"] = {
-        r: sum(c["flash_attention_bwd by route"][r] for c in train["launches"])
-        for r in fa_kernel.ROUTES}
+    fa_by_path += fa_train
+    bwd_launches, bwd_by_path = train_paths("flash_attention_bwd", bwd_t)
     wkv_launches, wkv_by_path = launches("rwkv6_wkv_fwd")
     scan_launches, scan_by_path = launches("rglru_scan_fwd")
+    n_train, scan_train = train_paths("rglru_scan_fwd")
+    scan_launches += n_train
+    scan_by_path += scan_train
+    scan_bwd_launches, scan_bwd_by_path = train_paths("rglru_scan_bwd")
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -1551,9 +1887,7 @@ def main() -> int:
                             "flash_attention_fwd.cu"},
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
         "launches": fa_launches,
-        "launches_by_route": {r: sum(c[r] for c in routes_by_path.values())
-                              + fa_by_path[-1]["launches_by_route"][r]
-                              for r in fa_kernel.ROUTES},
+        "launches_by_route": by_route(fa_by_path),
         "by_path": fa_by_path,
         "max_abs_err": max(fa_worst.values()),
         "max_abs_err_by_dtype": fa_worst,
@@ -1570,11 +1904,11 @@ def main() -> int:
                     "kernel has no backward; jax.grad differentiates the plain chunked "
                     "attention, src/repro/kernels/flash_attention/ops.py:36)",
         "launches": bwd_launches,
-        "launches_by_route": bwd_entry["launches_by_route"],
-        "by_path": [bwd_entry],
+        "launches_by_route": by_route(bwd_by_path),
+        "by_path": bwd_by_path,
         "max_abs_err": max(bwd_worst.values()),
         "max_abs_err_by_dtype": bwd_worst,
-        **bwd_t,
+        **bwd_t["qwen3-1.7b"],  # the first path's shape; by_path has each path's
     }, {
         "name": "rwkv6_wkv_fwd",
         "route": "cuda",
@@ -1597,6 +1931,19 @@ def main() -> int:
         "max_abs_err": max(scan_worst.values()),
         "max_abs_err_by_dtype": scan_worst,
         **scan_t,
+        "library_ms": None,
+    }, {
+        "name": "rglru_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:45 (forward only: the Pallas "
+                    "kernel has no backward; jax.grad differentiates the scan, "
+                    "src/repro/kernels/rglru_scan/ref.py:14)",
+        "launches": scan_bwd_launches,
+        "by_path": scan_bwd_by_path,
+        "max_abs_err": max(scan_bwd_worst.values()),
+        "max_abs_err_by_dtype": scan_bwd_worst,
+        **scan_bwd_t,
         "library_ms": None,
     }]}))
     print(nvidia_smi())

@@ -1,21 +1,50 @@
 """RG-LRU scan entry point (``repro.kernels.rglru_scan.ops`` twin).
 
-A CUDA tensor goes to the hand-written kernel (``kernel.rglru_scan_fwd``) for
-every T >= 1 and every W; a CPU tensor goes to the plain version
-(``rglru_reference``).  There is no other switch.
+A CUDA tensor goes through ``RGLRUScan``: forward by the hand-written kernel
+(``kernel.rglru_scan_fwd``) for every T >= 1 and every W, gradient by the
+backward kernel (``kernel.rglru_scan_bwd``).  A CPU tensor goes to the
+plain version (``rglru_reference``), which torch differentiates.  There is
+no other switch.
 """
 from __future__ import annotations
 
-from .kernel import rglru_scan_fwd
+import torch
+
+from .kernel import rglru_scan_bwd, rglru_scan_fwd
 from .ref import rglru_reference
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The recurrence with a kernel each way.  When an input requires grad,
+    the forward saves a, its output h and h0 for the backward kernel;
+    otherwise (serving) it saves nothing.  A cotangent autograd leaves
+    undefined is taken as zero."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h, h_last = rglru_scan_fwd(a, b, h0)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(a, h, h0)
+            ctx.set_materialize_grads(False)
+        return h, h_last
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dh, dh_last):
+        a, h, h0 = ctx.saved_tensors
+        dh = torch.zeros_like(h) if dh is None else dh.contiguous()
+        da, db, dh0 = rglru_scan_bwd(a, h, h0, dh,
+                                     None if dh_last is None else dh_last.contiguous())
+        return da, db, dh0 if ctx.needs_input_grad[2] else None
 
 
 def rglru_scan(a, b, h0=None):
     """h_t = a_t * h_{t-1} + b_t.  a, b: (B, T, W); h0: (B, W) f32, or None for
-    a zero state.  Returns (h in a.dtype, h_last in f32)."""
+    a zero state.  Returns (h in a.dtype, h_last in f32).  On the card the
+    results have a ``grad_fn`` whenever an input requires grad."""
     if a.device.type == "cuda":
-        return rglru_scan_fwd(a.contiguous(), b.contiguous(),
-                              None if h0 is None else h0.contiguous())
+        return RGLRUScan.apply(a.contiguous(), b.contiguous(),
+                               None if h0 is None else h0.contiguous())
     if a.device.type == "cpu":
         return rglru_reference(a, b, h0)
     raise ValueError(f"rglru_scan: unsupported device {a.device}")

@@ -1,1 +1,2 @@
-from .steps import make_train_step, useful_flops  # noqa: F401
+from .steps import (make_decode_step, make_prefill_step, make_train_step,  # noqa: F401
+                    useful_flops)

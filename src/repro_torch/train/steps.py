@@ -1,4 +1,5 @@
-"""The train step and its model-FLOP count (``repro.train.steps`` twin).
+"""The train, prefill and decode steps and the model-FLOP count
+(``repro.train.steps`` twin).
 
 The JAX package's abstract input and sharding specs (``input_specs``,
 ``batch_specs``) and ``ideal_bytes`` belong to the sharding slice and are not
@@ -63,6 +64,25 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, warmup=100, total=10_000, remat
         return state, {"loss": loss, "tokens": tokens, **opt_aux}
 
     return train_step
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """prefill_step(params, cache, batch) -> (last logits (B, V) f32, cache).
+
+    batch: {"tokens" | "embeds"}; the cache is written in place."""
+    def prefill_step(params, cache, batch):
+        return lm.prefill(params, cfg, cache, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"))
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    """decode_step(params, cache, batch) -> (logits (B, V) f32, cache).
+
+    batch: {"tokens": (B, 1)}; the cache is written in place."""
+    def decode_step(params, cache, batch):
+        return lm.decode_step(params, cfg, cache, batch["tokens"])
+    return decode_step
 
 
 def useful_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:

@@ -10,6 +10,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
+from repro_torch.optim import cosine_schedule, init_train_state  # noqa: E402
 
 WGMMA_128 = "_ZN60_GLOBAL__N__ae5e_14attn_fwd_wgmmaILi128ELi128ELi128EEEvNS_4ArgsE14CUtensorMap_st"
 WGMMA_256 = "_ZN60_GLOBAL__N__ae5e_14attn_fwd_wgmmaILi256ELi256ELi64EEEvNS_4ArgsE14CUtensorMap_st"
@@ -189,3 +190,121 @@ def test_ms_a_launch_divides_by_the_launches_recorded():
     assert ms == pytest.approx({"delta": 0.03, "dkdv": 0.2})
     with pytest.raises(AssertionError, match="no launch of one of"):
         chip_smoke.ms_a_launch(lambda: session(5, 0), symbols, calls=5)
+
+
+def test_backward_bound_at_recurrentgemma_train_shape():
+    """16 heads over 2 x 4096 queries, each seeing min(i + 1, 2048) keys:
+    201,359,360 pairs, five products of 2 x 256 FLOP a pair, 0.521 ms at 989
+    TFLOP/s; the bytes take 0.085 ms."""
+    case = chip_smoke.RECURRENTGEMMA_TRAIN
+    bound_ms, bound_by, flops, nbytes = chip_smoke.bwd_bound(case, torch.bfloat16)
+    pairs = 2 * 16 * (2048 * 2049 // 2 + 2048 * 2048)
+    assert chip_smoke.visible_pairs(case) == pairs == 201_359_360
+    assert flops == 2 * pairs * 5 * 256
+    assert nbytes == 2 * (2 * 2 * 4096 * 16 * 512 + 2 * 2 * 4096 * 512) + 4 * 2 * 16 * 4096
+    assert bound_by == "operations" and abs(bound_ms - 0.5212) < 1e-4
+
+
+def test_scan_backward_bound_at_train_shape():
+    """dh, a and h read, da and db written (20 bytes an element in f32) and
+    dh0: 0.125 ms at 3.35 TB/s."""
+    bound_ms, bound_by, flops, nbytes = chip_smoke.scan_bwd_bound(chip_smoke.SCAN_TRAIN_CASE,
+                                                                 torch.float32)
+    assert nbytes == 20 * 2 * 4096 * 2560 + 4 * 2 * 2560
+    assert flops == 3 * 2 * 4096 * 2560
+    assert bound_by == "bytes" and abs(bound_ms - 0.1252) < 1e-4
+
+
+def test_hybrid_train_launches_at_full_depth():
+    """recurrentgemma-2b's 8 attention and 18 RG-LRU layers, each its own
+    checkpoint: the counts tests/test_torch_train.py measures; on the card in
+    bf16 the forward at head dim 256 takes the tensor cores, the backward
+    SIMT."""
+    cfg = chip_smoke.get_config("recurrentgemma-2b")
+    want = chip_smoke.want_train_launches(cfg, torch.bfloat16)
+    assert {k: want[k] for k in chip_smoke.KERNELS} == {
+        "flash_attention_fwd": 16, "flash_attention_bwd": 8, "rwkv6_wkv_fwd": 0,
+        "rglru_scan_fwd": 36, "rglru_scan_bwd": 18}
+    assert want["flash_attention_fwd by route"] == {"wgmma": 16, "simt": 0}
+    assert want["flash_attention_bwd by route"] == {"wgmma": 0, "simt": 8}
+    assert want["flash_attention_fwd with lse"] == 16
+    qwen = chip_smoke.want_train_launches(chip_smoke.get_config("qwen3-1.7b"), torch.float32)
+    assert {k: qwen[k] for k in chip_smoke.KERNELS} == chip_smoke.train_launches(28)
+    assert qwen["flash_attention_bwd by route"] == {"wgmma": 0, "simt": 28}
+
+
+def test_spill_check_of_this_slice_kernels():
+    simt_256 = ("_ZN55_GLOBAL__N__62be_13attn_bwd_dkdvI13__nv_bfloat16Li256ELi256ELi16ELi16EEE"
+                "vNS_6ParamsE")
+    simt_128 = "_ZN55_GLOBAL__N__62be_11attn_bwd_dqIfLi128ELi128ELi64ELi32EEEvNS_6ParamsE"
+    pattern = r"attn_bwd_(dkdv|dq)I.*Li256ELi256E"
+    text = _log(_entry(simt_256), _entry(simt_128, 16, 16))
+    assert chip_smoke.spilling_entries(text, pattern) == (1, [])
+    seen, spills = chip_smoke.spilling_entries(_log(_entry(simt_256, 0, 8)), pattern)
+    assert seen == 1 and len(spills) == 1 and spills[0].startswith(simt_256)
+
+
+def test_backward_cases_take_recurrentgemma_train_shape():
+    cases = chip_smoke.BWD_CASES
+    assert chip_smoke.RECURRENTGEMMA_TRAIN in cases
+    assert chip_smoke.RECURRENTGEMMA_PREFILL not in cases  # batch 8: its serve shape
+    assert set(chip_smoke.BWD_REAL_HEADS) <= set(cases)
+    at_256 = [c for c in cases if c[5:7] == (256, 256)]
+    assert any(c[8] is not None and c[9] and c[1] % 16 for c in at_256)  # tile edges
+    assert any(c[10] == 0 for c in at_256)
+    assert all(fa_route(c) == "simt" for c in at_256)
+
+
+def fa_route(case):
+    return chip_smoke.fa_kernel.route(torch.bfloat16, case[5], case[6], backward=True)
+
+
+def _first_steps(pairs):
+    """Two paths' masters after one AdamW step, as make_train_step takes it,
+    from the same state: leaf "w" starts at 0.05, leaf "z" at zero.  Each
+    path's gradients are one of each pair (bf16, both leaves alike), with a
+    3.0 that makes the clip factor about 1/4.3, so 3e-8 is near eps."""
+    out = []
+    for side in (0, 1):
+        g = torch.tensor([3.0] + [p[side] for p in pairs], dtype=torch.bfloat16)
+        params = {"w": torch.full_like(g, 0.05), "z": torch.zeros_like(g)}
+        seen = {}
+        update = chip_smoke.first_step_seen(seen)
+        state, _ = update(init_train_state(params), [g, g.clone()],
+                          lr=cosine_schedule(3e-4, 100, 10_000), clip=1.0, weight_decay=0.1)
+        out.append((state["master"], seen))
+    return out
+
+
+PAIRS = [(1e-3, 1.1e-3), (3e-8, 1e-8), (-1e-5, 1e-5), (2e-9, -4e-9), (0.0, 5e-8), (5e-4, 4e-4)]
+
+
+def test_first_step_excess_holds_adamws_own_steps():
+    """Every element, however near eps its clipped gradient or whichever way
+    it flips, lies within f32 rounding of the two first steps' difference;
+    in the leaf that starts at zero that difference is far more than 2e-2."""
+    (mk, sk), (mp, sp) = _first_steps(PAIRS)
+    for i, leaf in enumerate(("w", "z")):
+        over, worst = chip_smoke.first_step_excess(mk[leaf], mp[leaf], sk, sp, i, chunk=3)
+        assert over == 0 and worst <= 1
+    assert chip_smoke.rel_err(mk["z"], mp["z"]) > 0.1
+
+
+@pytest.mark.parametrize("leaf, element", [(0, 2), (1, 2), (1, 6)])
+def test_first_step_excess_finds_a_wrong_master(leaf, element):
+    """A master element moved by a hundredth of the step's lr is found, in
+    a leaf at 0.05 (where that is 8 ulps) and in one at zero."""
+    (mk, sk), (mp, sp) = _first_steps(PAIRS)
+    a = chip_smoke.leaves(mk)[leaf].clone()
+    a[element] += 1e-2 * sk["lr"]
+    over, worst = chip_smoke.first_step_excess(a, chip_smoke.leaves(mp)[leaf], sk, sp, leaf)
+    assert over == 1 and worst > 1
+
+
+def test_sign_flips_counts_small_flips_and_refuses_a_large_one():
+    gk, gp = (torch.tensor(v, dtype=torch.bfloat16) for v in ([1.0, -1e-3, 0.5], [1.0, 1e-3, 0.5]))
+    n, ratio = chip_smoke.sign_flips(gk, gp, 2e-2)
+    assert n == 1 and ratio == pytest.approx(1e-3, rel=1e-2)
+    gk, gp = (torch.tensor(v, dtype=torch.bfloat16) for v in ([1.0, -0.05], [1.0, 0.05]))
+    with pytest.raises(AssertionError, match="changes sign"):
+        chip_smoke.sign_flips(gk, gp, 2e-2)

@@ -48,6 +48,8 @@ CASES = [
     (1, 64, 64, 4, 2, 16, False, None, 0, 0),         # kv_len 0: no row sees a key
     (1, 16, 16, 2, 1, 16, True, None, -4, None),      # the first 4 rows see no key
     (1, 40, 40, 4, 2, 128, True, None, 0, None),      # qwen3's head dim
+    (1, 40, 40, 16, 1, 256, True, 12, 0, None),       # recurrentgemma's: GQA 16:1, window
+    (2, 37, 70, 4, 1, 256, True, 24, 33, None),       # 256, a window past q_offset, ragged
 ]
 
 
@@ -158,6 +160,23 @@ def test_plain_backward_given_the_lse_equals_itself_without(case):
     given = flash_attention_bwd_reference(q, k, v, o, do, lse=lse_reference(q, k, v, **kw), **kw)
     for a, b in zip(given, flash_attention_bwd_reference(q, k, v, o, do, **kw)):
         assert torch.equal(a, b)
+
+
+def test_plain_backward_of_padded_heads_is_zero():
+    """recurrentgemma's 10 heads padded to 16 over 1 kv head: gqa_block zeroes
+    the padded heads' output, so their dout is 0.  Their dq comes back 0 (not
+    NaN), and dk and dv are those of the 10 real heads alone."""
+    case = (1, 24, 24, 16, 1, 256, True, 8, 0, None)
+    q, k, v, do = map(torch.from_numpy, _inputs(500, case))
+    do[:, :, 10:] = 0
+    kw = _kw(case)
+    o = chunked_attention(q, k, v, **kw)
+    dq, dk, dv = flash_attention_bwd_reference(q, k, v, o, do, **kw)
+    assert torch.isfinite(dq).all() and torch.all(dq[:, :, 10:] == 0)
+    _, dk10, dv10 = flash_attention_bwd_reference(q[:, :, :10], k, v, o[:, :, :10],
+                                                  do[:, :, :10], **kw)
+    _close(dk.numpy(), dk10.numpy())
+    _close(dv.numpy(), dv10.numpy())
 
 
 # The tensor-core backward's tiles (csrc/flash_attention_bwd_sm90.cu): a dK/dV
@@ -381,7 +400,7 @@ def test_backward_wrapper_refuses_cpu_tensors(no_build):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dk, dv", [(80, 80), (96, 64), (256, 256), (48, 48)])
+@pytest.mark.parametrize("dk, dv", [(80, 80), (96, 64), (256, 128), (48, 48)])
 def test_backward_wrapper_refuses_unsupported_head_dims(dk, dv, dtype, no_build):
     q = _OnCuda(torch.zeros(1, 8, 2, dk, dtype=dtype))
     v = _OnCuda(torch.zeros(1, 8, 2, dv, dtype=dtype))
@@ -487,12 +506,15 @@ def _scan_args(requires_grad):
     return [_OnCuda(torch.zeros(1, 4, 8), requires_grad), _OnCuda(torch.zeros(1, 4, 8)), None]
 
 
-@pytest.mark.parametrize("wrapper, make", [(wkv_kernel.rwkv6_wkv_fwd, _wkv_args),
-                                           (scan_kernel.rglru_scan_fwd, _scan_args)],
-                         ids=["wkv", "scan"])
-def test_recurrence_kernels_refuse_inputs_that_require_grad(wrapper, make, no_build):
-    """No backward kernel yet: never a silently detached output."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B4"):
+@pytest.mark.parametrize("wrapper, make, match", [
+    (wkv_kernel.rwkv6_wkv_fwd, _wkv_args, "no backward yet .ROADMAP.md B4"),
+    (scan_kernel.rglru_scan_fwd, _scan_args, "called directly .* call ops.rglru_scan")],
+    ids=["wkv", "scan"])
+def test_recurrence_kernels_refuse_inputs_that_require_grad(wrapper, make, match, no_build):
+    """Never a silently detached output: WKV has no backward kernel yet, and
+    the scan's forward kernel called directly carries no gradient (its
+    autograd Function, RGLRUScan, calls it with grad mode off)."""
+    with pytest.raises(NotImplementedError, match=match):
         wrapper(*make(True))
     for args, grad_mode in ((make(True), False), (make(False), True)):
         with torch.set_grad_enabled(grad_mode), pytest.raises(Exception) as err:

@@ -39,8 +39,10 @@ from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.rglru_scan import ops as scan_ops
+from repro_torch.kernels.rglru_scan import ref as scan_ref
 from repro_torch.launch import train as train_mod
-from repro_torch.models import attention, lm
+from repro_torch.models import attention, lm, rglru
 from repro_torch.models.layers import chunked_ce_loss
 from repro_torch.optim import adamw_update, cosine_schedule, init_train_state
 from repro_torch.train import make_train_step, useful_flops
@@ -272,9 +274,10 @@ def test_loss_fn_with_remat_matches_reference(name):
 
 @pytest.fixture
 def counting(monkeypatch):
-    """The flash entry point sent through FlashAttention on the CPU, both
-    kernel calls stood in by their plain versions and counted."""
-    n = {"fwd": 0, "bwd": 0, "lse": 0}
+    """The flash entry point sent through FlashAttention and the scan's
+    through RGLRUScan on the CPU, each kernel call stood in by its plain
+    version and counted."""
+    n = {"fwd": 0, "bwd": 0, "lse": 0, "scan_fwd": 0, "scan_bwd": 0}
 
     def fwd(q, k, v, with_lse=False, **kw):
         n["fwd"] += 1
@@ -289,9 +292,21 @@ def counting(monkeypatch):
     def entry(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None):
         return fa_ops.FlashAttention.apply(q, k, v, causal, window, q_offset, kv_len)
 
+    def scan_fwd(a, b, h0):
+        n["scan_fwd"] += 1
+        return scan_ref.rglru_reference(a, b, h0)
+
+    def scan_bwd(a, h, h0, dh, dh_last):
+        n["scan_bwd"] += 1
+        return scan_ref.rglru_scan_bwd_reference(a, h, h0, dh, dh_last)
+
     monkeypatch.setattr(fa_ops, "flash_attention_fwd", fwd)
     monkeypatch.setattr(fa_ops, "flash_attention_bwd", bwd)
     monkeypatch.setattr(attention, "flash_attention", entry)
+    monkeypatch.setattr(scan_ops, "rglru_scan_fwd", scan_fwd)
+    monkeypatch.setattr(scan_ops, "rglru_scan_bwd", scan_bwd)
+    monkeypatch.setattr(rglru, "rglru_scan",
+                        lambda a, b, h0=None: scan_ops.RGLRUScan.apply(a, b, h0))
     return n
 
 
@@ -301,13 +316,18 @@ def counting(monkeypatch):
     ("qwen3-1.7b", 8, "full", 8, (23, 8)),     # one group of 8
     ("qwen3-1.7b", 28, "none", 8, (28, 28)),
     ("qwen3-1.7b", 28, "dots", 8, (77, 28)),
-    ("recurrentgemma-2b", None, "full", 8, (4, 2)),  # 2 attention layers, each its own
+    # a hybrid checkpoints each layer on its own: twice a layer forward, once
+    # backward; 2 attention and 4 RG-LRU layers reduced, 8 and 18 at full depth
+    ("recurrentgemma-2b", None, "full", 8, (4, 2, 8, 4)),
+    ("recurrentgemma-2b", 26, "full", 8, (16, 8, 36, 18)),
+    ("recurrentgemma-2b", 26, "none", 8, (8, 8, 18, 18)),
 ])
 def test_remat_launch_counts(counting, name, n_layers, remat, group, want):
     """One train step's kernel launches under PyTorch's nested non-reentrant
     checkpoints: a layer's forward runs once, again in its group's recompute,
     and again in its own, except the last layer of a group, whose own
-    recompute the group's already served."""
+    recompute the group's already served.  Flash forward and backward, then
+    the scan's forward and backward (none in qwen3)."""
     cfg = get_config(name).reduced()
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -315,7 +335,8 @@ def test_remat_launch_counts(counting, name, n_layers, remat, group, want):
     toks = torch.randint(0, cfg.vocab, (1, 8), generator=torch.Generator().manual_seed(1))
     step = make_train_step(cfg, remat=remat, remat_group=group, ce_chunk=8)
     step(init_train_state(params), {"tokens": toks, "labels": toks})
-    assert (counting["fwd"], counting["bwd"]) == want
+    got = (counting["fwd"], counting["bwd"], counting["scan_fwd"], counting["scan_bwd"])
+    assert got == (want if len(want) == 4 else want + (0, 0))
     assert counting["lse"] == counting["fwd"]  # each forward of a train step keeps its lse
 
 
