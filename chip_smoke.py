@@ -76,20 +76,30 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # the normalisation by the same rounded weights' sum largely cancels; with the
 # output's own rounding that stays under 2**-7.
 REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2**-7}
-# Each served model's prefill shape of the flash kernel, timed by
-# phase_timings (a causal prefill over all keys, as sdpa_call assumes): qwen3-1.7b
-# (8 x 1024 tokens, 16 heads over 8 kv heads of 128) and recurrentgemma-2b (8 x
-# 4096 tokens, 10 heads padded to 16, 1 kv head of 256, a 2048-token window).
+# The flash kernel's shapes on the main paths: each served model's prefill
+# shape, qwen3-1.7b (8 x 1024 tokens, 16 heads over 8 kv heads of 128) and
+# recurrentgemma-2b (8 x 4096 tokens, 1 kv head of 256, a 2048-token window)
+# at the 10 heads its serve launches (gqa_block leaves the 6 padded heads out
+# of attention) and at 16, as earlier runs launched it; recurrentgemma-2b's
+# train shape (2 x 4096 tokens) likewise at 10 heads and at 16.  FLASH_PATHS:
+# the prefill shapes that phase_timings times (a causal prefill over all
+# keys, as sdpa_call assumes).
 QWEN3_PREFILL = (8, 1024, 1024, 16, 8, 128, 128, True, None, 0, None)
 RECURRENTGEMMA_PREFILL = (8, 4096, 4096, 16, 1, 256, 256, True, 2048, 0, None)
-FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_PREFILL}
+RECURRENTGEMMA_PREFILL_10H = (8, 4096, 4096, 10, 1, 256, 256, True, 2048, 0, None)
+RECURRENTGEMMA_TRAIN = (2, 4096, 4096, 16, 1, 256, 256, True, 2048, 0, None)
+RECURRENTGEMMA_TRAIN_10H = (2, 4096, 4096, 10, 1, 256, 256, True, 2048, 0, None)
+FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_PREFILL_10H}
 # (B, Sq, Sk, H, KH, Dk, Dv, causal, window, q_offset, kv_len): the six CASES
 # of tests/test_kernels_attention.py, Dk 96 / Dv 64, kv_len < Sk, head dim
 # 256, hubert-xlarge's head dim 80 (bidirectional, 16 heads over 16); on the
 # tensor-core route (in bf16) a ragged q_offset with GQA, a window spanning
 # several tiles, and kv_len 0, where every row sees nothing and must be 0;
 # a ragged one with GQA, a window, q_offset and kv_len < Sk (the backward's
-# tile edges); then the two served prefill shapes.
+# tile edges); then the shapes the main paths give it: the served prefill
+# shapes, recurrentgemma's at the 10 heads its serve launches and at 16, and
+# recurrentgemma's train shape at the 10 heads its step launches (with the
+# lse, as training calls it).
 KERNEL_CASES = [
     (2, 64, 64, 4, 2, 16, 16, True, None, 0, None),
     (1, 128, 128, 8, 8, 32, 32, True, None, 0, None),
@@ -106,7 +116,9 @@ KERNEL_CASES = [
     (1, 64, 64, 4, 2, 128, 128, False, None, 0, 0),
     (2, 250, 333, 8, 2, 128, 128, True, 150, 83, 300),
     QWEN3_PREFILL,
+    RECURRENTGEMMA_PREFILL_10H,
     RECURRENTGEMMA_PREFILL,
+    RECURRENTGEMMA_TRAIN_10H,
 ]
 SERVE_BATCH, SERVE_NEW = 8, 64
 SERVE_PROMPT = {"qwen3-1.7b": 1024, "rwkv6-7b": 1024, "recurrentgemma-2b": 4096}
@@ -159,25 +171,27 @@ SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
 # kernel's cases, every case of KERNEL_CASES at a head-dim pair it takes
 # (causal, a window, q_offset with GQA, kv_len 0, ragged lengths), among them
 # qwen3-1.7b's train shape, which is its prefill shape, but recurrentgemma's
-# prefill shape (batch 8); in bf16 the four at head dim 128 take the
-# tensor-core route.  Then head dim 256 (SIMT in both dtypes): GQA 16:1 with
-# a window across the tiles' edges (16 and 32 rows) past q_offset, ragged;
-# a window, q_offset and kv_len < Sk with GQA; kv_len 0; and
-# recurrentgemma-2b's train shape (2 x 4096 tokens, 10 heads padded to 16
-# over 1 kv head of 256, a 2048-token window).  Where recurrentgemma's 16
-# heads hold 10 real ones (BWD_REAL_HEADS), dout is 0 on the padded heads,
-# as gqa_block zeroes their output: their dq must come back exactly 0.
+# prefill shapes (batch 8) and its train shape, which comes below with the
+# other shapes at 256; in bf16 the four at head dim 128 take the
+# tensor-core route.  Then head dim 256 (in bf16 on the tensor cores too, f32
+# SIMT): GQA 16:1 with a window across the tiles' edges (32 and 64 rows) past
+# q_offset, ragged; a window, q_offset and kv_len < Sk with GQA; kv_len 0;
+# recurrentgemma-2b's train shape (2 x 4096 tokens, 1 kv head of 256, a
+# 2048-token window) at the 10 heads its train step launches, and at 10
+# heads padded to 16 as earlier runs timed it.  Where those 16 heads hold 10
+# real ones (BWD_REAL_HEADS), dout is 0 on the padded heads, as the
+# reference's masked output gives them: their dq must come back exactly 0.
 # Tolerance on ||out - ref|| / ||ref|| of each of dq, dk and dv: both sides
 # compute in f32 from the same inputs (1e-5: the order of the sums) and
 # round once to the inputs' dtype (2**-7 in bf16; the tensor-core route also
 # rounds P and dS to bf16 for its products, at most 2**-9 of each element).
-RECURRENTGEMMA_TRAIN = (2, 4096, 4096, 16, 1, 256, 256, True, 2048, 0, None)
 RECURRENTGEMMA_EDGES = (2, 77, 130, 16, 1, 256, 256, True, 33, 20, None)
-BWD_CASES = [c for c in KERNEL_CASES
-             if (c[5], c[6]) in fa_kernel.BWD_HEAD_DIMS and c != RECURRENTGEMMA_PREFILL] + [
+BWD_CASES = [c for c in KERNEL_CASES if (c[5], c[6]) in fa_kernel.BWD_HEAD_DIMS and c not in (
+    RECURRENTGEMMA_PREFILL_10H, RECURRENTGEMMA_PREFILL, RECURRENTGEMMA_TRAIN_10H)] + [
     RECURRENTGEMMA_EDGES,
     (2, 250, 333, 8, 2, 256, 256, True, 150, 83, 300),
     (1, 64, 64, 4, 2, 256, 256, False, None, 0, 0),
+    RECURRENTGEMMA_TRAIN_10H,
     RECURRENTGEMMA_TRAIN,
 ]
 BWD_REAL_HEADS = {RECURRENTGEMMA_EDGES: 10, RECURRENTGEMMA_TRAIN: 10}
@@ -220,8 +234,8 @@ PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
                        "void (anonymous namespace)::attn_bwd_delta<",
                        "void (anonymous namespace)::attn_bwd_dkdv<",
                        "void (anonymous namespace)::attn_bwd_dq<",
-                       "(anonymous namespace)::attn_bwd_dkdv_wgmma(",
-                       "(anonymous namespace)::attn_bwd_dq_wgmma(",
+                       "void (anonymous namespace)::attn_bwd_dkdv_wgmma<",
+                       "void (anonymous namespace)::attn_bwd_dq_wgmma<",
                        "void (anonymous namespace)::wkv_fwd<",
                        "void (anonymous namespace)::rglru_fwd<",
                        "void (anonymous namespace)::rglru_bwd<")
@@ -351,7 +365,8 @@ def phase_build():
             raise AssertionError(f"build: ptxas compiled {seen} {WGMMA_SYMBOL} kernels in "
                                  f"{name} (expected {want}); faults: {faults}")
         log(f"[build] {name}: {seen} {WGMMA_SYMBOL} kernels, no spill, no serialized wgmma")
-    # this slice's kernels: the scan's backward and the SIMT backward at 256
+    # the scan's backward, and the SIMT backward at 256 (f32 only: bf16 takes
+    # the tensor cores there)
     for name, pattern in (("rglru_scan_bwd", "rglru_bwd"),
                           ("flash_attention_bwd", r"attn_bwd_(dkdv|dq)I.*Li256ELi256E")):
         seen, spills = spilling_entries(builds[name].log, pattern)
@@ -1100,7 +1115,7 @@ def phase_train_slice():
     each path: the kernel path want_train_launches(cfg, dtype) in each part
     (qwen3: 5 forward, each writing the lse, and 2 backward, all on the
     dtype's route: SIMT in f32, tensor cores in bf16; recurrentgemma: 2
-    forward, on the dtype's route, 1 backward, SIMT, 6 scan forward and 3
+    forward and 1 backward, on the dtype's route, 6 scan forward and 3
     scan backward), the plain path none."""
     none = no_train_launches()
     for arch, cut, batch_size, seq, patches in TRAIN_SLICES:
@@ -1197,7 +1212,7 @@ def phase_train(arch):
     before the clock starts), the launch counters set to 0 before each and
     read after it (want_train_launches: qwen3-1.7b 77 forward, all wgmma and
     each writing the lse, and 28 backward, all wgmma; recurrentgemma-2b 16
-    forward, all wgmma and each writing the lse, 8 backward, all SIMT, 36
+    forward, all wgmma and each writing the lse, 8 backward, all wgmma, 36
     scan forward and 18 scan backward); then one more step under the
     profiler."""
     cfg = get_config(arch)
@@ -1541,27 +1556,31 @@ def bwd_device_ms(case, calls=5):
             torch.cuda.synchronize()
         return [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    # a kernel's symbol goes on with "_wgmma(" on the tensor-core route, with
+    # a kernel's symbol goes on with "_wgmma<D>" on the tensor-core route, with
     # its template arguments ("<") on the SIMT route
-    tail = "_wgmma" if fa_kernel.route(torch.bfloat16, case[5], case[6], backward=True) == "wgmma" \
-        else "<"
+    wgmma = fa_kernel.route(torch.bfloat16, case[5], case[6], backward=True) == "wgmma"
+    tail = f"_wgmma<{case[5]}>" if wgmma else "<"
     return ms_a_launch(profile_once, {"delta": "attn_bwd_delta", "dkdv": f"attn_bwd_dkdv{tail}",
                                       "dq": f"attn_bwd_dq{tail}"}, calls)
 
 
-# Each train path's backward shape, bf16, and the calls a timed run makes of
-# (kernel, plain version, library forward + backward, library forward), and
-# the calls of each profiler session (bwd_device_ms).
+# Each train path's backward shape, bf16 (recurrentgemma's at the 10 heads
+# its step launches), and the calls a timed run makes of (kernel, plain
+# version, library forward + backward, library forward), and the calls of
+# each profiler session (bwd_device_ms).  Then recurrentgemma's at 16 heads,
+# as earlier runs launched it, timed beside its path to compare with them.
 BWD_PATHS = {"qwen3-1.7b": (QWEN3_TRAIN, (20, 3, 20, 20), 5),
-             "recurrentgemma-2b": (RECURRENTGEMMA_TRAIN, (3, 1, 3, 3), 3)}
+             "recurrentgemma-2b": (RECURRENTGEMMA_TRAIN_10H, (10, 1, 5, 5), 5)}
+BWD_AT_16_HEADS = (RECURRENTGEMMA_TRAIN, (10, 1, 5, 5), 5)
 
 
 def phase_bwd_timings():
-    """The backward kernel at each train path's shape (BWD_PATHS), bf16 (its
-    route as route() names it: wgmma at qwen3-1.7b's head dim 128, SIMT at
-    recurrentgemma-2b's 256), given the forward kernel's output and lse, in
-    turns with its plain version and with the library's attention backward
-    (the window as a boolean mask where there is one), by CUDA events around
+    """The backward kernel at each train path's shape (BWD_PATHS), and at
+    recurrentgemma's at 16 heads (BWD_AT_16_HEADS, beside its path), bf16 (on
+    the tensor cores at both head dims, as route() names it), given the
+    forward kernel's output and lse, in turns with its plain version and
+    with the library's attention backward (the window as a boolean mask
+    where there is one), by CUDA events around
     back-to-back calls; then kernel and library by device time a call
     (device_ms); then each of its kernels' device time a launch (delta,
     dK/dV, dQ: bwd_device_ms).  The library has no backward alone: its time
@@ -1571,6 +1590,8 @@ def phase_bwd_timings():
     for arch, (case, iters, calls) in BWD_PATHS.items():
         out[arch] = _bwd_timings(arch, case, iters, calls)
         torch.cuda.empty_cache()
+    out["recurrentgemma-2b"]["at_16_heads"] = _bwd_timings(
+        "recurrentgemma-2b at 16 heads", *BWD_AT_16_HEADS)
     return out
 
 
@@ -1762,29 +1783,43 @@ def tile_sweep():
             f"it), fixed cost of an item {(t[1] - c) * 1e3:.3f} us")
 
 
+# For each head dim D of the tensor-core backward: bwd_tile_sweep's shapes
+# (B, Sq, Sk, H, KH) of the dK/dV and the dQ kernel, the length it sweeps
+# left None, and the kv rows of a dQ step (Tiles<D> in
+# flash_attention_bwd_sm90.cu).
+BWD_SWEEP = {128: ((8, None, 128, 16, 8), (8, 128, None, 16, 8), 64),
+             256: ((8, None, 64, 32, 16), (8, 128, None, 16, 1), 32)}
+
+
 def bwd_tile_sweep():
     """Per-step and fixed cost of the backward's tensor-core kernels, bf16 at
-    head dim 128, non-causal, 16 heads over 8, batch 8, each kernel's blocks
-    in one wave (64 dK/dV blocks, or 128 dQ blocks, at most the SMs): the
-    dK/dV kernel at Sk 128 with Sq 4096 and 8192 (128 and 256 q steps of 64
-    rows a block), the dQ kernel at Sq 128 with Sk 4096 and 8192 (64 and 128
-    kv steps of 64 a block).  Per step c = (t(long) - t(short)) / steps more,
-    and the tensor rate it implies for one SM (a dK/dV step is 4 products of
-    2 x 64 x 64 x 128 FLOP in each of 2 consumers, a dQ step 3)."""
-    for kernel, cases, steps, products in (
-            ("dkdv", [(8, s, 128, 16, 8, 128, 128, False, None, 0, None) for s in (4096, 8192)],
-             (128, 256), 4),
-            ("dq", [(8, 128, s, 16, 8, 128, 128, False, None, 0, None) for s in (4096, 8192)],
-             (64, 128), 3)):
-        t = [bwd_device_ms(c)[kernel] for c in cases]
-        c = (t[1] - t[0]) / (steps[1] - steps[0])
-        flops = 2 * products * 2 * 64 * 64 * 128
-        log(f"[sweep] backward {kernel}: {t[0]:.4f} ms at {steps[0]} steps a block, {t[1]:.4f} ms "
-            f"at {steps[1]}; per step {c * 1e3:.3f} us = {flops / c / 1e9:.3f} TFLOP/s on one "
-            f"SM (the card's peak is {PEAK_BF16_FLOPS / 132 / 1e12:.3f}); fixed "
-            f"{(t[0] - steps[0] * c) * 1e3:.3f} us")
-    log(f"[sweep] backward at qwen3-1.7b's train shape, device ms a launch by kernel: "
-        f"{json.dumps(bwd_device_ms(QWEN3_TRAIN))}")
+    each head dim D of the route, non-causal, batch 8, each kernel's blocks
+    in one wave: the dK/dV kernel with one kv tile a kv head (64 blocks of
+    128 rows at D 128, 128 blocks of 64 at D 256), 2 query heads over each,
+    at Sq 4096 and 8192 (128 and 256 q steps of 64 rows a block); the dQ
+    kernel at Sq 128 (128 blocks) with Sk 4096 and 8192 (Sk / KROWS kv steps
+    a block).  Per step c = (t(long) - t(short)) / steps more, and the
+    tensor rate it implies for one SM: a dK/dV step is 4 products of 2 x 64
+    x 64 x D FLOP in each of 2 consumers at D 128 and 4 of 2 x 64 x 64 x D
+    split between them at D 256 (the same FLOP), a dQ step 3 products of
+    2 x 64 x KROWS x D in each of 2 consumers.  Then the device time by
+    kernel at each train path's shape (BWD_PATHS)."""
+    for d, (dkdv, dq, krows) in BWD_SWEEP.items():
+        for kernel, shape, steps, flops in (
+                ("dkdv", dkdv, lambda n: 2 * n // 64, 2 * 4 * 2 * 64 * 64 * 128),
+                ("dq", dq, lambda n: n // krows, 2 * 3 * 2 * 64 * krows * d)):
+            cases = [tuple(n if x is None else x for x in shape) + (d, d, False, None, 0, None)
+                     for n in (4096, 8192)]
+            t = [bwd_device_ms(c)[kernel] for c in cases]
+            n0, n1 = steps(4096), steps(8192)
+            c = (t[1] - t[0]) / (n1 - n0)
+            log(f"[sweep] backward at head dim {d}, {kernel}: {t[0]:.4f} ms at {n0} steps a "
+                f"block, {t[1]:.4f} ms at {n1}; per step {c * 1e3:.3f} us = "
+                f"{flops / c / 1e9:.3f} TFLOP/s on one SM (the card's peak is "
+                f"{PEAK_BF16_FLOPS / 132 / 1e12:.3f}); fixed {(t[0] - n0 * c) * 1e3:.3f} us")
+    for arch, (case, _, _) in BWD_PATHS.items():
+        log(f"[sweep] backward, {arch} train shape, device ms a launch by kernel: "
+            f"{json.dumps(bwd_device_ms(case))}")
 
 
 def main() -> int:

@@ -40,16 +40,9 @@
 // product so that a value read from shared memory feeds several FMAs, and
 // rows in shared memory are padded to odd strides so that a warp's reads
 // fall in distinct banks.  route() in kernel.py sends bf16 at head dims
-// (128, 128) to the tensor-core route (flash_attention_bwd_sm90.cu) and
-// everything else here; f32 stays here, held to 1e-5 of the plain version.
-//
-// recurrentgemma-2b's train shape (q 2x4096x16x256, k/v 2x4096x1x256, a
-// 2048-token window, bf16) comes here at (256, 256): 2.01e8 visible pairs,
-// 5.2e11 FLOP for the five products, 0.52 ms at 989 TFLOP/s.  On the CUDA
-// cores the seven products run at the f32 FMA rate that shared memory
-// feeds, tens of milliseconds a call; its tensor-core design waits
-// (ROADMAP.md B4a), since dK and dV of 256 columns each take more registers
-// than the (128, 128) layout of flash_attention_bwd_sm90.cu has.
+// (128, 128) and (256, 256) to the tensor-core route
+// (flash_attention_bwd_sm90.cu) and everything else here; f32 stays here,
+// held to 1e-5 of the plain version, at every head dim.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -435,11 +428,11 @@ cudaError_t dispatch(const Params& p, int dk, int dv, cudaStream_t s) {
   if (dk == 32 && dv == 32) return launch<T, 32, 32, 64, 64, 32, 64>(p, s);
   if (dk == 64 && dv == 64) return launch<T, 64, 64, 64, 64, 32, 64>(p, s);
   if (dk == 128 && dv == 128) return launch<T, 128, 128, 64, 32, 32, 32>(p, s);
-  // 256: dK and dV take 256 columns each, so a dK/dV block owns 16 kv rows
-  // (2 x 32 accumulators a thread) and takes 16 query rows a step, 68 KB of
-  // shared memory and three blocks an SM (32 rows a step, two blocks an SM,
-  // ran slower at recurrentgemma's train shape); a dQ block owns 32 query
-  // rows, 136 KB.
+  // 256 (f32 only: bf16 runs on the tensor cores): dK and dV take 256
+  // columns each, so a dK/dV block owns 16 kv rows (2 x 32 accumulators a
+  // thread) and takes 16 query rows a step, 68 KB of shared memory and three
+  // blocks an SM (32 rows a step, two blocks an SM, ran slower at
+  // recurrentgemma's train shape); a dQ block owns 32 query rows, 136 KB.
   if (dk == 256 && dv == 256) return launch<T, 256, 256, 32, 32, 16, 16>(p, s);
   return cudaErrorInvalidValue;
 }

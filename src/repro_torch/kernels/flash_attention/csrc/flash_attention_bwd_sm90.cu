@@ -1,9 +1,9 @@
 // Flash attention, backward, on the Hopper tensor cores (sm_90a).
 //
 // The route of flash_attention_bwd that route(..., backward=True) in
-// kernel.py sends bf16 at head dims (Dk, Dv) = (128, 128) to; everything
-// else goes to flash_attention_bwd.cu (SIMT).  It is the gradient of what
-// the forward computes (flash_attention_fwd; the Pallas TPU kernel
+// kernel.py sends bf16 at head dims (Dk, Dv) = (128, 128) and (256, 256) to;
+// everything else goes to flash_attention_bwd.cu (SIMT).  It is the gradient
+// of what the forward computes (flash_attention_fwd; the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py :: flash_attention_kernel
 // has no backward: on the TPU jax.grad differentiates the plain chunked
 // attention): same masks (causal, sliding window, kv_len, q_offset), query
@@ -13,45 +13,57 @@
 //   P = exp(S scale - lse) under the masks, dP = dout V^T,
 //   dS = P (dP - delta), dV = P^T dout, dK = scale dS^T Q, dQ = scale dS K;
 // a row that sees no key has P = 0 (its lse is 0 and never matters).
-// Layout: q, dq (B, Sq, H, 128); k, v, dk, dv (B, Sk, KH, 128); dout
-// (B, Sq, H, 128), bf16, contiguous; lse and delta (B, H, Sq) f32 with rows
+// Layout: q, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KH, D); dout
+// (B, Sq, H, D), bf16, contiguous; lse and delta (B, H, Sq) f32 with rows
 // ld elements apart, ld a multiple of 4.
 //
 // What bounds it.  At qwen3-1.7b's train shape (q 8x1024x16x128, k/v
 // 8x1024x8x128, causal) the gradient needs five products over 6.7e7 visible
-// pairs, 8.6e10 FLOP, against 0.2 GB of inputs and outputs: it is bound by
-// operations, 0.087 ms at 989 TFLOP/s bf16.  So every product runs as
-// wgmma, bf16 operands and f32 accumulators; P and dS are rounded to bf16
+// pairs, 8.6e10 FLOP, against 0.2 GB of inputs and outputs; at
+// recurrentgemma-2b's (q 2x4096x10x256, k/v 2x4096x1x256, a 2048-token
+// window) 1.26e8 pairs, 3.2e11 FLOP, against 0.1 GB.  Both are bound by
+// operations (0.087 and 0.33 ms at 989 TFLOP/s bf16), so every product runs
+// as wgmma, bf16 operands and f32 accumulators; P and dS are rounded to bf16
 // for their products, as the forward rounds P.
 //
 // Design.  Two kernels after the delta pre-pass, each a block of three
 // warpgroups: warpgroup 0 the producer (24 registers; one thread issues
-// every TMA copy into a three-stage ring on mbarriers: full, the bytes
+// every TMA copy into a ring of stages on mbarriers: full, the bytes
 // arrived; empty, all 256 consumer threads are done), warpgroups 1 and 2 the
-// consumers (240 registers), each owning 64 rows of the block's tile.
-//   attn_bwd_dkdv_wgmma: a block owns 128 kv rows of one kv head (K and V
-//     loaded once) and walks, for each query head of the GQA group, the
-//     64-row q steps that see the tile (Q, dout and their lse and delta rows
-//     by TMA).  A consumer computes S^T = K Q^T (its 64 kv rows x 64 q rows,
-//     m64n64k16 from shared memory), then dP^T = V dout^T while it forms P^T
-//     on S^T's register fragments, then dS^T, then dV += P^T dout and
-//     dK += dS^T Q (m64n128k16, P^T and dS^T from registers, dout and Q
-//     through the descriptor's transpose bit).  dK and dV (128 f32 registers
-//     a thread) are summed over the group in registers and written once: no
-//     atomics.
-//   attn_bwd_dq_wgmma: a block owns 128 q rows of one head (Q and dout
-//     loaded once) and walks the visible 64-row kv tiles; a consumer
-//     recomputes S = Q K^T and dP = dout V^T (its 64 q rows), P while dP
-//     runs, then dS, then dQ += dS K (K through the transpose bit).  (Issuing
-//     a tile's dQ together with the next tile's S and dP was no faster on
-//     the card.)
+// consumers (240 registers).  Tiles come in as 64-element (128-byte)
+// swizzled chunks of D, through 4-D tensor maps over (D, heads, S, B) that
+// zero-fill the ragged edges.
+//   attn_bwd_dkdv_wgmma<D>: a block owns the kv rows of one tile of one kv
+//     head (K and V loaded once) and walks, for each query head of the GQA
+//     group, the 64-row q steps that see the tile (Q, dout and their lse
+//     and delta rows by TMA).  dK and dV are summed over the group in
+//     registers and written once: no atomics.
+//     D 128: 128 kv rows, 64 a consumer.  A consumer computes S^T = K Q^T
+//     (its 64 kv rows x 64 q rows, m64n64k16 from shared memory), then
+//     dP^T = V dout^T while it forms P^T on S^T's register fragments, then
+//     dS^T, then dV += P^T dout and dK += dS^T Q (m64n128k16, P^T and dS^T
+//     from registers, dout and Q through the descriptor's transpose bit);
+//     dK and dV take 128 f32 registers a thread.
+//     D 256: dK and dV of 64 rows at 256 columns would take 256 registers a
+//     thread, beyond the 240 a consumer has; so a block owns 64 kv rows,
+//     shared by both consumers (dkdv_consumer_256), and splits the work
+//     FlashAttention-3's way: S^T and dP^T by query columns, dK and dV by
+//     head-dim columns, with P^T and dS^T passed through shared memory.
+//   attn_bwd_dq_wgmma<D>: a block owns 128 q rows of one head (Q and dout
+//     loaded once) and walks the visible kv tiles, 64 rows a step at D 128
+//     and 32 at D 256 (dQ's 64 x 256 accumulator takes 128 registers); a
+//     consumer recomputes S = Q K^T and dP = dout V^T (its 64 q rows), P
+//     while dP runs, then dS, then dQ += dS K (K through the transpose bit).
+//     (Issuing a tile's dQ together with the next tile's S and dP was no
+//     faster on the card at D 128.)
 // Seven products where five would do, for no atomics: every sum runs in a
-// fixed order, so the result is the same bit for bit on every run.  A
-// consumer skips the products of a step none of whose pairs it can see; the
-// masks are applied element by element only on steps that some pair of
-// which is hidden.  Blocks run heaviest first under causal: kv tile 0 for
-// dK/dV, the last q tile for dQ.  Shared memory: dK/dV 64 KB of K and V + 3
-// stages x 32.5 KB; dQ 64 KB of Q and dout + 3 stages x 32 KB.
+// fixed order, so the result is the same bit for bit on every run.  Steps
+// that no pair sees are skipped; the masks are applied element by element
+// only on steps that some pair of which is hidden.  Blocks run heaviest
+// first under causal: kv tile 0 for dK/dV, the last q tile for dQ.  Shared
+// memory: dK/dV 64 KB of K and V + 3 stages x 32.5 KB at D 128; 64 KB + 2
+// stages x 64.5 KB + 16 KB of P^T and dS^T at D 256; dQ 64 KB of Q and
+// dout + 3 stages x 32 KB at D 128, 128 KB + 3 x 32 KB at D 256.
 
 #include <math.h>
 
@@ -60,13 +72,26 @@
 namespace {
 
 constexpr int kThreads = 384;   // three warpgroups: producer, two consumers
-constexpr int kD = 128;         // Dk = Dv
-constexpr int kStages = 3;
-constexpr int kBKV = 128;       // dK/dV: kv rows of a block, 64 a consumer
-constexpr int kBQ = 64;         //   query rows a step
+constexpr int kBQ = 64;         // dK/dV: query rows a step
 constexpr int kQRows = 128;     // dQ: query rows of a block, 64 a consumer
-constexpr int kKRows = 64;      //   kv rows a step
+constexpr int kDqStages = 3;    // dQ: stages of K and V
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The tiles at each head dim D = Dk = Dv.
+template <int D>
+struct Tiles;
+template <>
+struct Tiles<128> {
+  static constexpr int kBKV = 128;   // dK/dV: kv rows of a block, 64 a consumer
+  static constexpr int kStages = 3;  //   stages of Q and dout
+  static constexpr int kKRows = 64;  // dQ: kv rows a step
+};
+template <>
+struct Tiles<256> {
+  static constexpr int kBKV = 64;    // dK/dV: kv rows of a block, all 64 in both consumers
+  static constexpr int kStages = 2;
+  static constexpr int kKRows = 32;
+};
 
 struct Args {
   __nv_bfloat16* dq;
@@ -91,17 +116,22 @@ __device__ __forceinline__ bool visible(const Args& a, int qpos, int kpos) {
 }
 
 // Shared memory of a dK/dV block, in bytes from a 1024-byte aligned base: K
-// and V as 2 chunks of 128 rows x 128 bytes; per stage Q and dout as 2
-// chunks of 64 rows, then lse and delta (64 floats each); then the
-// mbarriers.
+// and V as D/64 chunks of BKV rows x 128 bytes; per stage Q and dout as D/64
+// chunks of 64 rows; at D 256, P^T and dS^T (64 x 64 bf16, one chunk each);
+// per stage lse and delta (64 floats each); then the mbarriers.
+template <int D>
 struct DkdvSmem {
-  static constexpr int kKV = kBKV * kD * 2;
-  static constexpr int kQ = kBQ * kD * 2;
+  static constexpr int kBKV = Tiles<D>::kBKV, kStages = Tiles<D>::kStages;
+  static constexpr int kKV = kBKV * D * 2;
+  static constexpr int kQ = kBQ * D * 2;
   static constexpr int kRow = kBQ * 4;
+  static constexpr int kP = D == 256 ? kBKV * kBQ * 2 : 0;
   static constexpr int kVOff = kKV;
   static constexpr int kQOff = 2 * kKV;
   static constexpr int kDoOff = kQOff + kStages * kQ;
-  static constexpr int kLseOff = kDoOff + kStages * kQ;
+  static constexpr int kPOff = kDoOff + kStages * kQ;
+  static constexpr int kDsOff = kPOff + kP;
+  static constexpr int kLseOff = kDsOff + kP;
   static constexpr int kDeltaOff = kLseOff + kStages * kRow;
   static constexpr int kBarOff = kDeltaOff + kStages * kRow;
   static constexpr int kBars = 1 + 2 * kStages;  // kv, full[], empty[]
@@ -109,11 +139,13 @@ struct DkdvSmem {
   static constexpr int kStageBytes = 2 * kQ + 2 * kRow;
 };
 
-// Shared memory of a dQ block: Q and dout as 2 chunks of 128 rows x 128
-// bytes; per stage K and V as 2 chunks of 64 rows; then the mbarriers.
+// Shared memory of a dQ block: Q and dout as D/64 chunks of 128 rows x 128
+// bytes; per stage K and V as D/64 chunks of KROWS rows; then the mbarriers.
+template <int D>
 struct DqSmem {
-  static constexpr int kQ = kQRows * kD * 2;
-  static constexpr int kK = kKRows * kD * 2;
+  static constexpr int kKRows = Tiles<D>::kKRows, kStages = kDqStages;
+  static constexpr int kQ = kQRows * D * 2;
+  static constexpr int kK = kKRows * D * 2;
   static constexpr int kDoOff = kQ;
   static constexpr int kKOff = 2 * kQ;
   static constexpr int kVOff = kKOff + kStages * kK;
@@ -122,12 +154,27 @@ struct DqSmem {
   static constexpr int kBytes = kBarOff + 8 * kBars + 1024;
 };
 
-__device__ __forceinline__ void init_barriers(uint32_t bar0) {
+// A block may take 227 KB of shared memory.
+static_assert(DkdvSmem<256>::kBytes <= 232448 && DqSmem<256>::kBytes <= 232448,
+              "shared memory beyond 227 KB");
+
+// The mbarriers of a block: `bar` for the tiles loaded once, then a ring of
+// STAGES stages, full[s] (the bytes arrived) and empty[s] (all 256 consumer
+// threads are done with it).
+template <int STAGES>
+struct Ring {
+  uint32_t bar;
+  __device__ __forceinline__ uint32_t full(int s) const { return bar + 8 * (1 + s); }
+  __device__ __forceinline__ uint32_t empty(int s) const { return bar + 8 * (1 + STAGES + s); }
+};
+
+template <int STAGES>
+__device__ __forceinline__ void init_barriers(const Ring<STAGES>& ring) {
   if (threadIdx.x == 0) {
-    mbar_init(bar0, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(bar0 + 8 * (1 + s), 1);
-      mbar_init(bar0 + 8 * (1 + kStages + s), 2 * 128);
+    mbar_init(ring.bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), 2 * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -140,22 +187,269 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
   for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
-// Rows row0 and row0 + 8 of a consumer's 64 x 128 accumulator, times mul,
-// as bf16 into rows out and out + 8 * row_stride.
-__device__ __forceinline__ void store_rows(const float (&d)[64], float mul, __nv_bfloat16* out,
+// Rows row0 and row0 + 8 of a consumer's 64 x N accumulator, times mul, as
+// bf16 into rows out and out + 8 * row_stride.
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&d)[N / 2], float mul, __nv_bfloat16* out,
                                            size_t row_stride, bool first, bool second) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (!(hh == 0 ? first : second)) continue;
 #pragma unroll
-    for (int jj = 0; jj < kD / 8; ++jj)
+    for (int jj = 0; jj < N / 8; ++jj)
       *reinterpret_cast<__nv_bfloat162*>(out + hh * 8 * row_stride + 8 * jj) =
           __floats2bfloat162_rn(d[4 * jj + 2 * hh] * mul, d[4 * jj + 2 * hh + 1] * mul);
   }
 }
 
-// dK and dV of 128 kv rows of one (kv head, batch).  Block w takes kv tile
-// w / (KH B), heaviest first under causal, and (kv head, batch) w % (KH B).
+// What a dK/dV block owns: BKV kv rows from k0 of kv head kvh, batch b; and
+// the q steps that see them, n_t for each of the group's query heads from
+// step t_begin, `steps` in all.  Block w takes kv tile w / (KH B), heaviest
+// first under causal, and (kv head, batch) w % (KH B).
+struct DkdvWork {
+  int k0, kvh, b, group, t_begin, n_t, steps;
+};
+
+template <int D>
+__device__ __forceinline__ DkdvWork dkdv_work(const Args& a) {
+  constexpr int kBKV = Tiles<D>::kBKV;
+  const int kt = blockIdx.x / (a.KH * a.B), hb = blockIdx.x % (a.KH * a.B);
+  DkdvWork w;
+  w.kvh = hb % a.KH;
+  w.b = hb / a.KH;
+  w.k0 = kt * kBKV;
+  w.group = a.H / a.KH;
+  const int nk = min(kBKV, a.Sk - w.k0);
+  // The query rows [i_lo, i_hi) that can see some key of this tile.
+  int i_lo = 0, i_hi = a.Sq;
+  if (a.causal) i_lo = max(i_lo, w.k0 - a.q_offset);
+  if (a.window > 0) i_hi = min(i_hi, w.k0 + nk - 1 + a.window - a.q_offset);
+  if (w.k0 >= a.kv_len) i_hi = i_lo;
+  w.t_begin = i_lo / kBQ;
+  w.n_t = i_hi > i_lo ? (i_hi + kBQ - 1) / kBQ - w.t_begin : 0;
+  w.steps = w.group * w.n_t;
+  return w;
+}
+
+// The consumers of a dK/dV block at D 128: consumer cw owns kv rows
+// 64 cw .. 64 cw + 63 of the tile and all 128 columns of their dK and dV.
+__device__ __forceinline__ void dkdv_consumer_128(const Args& a, const DkdvWork& w, uint32_t base,
+                                                  const uint8_t* smem, const Ring<3>& ring) {
+  using L = DkdvSmem<128>;
+  constexpr int kD = 128;
+  auto q_smem = [base](int s) { return base + L::kQOff + s * L::kQ; };
+  auto do_smem = [base](int s) { return base + L::kDoOff + s * L::kQ; };
+  const int cw = threadIdx.x / 128 - 1;
+  const int lane = threadIdx.x % 32, c2 = 2 * (lane % 4);
+  const int kr0 = w.k0 + 64 * cw;                                   // first kv row
+  const int krow = kr0 + 16 * (threadIdx.x % 128 / 32) + lane / 4;  // and krow + 8
+  const uint32_t k_a = base + 64 * cw * kRowBytes, v_a = k_a + L::kVOff;
+  const float sl = a.scale * kLog2e;
+  float dk[kD / 2], dv[kD / 2], sc[kBQ / 2], dp[kBQ / 2];
+  uint32_t pp[kBQ / 16][4], pd[kBQ / 16][4];  // P^T and dS^T as bf16 A fragments
+  zero(dk);
+  zero(dv);
+  if (w.steps > 0) mbar_wait(ring.bar, 0);
+  for (int g = 0; g < w.steps; ++g) {
+    const int q0 = (w.t_begin + g % w.n_t) * kBQ, qp0 = a.q_offset + q0, s = g % L::kStages;
+    const bool none = kr0 >= a.kv_len || (a.causal && kr0 > qp0 + kBQ - 1) ||
+                      (a.window > 0 && kr0 + 63 <= qp0 - a.window);
+    mbar_wait(ring.full(s), (g / L::kStages) & 1);
+    if (!none) {
+      const bool all = kr0 + 63 < a.kv_len && q0 + kBQ <= a.Sq &&
+                       (!a.causal || kr0 + 63 <= qp0) &&
+                       (a.window <= 0 || kr0 > qp0 + kBQ - 1 - a.window);
+      const float* lse = reinterpret_cast<const float*>(smem + L::kLseOff + s * L::kRow);
+      const float* dlt = reinterpret_cast<const float*>(smem + L::kDeltaOff + s * L::kRow);
+      // S^T first, alone: issued together, S^T and dP^T (and their 16
+      // descriptors) beside dK and dV's 128 registers made ptxas spill and
+      // serialize the products.  dP^T then runs while P^T is formed.
+      wgmma_fence();
+      issue_qk<kD, kBQ, L::kBKV>(sc, k_a, q_smem(s));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      issue_qk<kD, kBQ, L::kBKV>(dp, v_a, do_smem(s));
+      wgmma_commit();
+      // Column 8 j + c2 + e of S^T is query row q0 + 8 j + c2 + e.
+#pragma unroll
+      for (int j = 0; j < kBQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + c2);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + c2 + e;
+            const bool vis = all || (q0 + col < a.Sq && visible(a, qp0 + col, krow + 8 * hh));
+            float& x = sc[4 * j + 2 * hh + e];
+            x = vis ? exp2f(fmaf(x, sl, -(e ? l2.y : l2.x) * kLog2e)) : 0.f;
+          }
+      }
+      pack_p<kBQ>(sc, pp);
+      wgmma_wait<0>();  // dP^T has landed
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < kBQ / 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dlt + 8 * j + c2);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * hh + e;
+            dp[i] = sc[i] * (dp[i] - (e ? d2.y : d2.x));
+          }
+      }
+      pack_p<kBQ>(dp, pd);
+      wgmma_fence();
+      fence_regs(dv);
+      fence_regs(dk);
+      issue_pv<kD, kBQ>(dv, pp, do_smem(s));
+      issue_pv<kD, kBQ>(dk, pd, q_smem(s));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+    }
+    mbar_arrive(ring.empty(s));
+  }
+  // Every row of the tile is written, 0 where no query sees it.
+  const size_t row_stride = (size_t)a.KH * kD;
+  const size_t at = ((size_t)w.b * a.Sk + krow) * row_stride + (size_t)w.kvh * kD + c2;
+  store_rows<kD>(dk, a.scale, a.dk + at, row_stride, krow < a.Sk, krow + 8 < a.Sk);
+  store_rows<kD>(dv, 1.f, a.dv + at, row_stride, krow < a.Sk, krow + 8 < a.Sk);
+}
+
+// The consumers of a dK/dV block at D 256, where 256 columns of dK and dV
+// would take 256 registers a thread.  Both take all 64 kv rows of the tile.
+// A step's S^T and dP^T (64 kv rows x 64 query rows) are split by query
+// columns, 32 a consumer (m64n32k16 over D from shared memory); each forms
+// P^T and dS^T on its fragment and writes them, rounded to bf16, to shared
+// memory; after a barrier consumer cw owns columns 128 cw .. 128 cw + 127 of
+// dK and dV (m64n128k16, P^T and dS^T from shared memory, dout and Q through
+// the transpose bit).  A step's dV and dK products run on while the next
+// step's stage is awaited and its S^T and dP^T are issued; the barrier
+// before the writes waits for both consumers' last products, which read
+// P^T and dS^T.
+__device__ __forceinline__ void dkdv_consumer_256(const Args& a, const DkdvWork& w, uint32_t base,
+                                                  uint8_t* smem, const Ring<2>& ring) {
+  using L = DkdvSmem<256>;
+  constexpr int kD = 256, kHalf = 128, kCols = 32;
+  const int cw = threadIdx.x / 128 - 1;
+  const int lane = threadIdx.x % 32, c2 = 2 * (lane % 4), g8 = lane / 4;
+  const int wrow = 16 * (threadIdx.x % 128 / 32) + g8;  // and wrow + 8, rows of the tile
+  const int krow = w.k0 + wrow;
+  const int qc0 = kCols * cw;  // this consumer's first query column of a step
+  const uint32_t k_a = base, v_a = base + L::kVOff;
+  const float sl = a.scale * kLog2e;
+  float dk[kHalf / 2], dv[kHalf / 2], sc[kCols / 2], dp[kCols / 2];
+  zero(dk);
+  zero(dv);
+  int held = -1;  // the stage whose dV and dK products are in flight
+  if (w.steps > 0) mbar_wait(ring.bar, 0);
+  for (int g = 0; g < w.steps; ++g) {
+    const int q0 = (w.t_begin + g % w.n_t) * kBQ, qp0 = a.q_offset + q0, s = g % L::kStages;
+    // the same for both consumers, which meet at the barriers of every step
+    // not skipped
+    const bool none = w.k0 >= a.kv_len || (a.causal && w.k0 > qp0 + kBQ - 1) ||
+                      (a.window > 0 && w.k0 + 63 <= qp0 - a.window);
+    if (none && held >= 0) {  // release the held stage before waiting for another
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(ring.empty(held));
+      held = -1;
+    }
+    mbar_wait(ring.full(s), (g / L::kStages) & 1);
+    if (none) {
+      mbar_arrive(ring.empty(s));
+      continue;
+    }
+    const uint32_t q_s = base + L::kQOff + s * L::kQ, do_s = base + L::kDoOff + s * L::kQ;
+    wgmma_fence();
+    issue_qk<kD, kCols, L::kBKV, kBQ>(sc, k_a, q_s + qc0 * kRowBytes);
+    wgmma_commit();
+    issue_qk<kD, kCols, L::kBKV, kBQ>(dp, v_a, do_s + qc0 * kRowBytes);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T has landed, and the last step's dV and dK
+    fence_regs(sc);
+    if (held >= 0) {
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(ring.empty(held));
+    }
+    const bool all = w.k0 + 63 < a.kv_len && q0 + qc0 + kCols <= a.Sq &&
+                     (!a.causal || w.k0 + 63 <= qp0 + qc0) &&
+                     (a.window <= 0 || w.k0 > qp0 + qc0 + kCols - 1 - a.window);
+    const float* lse = reinterpret_cast<const float*>(smem + L::kLseOff + s * L::kRow) + qc0;
+    const float* dlt = reinterpret_cast<const float*>(smem + L::kDeltaOff + s * L::kRow) + qc0;
+    // Column 8 j + c2 + e of this consumer's S^T is query row q0 + qc0 + 8 j + c2 + e.
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + c2);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = qc0 + 8 * j + c2 + e;
+          const bool vis = all || (q0 + col < a.Sq && visible(a, qp0 + col, krow + 8 * hh));
+          float& x = sc[4 * j + 2 * hh + e];
+          x = vis ? exp2f(fmaf(x, sl, -(e ? l2.y : l2.x) * kLog2e)) : 0.f;
+        }
+    }
+    wgmma_wait<0>();  // dP^T has landed
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dlt + 8 * j + c2);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          dp[i] = sc[i] * (dp[i] - (e ? d2.y : d2.x));
+        }
+    }
+    consumer_sync();  // both consumers' last dV and dK have read P^T and dS^T
+    // Row r, query column c of P^T at byte r 128 + 16 ((2 c / 16) ^ (r % 8)) +
+    // 2 c % 16: one 128-byte swizzled chunk, as wgmma reads it.
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int at = (wrow + 8 * hh) * kRowBytes + (((4 * cw + j) ^ g8) << 4) + 2 * c2;
+        const int i = 4 * j + 2 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(smem + L::kPOff + at) =
+            __floats2bfloat162_rn(sc[i], sc[i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(smem + L::kDsOff + at) =
+            __floats2bfloat162_rn(dp[i], dp[i + 1]);
+      }
+    fence_proxy_async();
+    consumer_sync();  // P^T and dS^T are whole
+    wgmma_fence();
+    fence_regs(dv);
+    fence_regs(dk);
+    issue_ss_pv(dv, base + L::kPOff, do_s + 2 * cw * kBQ * kRowBytes);
+    issue_ss_pv(dk, base + L::kDsOff, q_s + 2 * cw * kBQ * kRowBytes);
+    wgmma_commit();
+    held = s;
+  }
+  if (held >= 0) {
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(ring.empty(held));
+  }
+  // Every row of the tile is written, 0 where no query sees it.
+  const size_t row_stride = (size_t)a.KH * kD;
+  const size_t at =
+      ((size_t)w.b * a.Sk + krow) * row_stride + (size_t)w.kvh * kD + kHalf * cw + c2;
+  store_rows<kHalf>(dk, a.scale, a.dk + at, row_stride, krow < a.Sk, krow + 8 < a.Sk);
+  store_rows<kHalf>(dv, 1.f, a.dv + at, row_stride, krow < a.Sk, krow + 8 < a.Sk);
+}
+
+// dK and dV of BKV kv rows of one (kv head, batch) (dkdv_work).  The
+// producer is the same at both head dims; the consumers are not.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_bwd_dkdv_wgmma(const Args a, const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
@@ -163,152 +457,63 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const __grid_constant__ CUtensorMap tm_do,
                         const __grid_constant__ CUtensorMap tm_lse,
                         const __grid_constant__ CUtensorMap tm_delta) {
-  using L = DkdvSmem;
+  using L = DkdvSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t bar_kv = base + L::kBarOff;
-  auto full = [bar_kv](int s) { return bar_kv + 8 * (1 + s); };
-  auto empty = [bar_kv](int s) { return bar_kv + 8 * (1 + kStages + s); };
-  auto q_smem = [base](int s) { return base + L::kQOff + s * L::kQ; };
-  auto do_smem = [base](int s) { return base + L::kDoOff + s * L::kQ; };
-
-  const int kt = blockIdx.x / (a.KH * a.B), hb = blockIdx.x % (a.KH * a.B);
-  const int kvh = hb % a.KH, b = hb / a.KH;
-  const int k0 = kt * kBKV, nk = min(kBKV, a.Sk - k0);
-  const int group = a.H / a.KH;
-  // The query rows [i_lo, i_hi) that can see some key of this tile, and the
-  // q steps that hold them, for each head of the group.
-  int i_lo = 0, i_hi = a.Sq;
-  if (a.causal) i_lo = max(i_lo, k0 - a.q_offset);
-  if (a.window > 0) i_hi = min(i_hi, k0 + nk - 1 + a.window - a.q_offset);
-  if (k0 >= a.kv_len) i_hi = i_lo;
-  const int t_begin = i_lo / kBQ;
-  const int n_t = i_hi > i_lo ? (i_hi + kBQ - 1) / kBQ - t_begin : 0;
-  const int steps = group * n_t;
-
-  init_barriers(bar_kv);
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const Ring<L::kStages> ring{base + L::kBarOff};
+  const DkdvWork w = dkdv_work<D>(a);
+  init_barriers(ring);
 
   if (threadIdx.x < 128) {
     // Producer.  One thread issues every copy; the other warps are done.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 0 && steps > 0) {
-      mbar_expect_tx(bar_kv, 2 * L::kKV);
+    if (threadIdx.x == 0 && w.steps > 0) {
+      mbar_expect_tx(ring.bar, 2 * L::kKV);
 #pragma unroll
-      for (int c = 0; c < kD / kChunk; ++c) {
-        tma_load(base + c * kBKV * kRowBytes, &tm_k, bar_kv, c * kChunk, kvh, k0, b);
-        tma_load(base + L::kVOff + c * kBKV * kRowBytes, &tm_v, bar_kv, c * kChunk, kvh, k0, b);
+      for (int c = 0; c < D / kChunk; ++c) {
+        tma_load(base + c * L::kBKV * kRowBytes, &tm_k, ring.bar, c * kChunk, w.kvh, w.k0, w.b);
+        tma_load(base + L::kVOff + c * L::kBKV * kRowBytes, &tm_v, ring.bar, c * kChunk, w.kvh,
+                 w.k0, w.b);
       }
-      for (int g = 0; g < steps; ++g) {
-        const int h = kvh * group + g / n_t, q0 = (t_begin + g % n_t) * kBQ, s = g % kStages;
-        mbar_wait(empty(s), ((g / kStages) & 1) ^ 1);  // the first round passes at once
-        mbar_expect_tx(full(s), L::kStageBytes);
+      for (int g = 0; g < w.steps; ++g) {
+        const int h = w.kvh * w.group + g / w.n_t, q0 = (w.t_begin + g % w.n_t) * kBQ;
+        const int s = g % L::kStages;
+        mbar_wait(ring.empty(s), ((g / L::kStages) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(ring.full(s), L::kStageBytes);
+        const uint32_t q_s = base + L::kQOff + s * L::kQ, do_s = base + L::kDoOff + s * L::kQ;
 #pragma unroll
-        for (int c = 0; c < kD / kChunk; ++c) {
-          tma_load(q_smem(s) + c * kBQ * kRowBytes, &tm_q, full(s), c * kChunk, h, q0, b);
-          tma_load(do_smem(s) + c * kBQ * kRowBytes, &tm_do, full(s), c * kChunk, h, q0, b);
+        for (int c = 0; c < D / kChunk; ++c) {
+          tma_load(q_s + c * kBQ * kRowBytes, &tm_q, ring.full(s), c * kChunk, h, q0, w.b);
+          tma_load(do_s + c * kBQ * kRowBytes, &tm_do, ring.full(s), c * kChunk, h, q0, w.b);
         }
-        tma_load(base + L::kLseOff + s * L::kRow, &tm_lse, full(s), q0, h, b);
-        tma_load(base + L::kDeltaOff + s * L::kRow, &tm_delta, full(s), q0, h, b);
+        tma_load(base + L::kLseOff + s * L::kRow, &tm_lse, ring.full(s), q0, h, w.b);
+        tma_load(base + L::kDeltaOff + s * L::kRow, &tm_delta, ring.full(s), q0, h, w.b);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    const int cw = threadIdx.x / 128 - 1;  // kv rows 64 cw .. 64 cw + 63 of the tile
-    const int lane = threadIdx.x % 32, c2 = 2 * (lane % 4);
-    const int kr0 = k0 + 64 * cw;                                     // first kv row
-    const int krow = kr0 + 16 * (threadIdx.x % 128 / 32) + lane / 4;  // and krow + 8
-    const uint32_t k_a = base + 64 * cw * kRowBytes, v_a = k_a + L::kVOff;
-    const float sl = a.scale * kLog2e;
-    float dk[kD / 2], dv[kD / 2], sc[kBQ / 2], dp[kBQ / 2];
-    uint32_t pp[kBQ / 16][4], pd[kBQ / 16][4];  // P^T and dS^T as bf16 A fragments
-    zero(dk);
-    zero(dv);
-    if (steps > 0) mbar_wait(bar_kv, 0);
-    for (int g = 0; g < steps; ++g) {
-      const int q0 = (t_begin + g % n_t) * kBQ, qp0 = a.q_offset + q0, s = g % kStages;
-      const bool none = kr0 >= a.kv_len || (a.causal && kr0 > qp0 + kBQ - 1) ||
-                        (a.window > 0 && kr0 + 63 <= qp0 - a.window);
-      mbar_wait(full(s), (g / kStages) & 1);
-      if (!none) {
-        const bool all = kr0 + 63 < a.kv_len && q0 + kBQ <= a.Sq &&
-                         (!a.causal || kr0 + 63 <= qp0) &&
-                         (a.window <= 0 || kr0 > qp0 + kBQ - 1 - a.window);
-        const float* lse = reinterpret_cast<const float*>(smem + L::kLseOff + s * L::kRow);
-        const float* dlt = reinterpret_cast<const float*>(smem + L::kDeltaOff + s * L::kRow);
-        // S^T first, alone: issued together, S^T and dP^T (and their 16
-        // descriptors) beside dK and dV's 128 registers made ptxas spill and
-        // serialize the products.  dP^T then runs while P^T is formed.
-        wgmma_fence();
-        issue_qk<kD, kBQ, kBKV>(sc, k_a, q_smem(s));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(sc);
-        issue_qk<kD, kBQ, kBKV>(dp, v_a, do_smem(s));
-        wgmma_commit();
-        // Column 8 j + c2 + e of S^T is query row q0 + 8 j + c2 + e.
-#pragma unroll
-        for (int j = 0; j < kBQ / 8; ++j) {
-          const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + c2);
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = 8 * j + c2 + e;
-              const bool vis = all || (q0 + col < a.Sq && visible(a, qp0 + col, krow + 8 * hh));
-              float& x = sc[4 * j + 2 * hh + e];
-              x = vis ? exp2f(fmaf(x, sl, -(e ? l2.y : l2.x) * kLog2e)) : 0.f;
-            }
-        }
-        pack_p<kBQ>(sc, pp);
-        wgmma_wait<0>();  // dP^T has landed
-        fence_regs(dp);
-#pragma unroll
-        for (int j = 0; j < kBQ / 8; ++j) {
-          const float2 d2 = *reinterpret_cast<const float2*>(dlt + 8 * j + c2);
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int i = 4 * j + 2 * hh + e;
-              dp[i] = sc[i] * (dp[i] - (e ? d2.y : d2.x));
-            }
-        }
-        pack_p<kBQ>(dp, pd);
-        wgmma_fence();
-        fence_regs(dv);
-        fence_regs(dk);
-        issue_pv<kD, kBQ>(dv, pp, do_smem(s));
-        issue_pv<kD, kBQ>(dk, pd, q_smem(s));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dv);
-        fence_regs(dk);
-      }
-      mbar_arrive(empty(s));
-    }
-    // Every row of the tile is written, 0 where no query sees it.
-    const size_t row_stride = (size_t)a.KH * kD;
-    const size_t at = ((size_t)b * a.Sk + krow) * row_stride + (size_t)kvh * kD + c2;
-    store_rows(dk, a.scale, a.dk + at, row_stride, krow < a.Sk, krow + 8 < a.Sk);
-    store_rows(dv, 1.f, a.dv + at, row_stride, krow < a.Sk, krow + 8 < a.Sk);
+    if constexpr (D == 128)
+      dkdv_consumer_128(a, w, base, smem, ring);
+    else
+      dkdv_consumer_256(a, w, base, smem, ring);
   }
 }
 
 // dQ of 128 query rows of one (head, batch).  Block w takes q tile
 // w / (H B), counted down from the last (heaviest under causal), and
 // (head, batch) w % (H B).
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_bwd_dq_wgmma(const Args a, const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v) {
-  using L = DqSmem;
+  using L = DqSmem<D>;
+  constexpr int kKRows = L::kKRows;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t bar_q = base + L::kBarOff;
-  auto full = [bar_q](int s) { return bar_q + 8 * (1 + s); };
-  auto empty = [bar_q](int s) { return bar_q + 8 * (1 + kStages + s); };
+  const Ring<L::kStages> ring{base + L::kBarOff};
   auto k_smem = [base](int s) { return base + L::kKOff + s * L::kK; };
   auto v_smem = [base](int s) { return base + L::kVOff + s * L::kK; };
 
@@ -323,26 +528,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int t_begin = kv_begin / kKRows;
   const int t_end = kv_end > kv_begin ? (kv_end + kKRows - 1) / kKRows : t_begin;
 
-  init_barriers(bar_q);
+  init_barriers(ring);
 
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0 && t_end > t_begin) {
-      mbar_expect_tx(bar_q, 2 * L::kQ);
+      mbar_expect_tx(ring.bar, 2 * L::kQ);
 #pragma unroll
-      for (int c = 0; c < kD / kChunk; ++c) {
-        tma_load(base + c * kQRows * kRowBytes, &tm_q, bar_q, c * kChunk, h, q0, b);
-        tma_load(base + L::kDoOff + c * kQRows * kRowBytes, &tm_do, bar_q, c * kChunk, h, q0, b);
+      for (int c = 0; c < D / kChunk; ++c) {
+        tma_load(base + c * kQRows * kRowBytes, &tm_q, ring.bar, c * kChunk, h, q0, b);
+        tma_load(base + L::kDoOff + c * kQRows * kRowBytes, &tm_do, ring.bar, c * kChunk, h, q0,
+                 b);
       }
       for (int t = t_begin; t < t_end; ++t) {
-        const int g = t - t_begin, s = g % kStages;
-        mbar_wait(empty(s), ((g / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), 2 * L::kK);
+        const int g = t - t_begin, s = g % L::kStages;
+        mbar_wait(ring.empty(s), ((g / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(ring.full(s), 2 * L::kK);
 #pragma unroll
-        for (int c = 0; c < kD / kChunk; ++c) {
-          tma_load(k_smem(s) + c * kKRows * kRowBytes, &tm_k, full(s), c * kChunk, kvh,
+        for (int c = 0; c < D / kChunk; ++c) {
+          tma_load(k_smem(s) + c * kKRows * kRowBytes, &tm_k, ring.full(s), c * kChunk, kvh,
                    t * kKRows, b);
-          tma_load(v_smem(s) + c * kKRows * kRowBytes, &tm_v, full(s), c * kChunk, kvh,
+          tma_load(v_smem(s) + c * kKRows * kRowBytes, &tm_v, ring.full(s), c * kChunk, kvh,
                    t * kKRows, b);
         }
       }
@@ -363,20 +569,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       l2[hh] = in ? a.lse[at] * kLog2e : 0.f;
       dl[hh] = in ? a.delta[at] : 0.f;
     }
-    float dq[kD / 2], sc[kKRows / 2], dp[kKRows / 2];
+    float dq[D / 2], sc[kKRows / 2], dp[kKRows / 2];
     uint32_t pd[kKRows / 16][4];  // dS as bf16 A fragments
     zero(dq);
-    if (t_end > t_begin) mbar_wait(bar_q, 0);
+    if (t_end > t_begin) mbar_wait(ring.bar, 0);
     for (int t = t_begin; t < t_end; ++t) {
-      const int g = t - t_begin, s = g % kStages, kp0 = t * kKRows;
+      const int g = t - t_begin, s = g % L::kStages, kp0 = t * kKRows;
       const bool none = 64 * cw >= nq || kp0 >= a.kv_len || (a.causal && kp0 > qp_hi) ||
                         (a.window > 0 && kp0 + kKRows - 1 <= qp_lo - a.window);
-      mbar_wait(full(s), (g / kStages) & 1);
+      mbar_wait(ring.full(s), (g / L::kStages) & 1);
       if (!none) {
         wgmma_fence();
-        issue_qk<kD, kKRows, kQRows>(sc, q_a, k_smem(s));
+        issue_qk<D, kKRows, kQRows>(sc, q_a, k_smem(s));
         wgmma_commit();
-        issue_qk<kD, kKRows, kQRows>(dp, do_a, v_smem(s));
+        issue_qk<D, kKRows, kQRows>(dp, do_a, v_smem(s));
         wgmma_commit();
         const bool all = kp0 + kKRows <= a.kv_len && 64 * cw + 64 <= nq &&
                          (!a.causal || kp0 + kKRows - 1 <= qp_lo) &&
@@ -408,16 +614,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         pack_p<kKRows>(dp, pd);
         wgmma_fence();
         fence_regs(dq);
-        issue_pv<kD, kKRows>(dq, pd, k_smem(s));
+        issue_pv<D, kKRows>(dq, pd, k_smem(s));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
       }
-      mbar_arrive(empty(s));
+      mbar_arrive(ring.empty(s));
     }
-    const size_t row_stride = (size_t)a.H * kD;
-    store_rows(dq, a.scale, a.dq + ((size_t)b * a.Sq + q0 + row) * row_stride + (size_t)h * kD + c2,
-               row_stride, row < nq, row + 8 < nq);
+    const size_t row_stride = (size_t)a.H * D;
+    store_rows<D>(dq, a.scale,
+                  a.dq + ((size_t)b * a.Sq + q0 + row) * row_stride + (size_t)h * D + c2,
+                  row_stride, row < nq, row + 8 < nq);
   }
 }
 
@@ -426,46 +633,49 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const Args& a,
            cudaStream_t stream) {
   if (encode_tiled() == nullptr) return cudaErrorSymbolNotFound;
-  // dK/dV: K and V in 128-row boxes, Q and dout in 64-row boxes, lse and
-  // delta in 64-float rows; dQ: Q and dout in 128-row boxes, K and V in 64.
-  CUtensorMap k128, v128, q64, do64, lse64, delta64, q128, do128, k64, v64;
-  CUresult r = encode(&k128, k, a.B, a.Sk, a.KH, kD, kBKV);
-  if (r == CUDA_SUCCESS) r = encode(&v128, v, a.B, a.Sk, a.KH, kD, kBKV);
-  if (r == CUDA_SUCCESS) r = encode(&q64, q, a.B, a.Sq, a.H, kD, kBQ);
-  if (r == CUDA_SUCCESS) r = encode(&do64, dout, a.B, a.Sq, a.H, kD, kBQ);
+  constexpr int kBKV = Tiles<D>::kBKV, kKRows = Tiles<D>::kKRows;
+  // dK/dV: K and V in BKV-row boxes, Q and dout in 64-row boxes, lse and
+  // delta in 64-float rows; dQ: Q and dout in 128-row boxes, K and V in
+  // KROWS-row boxes.
+  CUtensorMap k_kv, v_kv, q64, do64, lse64, delta64, q128, do128, k_q, v_q;
+  CUresult r = encode(&k_kv, k, a.B, a.Sk, a.KH, D, kBKV);
+  if (r == CUDA_SUCCESS) r = encode(&v_kv, v, a.B, a.Sk, a.KH, D, kBKV);
+  if (r == CUDA_SUCCESS) r = encode(&q64, q, a.B, a.Sq, a.H, D, kBQ);
+  if (r == CUDA_SUCCESS) r = encode(&do64, dout, a.B, a.Sq, a.H, D, kBQ);
   if (r == CUDA_SUCCESS) r = encode_rows(&lse64, a.lse, a.B, a.H, a.Sq, a.ld, kBQ);
   if (r == CUDA_SUCCESS) r = encode_rows(&delta64, a.delta, a.B, a.H, a.Sq, a.ld, kBQ);
-  if (r == CUDA_SUCCESS) r = encode(&q128, q, a.B, a.Sq, a.H, kD, kQRows);
-  if (r == CUDA_SUCCESS) r = encode(&do128, dout, a.B, a.Sq, a.H, kD, kQRows);
-  if (r == CUDA_SUCCESS) r = encode(&k64, k, a.B, a.Sk, a.KH, kD, kKRows);
-  if (r == CUDA_SUCCESS) r = encode(&v64, v, a.B, a.Sk, a.KH, kD, kKRows);
+  if (r == CUDA_SUCCESS) r = encode(&q128, q, a.B, a.Sq, a.H, D, kQRows);
+  if (r == CUDA_SUCCESS) r = encode(&do128, dout, a.B, a.Sq, a.H, D, kQRows);
+  if (r == CUDA_SUCCESS) r = encode(&k_q, k, a.B, a.Sk, a.KH, D, kKRows);
+  if (r == CUDA_SUCCESS) r = encode(&v_q, v, a.B, a.Sk, a.KH, D, kKRows);
   if (r != CUDA_SUCCESS) return kTensorMapError | static_cast<int>(r);
   const long long kv_blocks = (long long)((a.Sk + kBKV - 1) / kBKV) * a.KH * a.B;
   const long long q_blocks = (long long)((a.Sq + kQRows - 1) / kQRows) * a.H * a.B;
   if (kv_blocks > 0x7fffffff || q_blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(attn_bwd_dkdv_wgmma, DkdvSmem::kBytes);
-  if (err == cudaSuccess) err = set_smem(attn_bwd_dq_wgmma, DqSmem::kBytes);
+  cudaError_t err = set_smem(attn_bwd_dkdv_wgmma<D>, DkdvSmem<D>::kBytes);
+  if (err == cudaSuccess) err = set_smem(attn_bwd_dq_wgmma<D>, DqSmem<D>::kBytes);
   if (err != cudaSuccess) return err;
-  attn_bwd_dkdv_wgmma<<<(int)kv_blocks, kThreads, DkdvSmem::kBytes, stream>>>(
-      a, k128, v128, q64, do64, lse64, delta64);
+  attn_bwd_dkdv_wgmma<D><<<(int)kv_blocks, kThreads, DkdvSmem<D>::kBytes, stream>>>(
+      a, k_kv, v_kv, q64, do64, lse64, delta64);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_wgmma<<<(int)q_blocks, kThreads, DqSmem::kBytes, stream>>>(a, q128, do128, k64,
-                                                                          v64);
+  attn_bwd_dq_wgmma<D><<<(int)q_blocks, kThreads, DqSmem<D>::kBytes, stream>>>(a, q128, do128,
+                                                                               k_q, v_q);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The tensor-core route's entry point, bf16 at head dims (128, 128) only.
-// lse and delta: (B, H, Sq) f32, rows ld apart (ld a multiple of 4, bases
-// 16-byte aligned), delta written by flash_attention_bwd_delta before.
-// Returns the first CUDA error of the two launches (0 on success),
-// cudaErrorInvalidValue for arguments it does not take, or
-// kTensorMapError | CUresult when a tensor map cannot be encoded.
+// The tensor-core route's entry point, bf16 at head dims (Dk, Dv) in
+// BWD_WGMMA_HEAD_DIMS (kernel.py) only.  lse and delta: (B, H, Sq) f32, rows
+// ld apart (ld a multiple of 4, bases 16-byte aligned), delta written by
+// flash_attention_bwd_delta before.  Returns the first CUDA error of the two
+// launches (0 on success), cudaErrorInvalidValue for arguments it does not
+// take, or kTensorMapError | CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                          const void* dout, void* dq, void* dk, void* dv,
                                          const float* lse, const float* delta, int ld, int B,
@@ -473,12 +683,15 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
                                          int causal, int window, int q_offset, int kv_len,
                                          float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || kv_len < 0 ||
-      kv_len > Sk || ld < Sq || ld % 4 != 0 || Dk != kD || Dv != kD)
+      kv_len > Sk || ld < Sq || ld % 4 != 0)
     return cudaErrorInvalidValue;
   const Args a{static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
                static_cast<__nv_bfloat16*>(dv), lse, delta, ld, B, Sq, Sk, H, KH, causal,
                window, q_offset, kv_len, scale};
-  return launch(q, k, v, dout, a, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Dk == 128 && Dv == 128) return launch<128>(q, k, v, dout, a, s);
+  if (Dk == 256 && Dv == 256) return launch<256>(q, k, v, dout, a, s);
+  return cudaErrorInvalidValue;
 }
 
 // The message for any code the backward library's entry points return.

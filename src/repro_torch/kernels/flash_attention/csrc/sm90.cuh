@@ -113,9 +113,34 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Makes this thread's writes to shared memory visible to the tensor cores'
+// reads (wgmma's operands from shared memory).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Joins the 256 threads of the two consumer warpgroups (named barrier 1).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
 #define D8(i)                                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S (64 x 32) = A (64 x 16) B^T (+ S if accumulate), A and B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        D8(0), D8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 // S (64 x 64) = A (64 x 16) B^T (+ S if accumulate), A and B K-major in
 // shared memory.
@@ -147,6 +172,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       :
         D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O (64 x 128) += A (64 x 16) B, A K-major and B MN-major in shared memory
+// (the last 1: B transposed).
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // O (64 x 128) += A (64 x 16) B, A in registers, B MN-major in shared memory
@@ -195,15 +236,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 // pairs is P's A fragment for k-step kk.
 
 // Issues S = A B^T over D in k16 steps: A is 64 rows of a tile of AROWS
-// rows (a_smem points at its first row), B a tile of BN rows; step kk reads
-// 32 bytes into chunk kk / 4 of each.
-template <int D, int BN, int AROWS>
+// rows (a_smem points at its first row), B is BN rows of a tile of BROWS
+// rows; step kk reads 32 bytes into chunk kk / 4 of each.
+template <int D, int BN, int AROWS, int BROWS = BN>
 __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t a_smem, uint32_t b_smem) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t step = (kk % 4) * 32;
     wgmma_ss(sc, smem_desc(a_smem + (kk / 4) * AROWS * kRowBytes + step, 16, 8 * kRowBytes),
-             smem_desc(b_smem + (kk / 4) * BN * kRowBytes + step, 16, 8 * kRowBytes), kk > 0);
+             smem_desc(b_smem + (kk / 4) * BROWS * kRowBytes + step, 16, 8 * kRowBytes), kk > 0);
   }
 }
 
@@ -215,6 +256,16 @@ __device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&p)
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
     wgmma_rs(o, p[kk], smem_desc(v_smem + kk * 16 * kRowBytes, BK * kRowBytes, 8 * kRowBytes));
+}
+
+// Issues O (64 x 128) += A B over BK = 64 rows of depth in k16 steps, A a
+// 64 x 64 tile in shared memory (one chunk), B 128 columns (two chunks) of a
+// tile of BK rows through the transpose bit.
+__device__ __forceinline__ void issue_ss_pv(float (&o)[64], uint32_t a_smem, uint32_t b_smem) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_tb(o, smem_desc(a_smem + kk * 32, 16, 8 * kRowBytes),
+                smem_desc(b_smem + kk * 16 * kRowBytes, 64 * kRowBytes, 8 * kRowBytes));
 }
 
 // The A fragments of an m64 x BK accumulator's values, rounded to bf16.

@@ -29,8 +29,19 @@ def gqa_block(p, x, *, cfg, positions, mode, cache, pos=None, window=None):
     position of the current token (decode only, a Python int).
     Returns (residual_out, cache), the cache written in place (None in train).
     """
+    # Heads padded past n_heads (padded_heads) read zero weights and are
+    # zeroed before wo.  With one kv head every query head reads it, so the
+    # padded ones are left out of attention altogether: the real heads'
+    # rows of wq and wo alone, the same numbers, and the padded rows'
+    # gradients exactly 0, as the reference's.  With more kv heads, slicing
+    # query heads would change the GQA mapping h -> h / (H / KH), so those
+    # attend at the padded count and mask.
+    wq, wo = p["wq"], p["wo"]
+    masked = cfg.padded_heads != cfg.n_heads
+    if masked and cfg.n_kv_heads == 1:
+        wq, wo, masked = wq[:, :cfg.n_heads], wo[:cfg.n_heads], False
     y = rms_norm(x, p["ln1"])
-    q = torch.einsum("bsd,dhk->bshk", y, p["wq"])
+    q = torch.einsum("bsd,dhk->bshk", y, wq)
     k = torch.einsum("bsd,dhk->bshk", y, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", y, p["wv"])
     if cfg.qk_norm:
@@ -62,9 +73,9 @@ def gqa_block(p, x, *, cfg, positions, mode, cache, pos=None, window=None):
                 vc[:, :S] = v
                 vc[:, S:] = 0
             new_cache = {"k": kc, "v": vc}
-    if cfg.padded_heads != cfg.n_heads:
+    if masked:
         # zero the padded heads before the output projection
         hmask = (torch.arange(cfg.padded_heads, device=out.device) < cfg.n_heads).to(out.dtype)
         out = out * hmask[None, None, :, None]
-    o = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    o = torch.einsum("bshk,hkd->bsd", out, wo)
     return x + o, new_cache

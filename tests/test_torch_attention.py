@@ -183,8 +183,16 @@ def test_route_takes_the_tensor_cores_for_bf16_at_128_and_256_only(dtype, dims):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims", sorted(fa_kernel.BWD_HEAD_DIMS))
 def test_backward_route_takes_the_tensor_cores_for_bf16_at_128_only(dtype, dims):
-    want = "wgmma" if dtype == torch.bfloat16 and dims == (128, 128) else "simt"
+    """bf16 at 128 and, since recurrentgemma trains there, 256; the rest SIMT."""
+    want = "wgmma" if dtype == torch.bfloat16 and dims in {(128, 128), (256, 256)} else "simt"
     assert fa_kernel.route(dtype, *dims, backward=True) == want
+
+
+def test_backward_route_of_recurrentgemma_head_dim():
+    """bf16 at (256, 256) on the tensor cores; f32 there stays SIMT, held to
+    1e-5 of the plain version."""
+    assert fa_kernel.route(torch.bfloat16, 256, 256, backward=True) == "wgmma"
+    assert fa_kernel.route(torch.float32, 256, 256, backward=True) == "simt"
 
 
 @pytest.mark.parametrize("direction, sources", [("fwd", fa_kernel.SOURCES),
@@ -223,6 +231,18 @@ def test_forward_head_dims_have_dispatch_lines():
                             r"if \(Dk == (\d+) && Dv == (\d+)\) return launch<(\d+), (\d+),")
     assert simt == fa_kernel.HEAD_DIMS
     assert wgmma == fa_kernel.WGMMA_HEAD_DIMS
+
+
+def test_backward_wgmma_head_dims_have_dispatch_lines():
+    """The tensor-core backward's entry point launches every pair of
+    BWD_WGMMA_HEAD_DIMS, each at its own tiles; a pair without a line would
+    fail only on the card."""
+    text = (Path(fa_kernel.__file__).parent / "csrc" / "flash_attention_bwd_sm90.cu").read_text()
+    body = text[text.index('extern "C" int flash_attention_bwd_wgmma('):]
+    lines = re.findall(r"if \(Dk == (\d+) && Dv == (\d+)\) return launch<(\d+)>",
+                       body[:body.index("\n}\n")])
+    assert all(dk == dv == d for dk, dv, d in lines), lines
+    assert {(int(dk), int(dv)) for dk, dv, _ in lines} == fa_kernel.BWD_WGMMA_HEAD_DIMS
 
 
 @pytest.mark.parametrize("backward", [False, True])

@@ -15,9 +15,9 @@ from repro_torch.optim import cosine_schedule, init_train_state  # noqa: E402
 WGMMA_128 = "_ZN60_GLOBAL__N__ae5e_14attn_fwd_wgmmaILi128ELi128ELi128EEEvNS_4ArgsE14CUtensorMap_st"
 WGMMA_256 = "_ZN60_GLOBAL__N__ae5e_14attn_fwd_wgmmaILi256ELi256ELi64EEEvNS_4ArgsE14CUtensorMap_st"
 SIMT_128 = "_ZN55_GLOBAL__N__0a7c_8attn_fwdIfLi128ELi128ELi64ELi32EEEvNS_6ParamsE"
-BWD_DKDV = ("_ZN60_GLOBAL__N__3c1f_19attn_bwd_dkdv_wgmmaENS_4ArgsE14CUtensorMap_stS1_S1_S1_S1_"
-            "S1_")
-BWD_DQ = "_ZN60_GLOBAL__N__3c1f_17attn_bwd_dq_wgmmaENS_4ArgsE14CUtensorMap_stS1_S1_S1_"
+BWD_DKDV = ("_ZN60_GLOBAL__N__e9e9_19attn_bwd_dkdv_wgmmaILi256EEEvNS_4ArgsE14CUtensorMap_stS2_"
+            "S2_S2_S2_S2_")
+BWD_DQ = "_ZN60_GLOBAL__N__e9e9_17attn_bwd_dq_wgmmaILi256EEEvNS_4ArgsE14CUtensorMap_stS2_S2_S2_"
 SIMT_BWD = ("_ZN55_GLOBAL__N__77aa_13attn_bwd_dkdvI13__nv_bfloat16Li128ELi128ELi32ELi32EEEv"
             "NS_6ParamsE")
 
@@ -192,6 +192,56 @@ def test_ms_a_launch_divides_by_the_launches_recorded():
         chip_smoke.ms_a_launch(lambda: session(5, 0), symbols, calls=5)
 
 
+def test_backward_bound_at_recurrentgemma_train_shape_of_10_heads():
+    """The step's shape, 10 heads: 10/16 of the pairs and FLOP of 16 heads,
+    0.326 ms."""
+    case = chip_smoke.RECURRENTGEMMA_TRAIN_10H
+    bound_ms, bound_by, flops, _ = chip_smoke.bwd_bound(case, torch.bfloat16)
+    assert chip_smoke.visible_pairs(case) * 16 == 201_359_360 * 10
+    assert flops == 2 * 125_849_600 * 5 * 256
+    assert bound_by == "operations" and abs(bound_ms - 0.3258) < 1e-4
+
+
+def test_train_paths_time_recurrentgemma_at_the_step_heads_and_at_16():
+    """The backward's and the forward's timed paths: recurrentgemma at the 10
+    heads its train step and its serve launch; the backward also at 16
+    heads beside it, to compare with the SIMT route's time there."""
+    assert chip_smoke.BWD_PATHS["recurrentgemma-2b"][0] == chip_smoke.RECURRENTGEMMA_TRAIN_10H
+    assert chip_smoke.BWD_AT_16_HEADS[0] == chip_smoke.RECURRENTGEMMA_TRAIN
+    assert chip_smoke.FLASH_PATHS["recurrentgemma-2b"] == chip_smoke.RECURRENTGEMMA_PREFILL_10H
+    assert set(chip_smoke.FLASH_PATHS) == set(chip_smoke.FLASH_ITERS) == set(chip_smoke.BWD_PATHS)
+
+
+def test_forward_cases_take_the_shapes_the_main_paths_launch():
+    """The forward is held to its plain version and lse_reference at the
+    shapes recurrentgemma's serve and train step launch (10 heads), and
+    those forward-only shapes stay out of the backward's cases, which take
+    the train shape once, in their own place."""
+    cases = chip_smoke.KERNEL_CASES
+    for case in (chip_smoke.RECURRENTGEMMA_PREFILL_10H, chip_smoke.RECURRENTGEMMA_TRAIN_10H,
+                 chip_smoke.QWEN3_PREFILL):
+        assert case in cases
+        assert chip_smoke.fa_kernel.route(torch.bfloat16, case[5], case[6]) == "wgmma"
+    assert chip_smoke.RECURRENTGEMMA_PREFILL_10H[3] == chip_smoke.RECURRENTGEMMA_TRAIN_10H[3] == 10
+    assert chip_smoke.RECURRENTGEMMA_PREFILL_10H[:3] == (8, 4096, 4096)
+    assert chip_smoke.RECURRENTGEMMA_TRAIN_10H[:3] == (2, 4096, 4096)
+    bwd = chip_smoke.BWD_CASES
+    assert chip_smoke.RECURRENTGEMMA_PREFILL_10H not in bwd
+    assert bwd.count(chip_smoke.RECURRENTGEMMA_TRAIN_10H) == 1
+    assert len(set(bwd)) == len(bwd)
+
+
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::attn_bwd_dkdv_wgmma<256>(Args, CUtensorMap_st, CUtensorMap_st)",
+    "void (anonymous namespace)::attn_bwd_dq_wgmma<128>(Args, CUtensorMap_st)",
+    "void (anonymous namespace)::attn_bwd_dkdv<float, 256, 256, 16, 16>(Params)"])
+def test_profiler_names_of_the_backward_kernels_are_the_ports(name):
+    """The tensor-core backward's kernels are templates on the head dim, so
+    the profiler prints their template arguments ("<"), as it does the SIMT
+    kernels'."""
+    assert name.startswith(chip_smoke.PORT_KERNEL_SYMBOLS)
+
+
 def test_backward_bound_at_recurrentgemma_train_shape():
     """16 heads over 2 x 4096 queries, each seeing min(i + 1, 2048) keys:
     201,359,360 pairs, five products of 2 x 256 FLOP a pair, 0.521 ms at 989
@@ -218,15 +268,15 @@ def test_scan_backward_bound_at_train_shape():
 def test_hybrid_train_launches_at_full_depth():
     """recurrentgemma-2b's 8 attention and 18 RG-LRU layers, each its own
     checkpoint: the counts tests/test_torch_train.py measures; on the card in
-    bf16 the forward at head dim 256 takes the tensor cores, the backward
-    SIMT."""
+    bf16 the forward and the backward at head dim 256 take the tensor
+    cores."""
     cfg = chip_smoke.get_config("recurrentgemma-2b")
     want = chip_smoke.want_train_launches(cfg, torch.bfloat16)
     assert {k: want[k] for k in chip_smoke.KERNELS} == {
         "flash_attention_fwd": 16, "flash_attention_bwd": 8, "rwkv6_wkv_fwd": 0,
         "rglru_scan_fwd": 36, "rglru_scan_bwd": 18}
     assert want["flash_attention_fwd by route"] == {"wgmma": 16, "simt": 0}
-    assert want["flash_attention_bwd by route"] == {"wgmma": 0, "simt": 8}
+    assert want["flash_attention_bwd by route"] == {"wgmma": 8, "simt": 0}
     assert want["flash_attention_fwd with lse"] == 16
     qwen = chip_smoke.want_train_launches(chip_smoke.get_config("qwen3-1.7b"), torch.float32)
     assert {k: qwen[k] for k in chip_smoke.KERNELS} == chip_smoke.train_launches(28)
@@ -245,14 +295,21 @@ def test_spill_check_of_this_slice_kernels():
 
 
 def test_backward_cases_take_recurrentgemma_train_shape():
+    """At the 10 heads the step launches and at 16 with 6 padded (dout 0),
+    every bf16 case at 256 on the tensor cores."""
     cases = chip_smoke.BWD_CASES
-    assert chip_smoke.RECURRENTGEMMA_TRAIN in cases
+    assert chip_smoke.RECURRENTGEMMA_TRAIN in cases and chip_smoke.RECURRENTGEMMA_TRAIN_10H in cases
+    assert chip_smoke.RECURRENTGEMMA_TRAIN_10H[3] == 10
+    assert chip_smoke.RECURRENTGEMMA_TRAIN_10H[:3] + chip_smoke.RECURRENTGEMMA_TRAIN_10H[4:] == \
+        chip_smoke.RECURRENTGEMMA_TRAIN[:3] + chip_smoke.RECURRENTGEMMA_TRAIN[4:]
+    assert chip_smoke.BWD_REAL_HEADS[chip_smoke.RECURRENTGEMMA_TRAIN] == 10
     assert chip_smoke.RECURRENTGEMMA_PREFILL not in cases  # batch 8: its serve shape
+    assert chip_smoke.RECURRENTGEMMA_PREFILL_10H not in cases
     assert set(chip_smoke.BWD_REAL_HEADS) <= set(cases)
     at_256 = [c for c in cases if c[5:7] == (256, 256)]
     assert any(c[8] is not None and c[9] and c[1] % 16 for c in at_256)  # tile edges
     assert any(c[10] == 0 for c in at_256)
-    assert all(fa_route(c) == "simt" for c in at_256)
+    assert all(fa_route(c) == "wgmma" for c in at_256)
 
 
 def fa_route(case):

@@ -179,10 +179,15 @@ def test_plain_backward_of_padded_heads_is_zero():
     _close(dv.numpy(), dv10.numpy())
 
 
-# The tensor-core backward's tiles (csrc/flash_attention_bwd_sm90.cu): a dK/dV
-# block owns BKV kv rows, 64 a consumer, and takes BQ query rows a step; a dQ
-# block owns QROWS query rows, 64 a consumer, and takes KROWS kv rows a step.
-BKV, BQ, QROWS, KROWS, CROWS = 128, 64, 128, 64, 64
+# The tensor-core backward's tiles at each head dim
+# (csrc/flash_attention_bwd_sm90.cu, Tiles<D>): a dK/dV block owns BKV kv
+# rows and takes BQ query rows a step; a dQ block owns QROWS query rows, CROWS
+# a consumer, and takes KROWS kv rows a step.  At D 128 a dK/dV consumer owns
+# CROWS of the block's kv rows, every query column of a step and every
+# column of dK and dV (QCOLS = BQ); at D 256 both consumers take all BKV kv
+# rows, split a step's S^T and dP^T by query columns (QCOLS each), share P^T
+# and dS^T, and split dK and dV by head-dim columns (D / 2 each).
+LAYOUTS = {"d128": (128, 64, 128, 64, 64, 64), "d256": (64, 64, 128, 32, 64, 32)}
 
 
 def _visible(qpos, kpos, causal, window, kv_len):
@@ -195,15 +200,17 @@ def _visible(qpos, kpos, causal, window, kv_len):
     return vis
 
 
-def _emulate_wgmma_backward(q, k, o, dout, lse, v, case):
+def _emulate_wgmma_backward(q, k, o, dout, lse, v, case, layout):
     """numpy, block by block and step by step as the two kernels schedule the
-    work: which q steps a dK/dV block walks (every head of its group) and
-    which kv tiles a dQ block walks, each consumer's "none visible" skip
-    and "all visible" fast path (held here against the element-wise
-    masks), the
-    masks, and the ragged tails (rows beyond Sq or Sk read as 0).  In f32,
-    without the kernels' bf16 rounding of P and dS: the schedule is the
-    point."""
+    work in ``layout`` (LAYOUTS): which q steps a dK/dV block walks (every
+    head of its group) and which kv tiles a dQ block walks, the "none
+    visible" skips and each consumer's "all visible" fast path (held here
+    against the element-wise masks), the masks, the split of a step between
+    the consumers, and the ragged tails (rows beyond Sq or Sk read as 0).
+    In f32, without the kernels' bf16 rounding of P and dS: the schedule is
+    the point."""
+    BKV, BQ, QROWS, KROWS, CROWS, QCOLS = layout
+    split = QCOLS < BQ
     B, Sq, Sk, H, KH, D, causal, window, q_offset, kv_len = case
     win = -1 if window is None else window
     kv_len = Sk if kv_len is None else min(kv_len, Sk)
@@ -240,6 +247,10 @@ def _emulate_wgmma_backward(q, k, o, dout, lse, v, case):
                     i_hi = i_lo
                 t_begin = i_lo // BQ
                 n_t = (i_hi + BQ - 1) // BQ - t_begin if i_hi > i_lo else 0
+                if split:
+                    _emulate_split_dkdv(k0, b, kvh, t_begin, n_t, layout, case, probs, qp, dop,
+                                        dk, dv)
+                    continue
                 for cw in range(2):
                     kr0 = k0 + CROWS * cw
                     krows = np.arange(kr0, kr0 + CROWS)
@@ -292,6 +303,42 @@ def _emulate_wgmma_backward(q, k, o, dout, lse, v, case):
     return dq, dk, dv
 
 
+def _emulate_split_dkdv(k0, b, kvh, t_begin, n_t, layout, case, probs, qp, dop, dk, dv):
+    """A dK/dV block of the D 256 layout: a step none of whose pairs the
+    block's kv rows see is skipped by both consumers; consumer cw forms P^T
+    and dS^T of query columns QCOLS cw .. QCOLS cw + QCOLS - 1, and then owns
+    head-dim columns D/2 cw .. D/2 cw + D/2 - 1 of dK and dV over all of them."""
+    BKV, BQ, _, _, _, QCOLS = layout
+    _, Sq, Sk, H, KH, D, causal, window, q_offset, kv_len = case
+    win = -1 if window is None else window
+    kv_len = Sk if kv_len is None else min(kv_len, Sk)
+    scale, half = 1.0 / D ** 0.5, D // 2
+    krows = np.arange(k0, k0 + BKV)
+    keep = krows < Sk
+    for g in range(H // KH * n_t):
+        h, q0 = kvh * (H // KH) + g // n_t, (t_begin + g % n_t) * BQ
+        qp0 = q_offset + q0
+        qrows = np.arange(q0, q0 + BQ)
+        p, ds, vis = probs(qrows, krows, h, kvh, b)
+        if (k0 >= kv_len or (causal and k0 > qp0 + BQ - 1)
+                or (win > 0 and k0 + BKV - 1 <= qp0 - win)):
+            assert not vis.any()
+            continue
+        pt, dst = np.zeros((BKV, BQ), np.float32), np.zeros((BKV, BQ), np.float32)
+        for cw in range(2):  # S^T and dP^T by query columns
+            qc0 = QCOLS * cw
+            cols = slice(qc0, qc0 + QCOLS)
+            all_ = (k0 + BKV - 1 < kv_len and q0 + qc0 + QCOLS <= Sq
+                    and (not causal or k0 + BKV - 1 <= qp0 + qc0)
+                    and (win <= 0 or k0 > qp0 + qc0 + QCOLS - 1 - win))
+            assert not all_ or vis[cols].all()
+            pt[:, cols], dst[:, cols] = p[cols].T, ds[cols].T
+        for cw in range(2):  # dK and dV by head-dim columns, P^T and dS^T shared
+            dcols = slice(half * cw, half * cw + half)
+            dv[b, krows[keep], kvh, dcols] += (pt @ dop[b, qrows, h, dcols])[keep]
+            dk[b, krows[keep], kvh, dcols] += (dst @ qp[b, qrows, h, dcols])[keep] * scale
+
+
 SCHEDULE_CASES = [
     (2, 250, 333, 8, 2, 16, True, 150, 83, 300),     # ragged, GQA, window, q_offset, kv_len
     (1, 300, 300, 4, 2, 16, True, None, 0, None),    # causal, ragged last tiles
@@ -306,21 +353,25 @@ SCHEDULE_CASES = [
     (1, 200, 256, 2, 1, 16, True, None, 1, None),
     (1, 130, 256, 2, 1, 16, True, None, 62, None),
     (1, 256, 256, 2, 1, 16, False, 63, 0, None),     # a window's edge on the grid, no causal
+    # recurrentgemma's head dim: its 10 real heads over 1 kv head, a window
+    # across the 64-row tiles, ragged, past q_offset
+    (1, 150, 170, 10, 1, 256, True, 70, 20, None),
 ]
 
 
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
 @pytest.mark.parametrize("case", SCHEDULE_CASES)
-def test_wgmma_backward_tile_schedule_matches_plain_backward(case):
-    """The emulated schedule of the tensor-core backward against the plain
-    backward on the same inputs and lse, 1e-5 relative and absolute (f32
-    on both sides, sums in another order)."""
+def test_wgmma_backward_tile_schedule_matches_plain_backward(case, layout):
+    """The emulated schedule of the tensor-core backward, in each head dim's
+    layout, against the plain backward on the same inputs and lse, 1e-5
+    relative and absolute (f32 on both sides, sums in another order)."""
     q, k, v, do = _inputs(500 + SCHEDULE_CASES.index(case), case)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     kw = _kw(case)
     o = chunked_attention(tq, tk, tv, **kw)
     lse = lse_reference(tq, tk, tv, **kw)
     want = flash_attention_bwd_reference(tq, tk, tv, o, tdo, lse=lse, **kw)
-    got = _emulate_wgmma_backward(q, k, o.numpy(), do, lse.numpy(), v, case)
+    got = _emulate_wgmma_backward(q, k, o.numpy(), do, lse.numpy(), v, case, LAYOUTS[layout])
     for mine, ref in zip(got, want):
         _close(mine, ref.numpy())
 
@@ -421,13 +472,16 @@ def _bwd_args(dtype, Sq=8, dims=(128, 128), lse_t=None, **ptrs):
     return args + [_OnCuda(lse, ptr=ptrs.get("lse"))]
 
 
+@pytest.mark.parametrize("wgmma_dims", sorted(fa_kernel.BWD_WGMMA_HEAD_DIMS))
 @pytest.mark.parametrize("name", ["q", "k", "v", "dout", "lse"])
-def test_backward_wrapper_refuses_misaligned_inputs_on_the_tensor_core_route(name, no_build):
+def test_backward_wrapper_refuses_misaligned_inputs_on_the_tensor_core_route(name, wgmma_dims,
+                                                                           no_build):
     """TMA reads q, k, v, dout and the lse rows from 16-byte aligned
-    addresses; the SIMT route (f32 here, and bf16 at head dim 64) does not,
-    and gets past the checks to the allocation, which fails on this CPU."""
-    for dtype, dims, raises in ((torch.bfloat16, (128, 128), True),
-                                (torch.float32, (128, 128), False),
+    addresses, at each head dim of the tensor-core route; the SIMT route
+    (f32 here, and bf16 at head dim 64) does not, and gets past the checks
+    to the allocation, which fails on this CPU."""
+    for dtype, dims, raises in ((torch.bfloat16, wgmma_dims, True),
+                                (torch.float32, wgmma_dims, False),
                                 (torch.bfloat16, (64, 64), False)):
         args = _bwd_args(dtype, dims=dims, **{name: 8})
         if raises:
@@ -439,12 +493,14 @@ def test_backward_wrapper_refuses_misaligned_inputs_on_the_tensor_core_route(nam
             assert "16-byte" not in str(err.value)
 
 
-def test_backward_wrapper_refuses_lse_rows_off_16_bytes_on_the_tensor_core_route(no_build):
+@pytest.mark.parametrize("dims", sorted(fa_kernel.BWD_WGMMA_HEAD_DIMS))
+def test_backward_wrapper_refuses_lse_rows_off_16_bytes_on_the_tensor_core_route(dims, no_build):
     """A contiguous (B, H, 7) lse has rows 28 bytes apart: TMA cannot read
-    it.  ``empty_lse`` pads each row to 8 floats."""
+    it, at either head dim of the route.  ``empty_lse`` pads each row to 8
+    floats."""
     lse = torch.zeros(1, 4, 7)
     with pytest.raises(ValueError, match="16 bytes apart"):
-        flash_attention_bwd(*_bwd_args(torch.bfloat16, Sq=7, lse_t=lse))
+        flash_attention_bwd(*_bwd_args(torch.bfloat16, Sq=7, dims=dims, lse_t=lse))
     assert fa_kernel.empty_lse(1, 4, 7, "cpu").stride() == (32, 8, 1)
 
 
