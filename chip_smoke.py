@@ -125,8 +125,13 @@ SERVE_PROMPT = {"qwen3-1.7b": 1024, "rwkv6-7b": 1024, "recurrentgemma-2b": 4096}
 
 # (B, T, H, D, random s0, decay): the three shapes of
 # tests/test_kernels_recurrence.py::test_rwkv6_kernel, a ragged T at D 64, the
-# rwkv6-7b decode shape and its prefill shape.  decay "sigmoid" is that
-# test's sigmoid(N(0,1)); "model" is the model's own exp(-exp(N(0,1))).
+# rwkv6-7b decode shape and its prefill shape; then, at D 64, a ragged T over
+# two chunks with s0, and an edge case whose w is exactly 0, exactly 1 and
+# exp(-100) at fixed steps (WKV_EDGE_STEPS, even channels).  decay "sigmoid"
+# is that test's sigmoid(N(0,1)); "model" is the model's own
+# exp(-exp(N(0,1))); "edges" is "model" with those steps forced.  In bf16 each
+# case at D 64 with T >= 2 takes the chunk route, the rest the recurrent
+# route (kernel.route()).
 WKV_CASES = [
     (1, 16, 2, 8, True, "sigmoid"),
     (2, 64, 3, 16, True, "sigmoid"),
@@ -135,8 +140,15 @@ WKV_CASES = [
     (8, 1, 64, 64, True, "sigmoid"),
     (8, 1024, 64, 64, False, "sigmoid"),
     (8, 1024, 64, 64, False, "model"),
+    (2, 100, 8, 64, True, "model"),
+    (1, 130, 4, 64, True, "edges"),
 ]
 WKV_DECODE_CASE, WKV_PREFILL_CASE = WKV_CASES[4], WKV_CASES[5]
+# The steps where the edge case forces w: exactly 0, exactly 1, exp(-100)
+# (0 in bf16, below f32's normal range in f32): at a chunk's first and last
+# step, inside and at the edges of sub-chunks, and in the ragged last chunk.
+WKV_EDGE_STEPS = {0.0: (0, 17, 63, 64, 100, 128), 1.0: (5, 15, 16, 47, 65, 127, 129),
+                  math.exp(-100.0): (3, 31, 32, 80)}
 # Tolerances on y and on s_last, each.  Both sides compute in f32 from the
 # same inputs and round y once: in f32 they differ in the order of sums only;
 # in bf16 an element of y differs by at most one bf16 ulp, under 2**-7 of its
@@ -228,7 +240,8 @@ KERNELS = {"flash_attention_fwd": fa_kernel, "flash_attention_bwd": fa_kernel,
 BUILDS = {"flash_attention_fwd": fa_kernel.build, "flash_attention_bwd": fa_kernel.build_bwd,
           "rwkv6_wkv_fwd": wkv_kernel.build, "rglru_scan_fwd": scan_kernel.build,
           "rglru_scan_bwd": scan_kernel.build_bwd}
-# How the profiler names the kernels' device functions.
+# How the profiler names the kernels' device functions (a template with its
+# return type first, a plain function such as wkv_fwd_chunk without).
 PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
                        "void (anonymous namespace)::attn_fwd_wgmma<",
                        "void (anonymous namespace)::attn_bwd_delta<",
@@ -237,7 +250,9 @@ PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
                        "void (anonymous namespace)::attn_bwd_dkdv_wgmma<",
                        "void (anonymous namespace)::attn_bwd_dq_wgmma<",
                        "void (anonymous namespace)::wkv_fwd<",
+                       "(anonymous namespace)::wkv_fwd_chunk(",
                        "void (anonymous namespace)::rglru_fwd<",
+                       "void (anonymous namespace)::rglru_bwd_tma<",
                        "void (anonymous namespace)::rglru_bwd<")
 
 
@@ -275,6 +290,8 @@ def reset_launches():
     for name, mod in KERNELS.items():
         getattr(mod, name).launches = 0
     fa_kernel.reset_launches()  # flash's counts by route too
+    wkv_kernel.reset_launches()  # and WKV's
+    scan_kernel.reset_launches()  # and the scan backward's
 
 
 def read_launches() -> dict:
@@ -287,6 +304,14 @@ def read_flash_routes() -> dict:
 
 def read_bwd_routes() -> dict:
     return dict(fa_kernel.flash_attention_bwd.launches_by_route)
+
+
+def read_wkv_routes() -> dict:
+    return dict(wkv_kernel.rwkv6_wkv_fwd.launches_by_route)
+
+
+def read_scan_bwd_routes() -> dict:
+    return dict(scan_kernel.rglru_scan_bwd.launches_by_route)
 
 
 def rel_err(out, ref) -> float:
@@ -365,15 +390,20 @@ def phase_build():
             raise AssertionError(f"build: ptxas compiled {seen} {WGMMA_SYMBOL} kernels in "
                                  f"{name} (expected {want}); faults: {faults}")
         log(f"[build] {name}: {seen} {WGMMA_SYMBOL} kernels, no spill, no serialized wgmma")
-    # the scan's backward, and the SIMT backward at 256 (f32 only: bf16 takes
-    # the tensor cores there)
-    for name, pattern in (("rglru_scan_bwd", "rglru_bwd"),
+    # the scan's backward (both paths), the WKV chunk route, and the SIMT
+    # backward at 256 (f32 only: bf16 takes the tensor cores there)
+    for name, pattern in (("rglru_scan_bwd", "rglru_bwd"), ("rwkv6_wkv_fwd", "wkv_fwd_chunk"),
                           ("flash_attention_bwd", r"attn_bwd_(dkdv|dq)I.*Li256ELi256E")):
         seen, spills = spilling_entries(builds[name].log, pattern)
         if not seen or spills:
             raise AssertionError(f"build: {name}: {seen} kernels match {pattern!r}; spills: "
                                  f"{spills}")
         log(f"[build] {name}: {seen} kernels match {pattern!r}, no spill")
+    # the WKV chunk route's products on wgmma, as the flash libraries'
+    serialized = [ln.strip() for ln in builds["rwkv6_wkv_fwd"].log.splitlines()
+                  if re.search(r"\(C751[23]\)|serialized", ln)]
+    if serialized:
+        raise AssertionError(f"build: rwkv6_wkv_fwd: ptxas serialized wgmma: {serialized}")
 
 
 # Every tensor-core kernel of the flash libraries has this in its name.
@@ -464,7 +494,7 @@ def phase_kernel_cases():
 
 def wkv_inputs(case, dtype, seed):
     """r, k, v ~ N(0,1)*0.5 and u ~ N(0,1)*0.5, as the JAX package's kernel test;
-    s0 ~ N(0,1)*0.1 or None; w from the case's decay."""
+    s0 ~ N(0,1)*0.1 or None; w from the case's decay (WKV_CASES)."""
     B, T, H, D, with_s0, decay = case
     g = torch.Generator("cuda").manual_seed(seed)
 
@@ -473,6 +503,9 @@ def wkv_inputs(case, dtype, seed):
     r, k, v = (randn(B, T, H, D) * 0.5 for _ in range(3))
     w = torch.sigmoid(randn(B, T, H, D)) if decay == "sigmoid" \
         else torch.exp(-torch.exp(randn(B, T, H, D)))
+    if decay == "edges":
+        for value, steps in WKV_EDGE_STEPS.items():
+            w[:, [t for t in steps if t < T], :, 0::2] = value
     u = randn(H, D) * 0.5
     s0 = randn(B, H, D, D) * 0.1 if with_s0 else None
     return [x.to(dtype) for x in (r, k, v, w)] + [u, s0]
@@ -493,15 +526,26 @@ def wkv_bound(case, dtype):
 
 
 def phase_wkv_cases():
-    """Each case in f32 and bf16: the WKV kernel against its plain version."""
-    worst = {}
+    """Each case in f32 and bf16: the WKV kernel against its plain version.
+    Each case's kernel call must add exactly one to launches_by_route, on the
+    route kernel.route() names, and the plain call none."""
+    worst, by_route = {}, {}
     for n, case in enumerate(WKV_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             args = wkv_inputs(case, dtype, seed=1000 + n)
+            route = wkv_kernel.route(dtype, case[3], case[1])
+            before = read_wkv_routes()
             outs = dict(zip(("y", "s_last"), wkv_kernel.rwkv6_wkv_fwd(*args)))
+            mid = read_wkv_routes()
             refs = dict(zip(("y", "s_last"), wkv_ref.rwkv6_reference(*args)))
             torch.cuda.synchronize()
             name = dtype_name(dtype)
+            want = {r: before[r] + (r == route) for r in before}
+            if (mid, read_wkv_routes()) != (want, want):
+                raise AssertionError(f"wkv case {case} {name}: launches by route {before} "
+                                     f"before the kernel call, {mid} after it and "
+                                     f"{read_wkv_routes()} after the plain call; expected one "
+                                     f"{route} launch and none from the plain call")
             for what, out in outs.items():
                 ref = refs[what]
                 want = dtype if what == "y" else torch.float32
@@ -513,8 +557,8 @@ def phase_wkv_cases():
                 err = (out.float() - ref.float()).abs().max().item()
                 rel = rel_err(out, ref)
                 abs_tol, tol = WKV_ABS_TOL.get(dtype), WKV_REL_TOL[dtype, what]
-                log(f"[wkv] {case} {name} {what}: max_abs_err {err:.3e} (tol {abs_tol}), "
-                    f"rel_err {rel:.3e} (tol {tol:.3e}), max |ref| "
+                log(f"[wkv] {case} {name}, route {route}, {what}: max_abs_err {err:.3e} (tol "
+                    f"{abs_tol}), rel_err {rel:.3e} (tol {tol:.3e}), max |ref| "
                     f"{ref.float().abs().max().item():.3f}")
                 if abs_tol is not None and err > abs_tol:
                     raise AssertionError(f"wkv case {case} {name} {what}: "
@@ -522,8 +566,10 @@ def phase_wkv_cases():
                 if rel > tol:
                     raise AssertionError(f"wkv case {case} {name} {what}: rel_err {rel} > {tol}")
                 worst[name] = max(worst.get(name, 0.0), err)
+                by_route[route, what] = max(by_route.get((route, what), 0.0), rel)
     log(f"[wkv] largest error over {len(WKV_CASES)} cases: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + "; largest rel_err by route: "
+        + ", ".join(f"{r} {w} {v:.3e}" for (r, w), v in by_route.items()))
     return worst
 
 
@@ -620,23 +666,31 @@ def scan_bwd_inputs(case, dtype, seed):
 def phase_scan_bwd_cases():
     """Each scan backward case in f32 and bf16: the backward kernel's da, db
     and dh0 against its plain version on the same inputs.  Each case's kernel
-    call must add exactly one to its launch counter and the plain call none;
-    f32 must agree to the bit (SCAN_BWD_REL_TOL)."""
+    call must add exactly one to its launch counter and to launches_by_route,
+    on the route kernel.bwd_route() names, and the plain call none; f32 must
+    agree to the bit (SCAN_BWD_REL_TOL).  Every route must be taken: the bf16
+    rows of W = 100 (200 bytes) take the prefetch route, the rest TMA."""
     kernel = scan_kernel.rglru_scan_bwd
-    worst = {}
+    worst, taken = {}, set()
     for n, case in enumerate(SCAN_BWD_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             args = scan_bwd_inputs(case, dtype, seed=5000 + n)
-            before = kernel.launches
+            route = scan_kernel.bwd_route(args[0], args[1], args[3])
+            before, routes_before = kernel.launches, read_scan_bwd_routes()
             outs = kernel(*args)
-            mid = kernel.launches
+            mid, routes_mid = kernel.launches, read_scan_bwd_routes()
             refs = scan_ref.rglru_scan_bwd_reference(*args)
             torch.cuda.synchronize()
             name = dtype_name(dtype)
-            if (mid - before, kernel.launches - mid) != (1, 0):
+            want = {r: routes_before[r] + (r == route) for r in routes_before}
+            if (mid - before, kernel.launches - mid) != (1, 0) or (
+                    routes_mid, read_scan_bwd_routes()) != (want, want):
                 raise AssertionError(f"scan bwd case {case} {name}: the kernel call launched "
-                                     f"{mid - before} times and the plain call "
-                                     f"{kernel.launches - mid}, expected 1 and 0")
+                                     f"{mid - before} times ({routes_before} by route before "
+                                     f"it, {routes_mid} after) and the plain call "
+                                     f"{kernel.launches - mid}, expected one {route} launch "
+                                     "and none")
+            taken.add(route)
             for what, out, ref in zip(("da", "db", "dh0"), outs, refs):
                 want = torch.float32 if what == "dh0" else dtype
                 if out.shape != ref.shape or out.dtype != want:
@@ -647,7 +701,8 @@ def phase_scan_bwd_cases():
                 err = (out.float() - ref.float()).abs().max().item()
                 rel = rel_err(out, ref)
                 tol = SCAN_BWD_REL_TOL[dtype] if what != "dh0" else 0.0
-                log(f"[scan-bwd] {case} {name} {what}: max_abs_err {err:.3e}, rel_err {rel:.3e} "
+                log(f"[scan-bwd] {case} {name}, route {route}, {what}: max_abs_err {err:.3e}, "
+                    f"rel_err {rel:.3e} "
                     f"(tol {tol:.3e}), bit-identical elements "
                     f"{(out == ref).float().mean().item():.6f}, max |ref| "
                     f"{ref.float().abs().max().item():.3f}; launches: kernel call 1, plain call 0")
@@ -655,6 +710,9 @@ def phase_scan_bwd_cases():
                     raise AssertionError(f"scan bwd case {case} {name} {what}: rel_err {rel} > "
                                          f"{tol}")
                 worst[name] = max(worst.get(name, 0.0), err)
+    if taken != set(scan_kernel.BWD_ROUTES):
+        raise AssertionError(f"scan bwd cases took the routes {sorted(taken)}, expected every "
+                             f"one of {scan_kernel.BWD_ROUTES}")
     log(f"[scan-bwd] largest error over {len(SCAN_BWD_CASES)} cases: "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
@@ -668,7 +726,7 @@ def _slice_run(params, cfg, prompts, follow):
     the cache's leaves at the end."""
     reset_launches()
     hidden, _ = lm.forward(params, cfg, tokens=prompts)
-    forward_launches = read_launches()
+    forward_launches = {**read_launches(), "rwkv6_wkv_fwd by route": read_wkv_routes()}
     reset_launches()
     cache = lm.init_cache(cfg, prompts.shape[0], prompts.shape[1] + follow.shape[1],
                           params["embed"].dtype, "cuda")
@@ -678,8 +736,18 @@ def _slice_run(params, cfg, prompts, follow):
     for t in range(follow.shape[1]):
         logits, cache = lm.decode_step(params, cfg, cache, follow[:, t:t + 1])
         out.append(logits)
-    return (hidden, forward_launches, out, read_launches(), after_prefill,
+    return (hidden, forward_launches, out,
+            {**read_launches(), "rwkv6_wkv_fwd by route": read_wkv_routes()}, after_prefill,
             dict(cache_leaves(cache["layers"])))
+
+
+def wkv_routes(cfg, dtype, tokens, n_multi, n_single):
+    """WKV launches by route: n_multi over ``tokens`` steps each (a prefill
+    or a train-mode forward) and n_single of one step (decode steps)."""
+    out = dict.fromkeys(wkv_kernel.ROUTES, 0)
+    out[wkv_kernel.route(dtype, cfg.rwkv_head_dim, tokens)] += n_multi
+    out[wkv_kernel.route(dtype, cfg.rwkv_head_dim, 1)] += n_single
+    return out
 
 
 # Per served model, at full width: the cut of the slice (layers, window), its
@@ -731,7 +799,6 @@ def phase_slice():
     none = dict.fromkeys(KERNELS, 0)
     for arch, cut, prompt_len, patches, fwd_launches, launches in SLICES:
         cfg = dataclasses.replace(get_config(arch), **cut)
-        want_fwd, want = {**none, **fwd_launches}, {**none, **launches}
         what_cut = ", ".join(f"{k} {v}" for k, v in cut.items())
         g = torch.Generator("cuda").manual_seed(2)
         prompts = torch.randint(0, cfg.vocab, (2, prompt_len), generator=g, device="cuda")
@@ -739,6 +806,14 @@ def phase_slice():
                                device="cuda")
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             label = f"{arch} full width, {what_cut}, 2x{prompt_len} tokens, {dtype_name(dtype)}"
+            # WKV by route: the forward and prefill over the prompt (the chunk
+            # route in bf16), each decode step a single step (recurrent)
+            n_wkv = fwd_launches.get("rwkv6_wkv_fwd", 0)
+            want_fwd = {**none, **fwd_launches, "rwkv6_wkv_fwd by route": wkv_routes(
+                cfg, dtype, prompt_len, n_wkv, 0)}
+            want = {**none, **launches, "rwkv6_wkv_fwd by route": wkv_routes(
+                cfg, dtype, prompt_len, n_wkv, n_wkv * SLICE_DECODE_STEPS)}
+            no_wkv = {**none, "rwkv6_wkv_fwd by route": wkv_routes(cfg, dtype, prompt_len, 0, 0)}
             params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype, "cuda")
             (kernel_hidden, kernel_fwd, kernel_path, kernel_launches, kernel_prefill,
              kernel_final) = _slice_run(params, cfg, prompts, follow)
@@ -752,10 +827,10 @@ def phase_slice():
                 f"{want_fwd} and {want}), {plain_fwd} and {plain_launches} on the plain "
                 "path (expected all 0)")
             if (kernel_fwd, kernel_launches, plain_fwd, plain_launches) != (
-                    want_fwd, want, none, none):
+                    want_fwd, want, no_wkv, no_wkv):
                 raise AssertionError(f"slice {label}: launches {kernel_fwd}, "
                                      f"{kernel_launches}, {plain_fwd} and {plain_launches}, "
-                                     f"expected {want_fwd}, {want}, {none} and {none}")
+                                     f"expected {want_fwd}, {want}, {no_wkv} and {no_wkv}")
             if not torch.isfinite(kernel_hidden).all():
                 raise AssertionError(f"slice {label}: non-finite hidden state")
             rel = rel_err(kernel_hidden, plain_hidden)
@@ -992,21 +1067,27 @@ ADAM_EPS = inspect.signature(adamw_update).parameters["eps"].default
 
 
 def read_train_launches() -> dict:
-    """The launches of each kernel, and the flash kernels' by route and with lse."""
+    """The launches of each kernel, the flash kernels' by route and with lse,
+    and the scan backward's by route."""
     return {**read_launches(), "flash_attention_fwd by route": read_flash_routes(),
             "flash_attention_fwd with lse": fa_kernel.flash_attention_fwd.lse_launches,
-            "flash_attention_bwd by route": read_bwd_routes()}
+            "flash_attention_bwd by route": read_bwd_routes(),
+            "rglru_scan_bwd by route": read_scan_bwd_routes()}
 
 
 def want_train_launches(cfg, dtype):
     """read_train_launches() of a train step (or a gradient) of cfg in dtype,
-    remat "full": each flash kernel's launches all on its route, and every
-    forward launch writing the lse (its inputs require grad)."""
+    remat "full": each flash kernel's launches all on its route, every
+    forward launch writing the lse (its inputs require grad), and every scan
+    backward on the TMA route (the model's a, h and dh are whole allocations,
+    and a row of the model's width fills 16-byte lines in either dtype)."""
     want = train_launches(cfg.n_layers) if cfg.uniform_blocks else hybrid_train_launches(cfg)
     by_route = {}
     for name, backward in (("flash_attention_fwd", False), ("flash_attention_bwd", True)):
         route = fa_kernel.route(dtype, cfg.head_dim, cfg.head_dim, backward=backward)
         by_route[f"{name} by route"] = {r: want[name] * (r == route) for r in fa_kernel.ROUTES}
+    by_route["rglru_scan_bwd by route"] = {r: want["rglru_scan_bwd"] * (r == "tma")
+                                           for r in scan_kernel.BWD_ROUTES}
     return {**want, **by_route, "flash_attention_fwd with lse": want["flash_attention_fwd"]}
 
 
@@ -1015,7 +1096,8 @@ def no_train_launches():
     return {**dict.fromkeys(KERNELS, 0),
             "flash_attention_fwd by route": dict.fromkeys(fa_kernel.ROUTES, 0),
             "flash_attention_fwd with lse": 0,
-            "flash_attention_bwd by route": dict.fromkeys(fa_kernel.ROUTES, 0)}
+            "flash_attention_bwd by route": dict.fromkeys(fa_kernel.ROUTES, 0),
+            "rglru_scan_bwd by route": dict.fromkeys(scan_kernel.BWD_ROUTES, 0)}
 
 
 def _train_slice_run(cfg, params, batch):
@@ -1289,6 +1371,10 @@ SERVE_LAUNCHES = {
 # Every served flash launch is bf16 at head dim 128 or 256: the tensor-core route.
 SERVE_FLASH_ROUTES = {arch: {"wgmma": counts["flash_attention_fwd"], "simt": 0}
                       for arch, counts in SERVE_LAUNCHES.items()}
+# rwkv6-7b's WKV launches by route: the 32 prefill launches (bf16, head dim 64,
+# 1024 steps) in chunks, the 2016 decode steps (T = 1) recurrent.
+SERVE_WKV_ROUTES = {arch: {"chunk": 0, "recurrent": 0} for arch in SERVE_LAUNCHES}
+SERVE_WKV_ROUTES["rwkv6-7b"] = {"chunk": 32, "recurrent": 32 * (SERVE_NEW - 1)}
 
 
 def phase_serve(arch):
@@ -1302,7 +1388,7 @@ def phase_serve(arch):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     gen = generate(params, cfg, prompts, SERVE_NEW, cache_dtype=torch.bfloat16)
-    launches, routes = read_launches(), read_flash_routes()
+    launches, routes, wkv_routes_ = read_launches(), read_flash_routes(), read_wkv_routes()
     lse_launches = fa_kernel.flash_attention_fwd.lse_launches
     peak = torch.cuda.max_memory_allocated()
     steps = SERVE_NEW - 1
@@ -1312,8 +1398,9 @@ def phase_serve(arch):
         f"{gen.decode_s * 1e3:.3f} ms = {gen.decode_s * 1e3 / steps:.3f} ms/step = "
         f"{SERVE_BATCH * steps / gen.decode_s:.1f} tokens/s; launches {launches} "
         f"(expected {SERVE_LAUNCHES[arch]}), flash by route {routes} (expected "
-        f"{SERVE_FLASH_ROUTES[arch]}), {lse_launches} writing an lse; max_memory_allocated "
-        f"{peak} bytes")
+        f"{SERVE_FLASH_ROUTES[arch]}), WKV by route {wkv_routes_} (expected "
+        f"{SERVE_WKV_ROUTES[arch]}), {lse_launches} flash launches writing an lse; "
+        f"max_memory_allocated {peak} bytes")
     sample = gen.tokens[0, :16].tolist()
     log(f"[serve] {cfg.name} sample: {sample}")
     if len(set(sample)) == 1:
@@ -1338,9 +1425,12 @@ def phase_serve(arch):
     if routes != SERVE_FLASH_ROUTES[arch]:
         raise AssertionError(f"serve {arch}: flash launches by route {routes}, "
                              f"expected {SERVE_FLASH_ROUTES[arch]}")
+    if wkv_routes_ != SERVE_WKV_ROUTES[arch]:
+        raise AssertionError(f"serve {arch}: WKV launches by route {wkv_routes_}, "
+                             f"expected {SERVE_WKV_ROUTES[arch]}")
     if lse_launches:
         raise AssertionError(f"serve {arch}: {lse_launches} flash launches wrote an lse")
-    return params, cfg, prompts, launches, routes
+    return params, cfg, prompts, launches, routes, wkv_routes_
 
 
 def phase_profile(params, cfg, prompts):
@@ -1658,8 +1748,11 @@ def _bwd_timings(arch, case, iters, calls):
 
 def phase_wkv_timings():
     """The WKV kernel and its plain version at the rwkv6-7b prefill and decode
-    shapes, bf16, in turns.  No single PyTorch call computes the recurrence,
-    so there is no library time.  At the prefill shape, CUDA events around
+    shapes, bf16, in turns, each on the route kernel.route() names (chunk,
+    recurrent); at the prefill shape also the recurrent kernel, which that
+    shape no longer takes, as a yardstick (through kernel.launch; the
+    launches the kernels line reports were read before, on the main paths).  No single PyTorch call computes the recurrence, so there is no
+    library time.  At the prefill shape, CUDA events around
     back-to-back calls.  At the decode shape a launch takes microseconds and
     back-to-back calls are bound by the wrapper's host cost, so ms and
     plain_ms are device time a call (device_ms), and host_ms is the kernel's
@@ -1667,13 +1760,17 @@ def phase_wkv_timings():
     cycle through input sets whose states fill twice the L2 cache, so each
     call reads its state from HBM, as a served decode step does."""
     out = {}
-    for what, case, iters, timer in (("prefill", WKV_PREFILL_CASE, (10, 2), time_ms),
+    for what, case, iters, timer in (("prefill", WKV_PREFILL_CASE, (20, 2), time_ms),
                                      ("decode", WKV_DECODE_CASE, (20, 1), device_ms)):
-        B, _, H, D = case[:4]
+        B, T, H, D = case[:4]
+        route = wkv_kernel.route(torch.bfloat16, D, T)
         n_sets = 1 if timer is time_ms else -(-2 * L2_BYTES // (4 * B * H * D * D))
         sets = [wkv_inputs(case, torch.bfloat16, seed=321 + i) for i in range(n_sets)]
         fns = {"kernel": (lambda: [wkv_kernel.rwkv6_wkv_fwd(*a) for a in sets], iters[0]),
                "plain": (lambda: [wkv_ref.rwkv6_reference(*a) for a in sets], iters[1])}
+        if route != "recurrent":
+            fns["recurrent"] = (lambda: [wkv_kernel.launch("recurrent", *a) for a in sets],
+                                iters[0] // 2)
 
         def per_call(timed):
             ms, times = timed
@@ -1682,14 +1779,18 @@ def phase_wkv_timings():
         ms, times = per_call(in_turns(fns, timer))
         bound_ms, bound_by, flops, nbytes, f32_ms = wkv_bound(case, torch.bfloat16)
         clock = "CUDA events" if timer is time_ms else "device time"
+        recurrent = (f"; the recurrent kernel at this shape {ms['recurrent']:.4f} ms"
+                     if "recurrent" in ms else "")
         log(f"[timings] rwkv6_wkv_fwd {what} {case[:4]} bf16, s0 "
             f"{'given' if case[4] else 'None'}, median of 4, {clock} a call over {n_sets} "
-            f"input set(s): kernel {ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; bound "
-            f"{bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, {nbytes} bytes; the FLOPs "
-            f"at the f32 rate {f32_ms:.4f} ms)")
+            f"input set(s): kernel (route {route}) {ms['kernel']:.4f} ms{recurrent}; plain "
+            f"{ms['plain']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, "
+            f"{nbytes} bytes; the FLOPs at the f32 rate {f32_ms:.4f} ms)")
         log(f"[timings] all runs (ms): {json.dumps(times)}")
-        out[what] = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
-                         bound_by=bound_by)
+        out[what] = dict(wkv_route=route, ms=ms["kernel"], plain_ms=ms["plain"],
+                         bound_ms=bound_ms, bound_by=bound_by)
+        if "recurrent" in ms:
+            out[what]["recurrent_ms"] = ms["recurrent"]
         if timer is not time_ms:
             host, host_times = per_call(in_turns({"kernel": fns["kernel"]}))
             log(f"[timings] rwkv6_wkv_fwd {what}, CUDA events around back-to-back calls "
@@ -1853,9 +1954,10 @@ def main() -> int:
     scan_bwd_worst = phase_scan_bwd_cases()
     phase_slice()
     phase_train_slice()
-    by_path, routes_by_path = {}, {}
+    by_path, routes_by_path, wkv_routes_by_path = {}, {}, {}
     for arch in SERVE_LAUNCHES:
-        params, cfg, prompts, by_path[arch], routes_by_path[arch] = phase_serve(arch)
+        (params, cfg, prompts, by_path[arch], routes_by_path[arch],
+         wkv_routes_by_path[arch]) = phase_serve(arch)
         phase_profile(params, cfg, prompts)
         del params  # free one model's weights before the next
         torch.cuda.empty_cache()
@@ -1880,7 +1982,8 @@ def main() -> int:
 
     def train_paths(kernel, timed=None):
         """Each train path's launches of kernel over its timed steps (by route
-        for the flash kernels), with timed[model] where given."""
+        for the flash kernels and the scan backward), with timed[model] where
+        given."""
         entries = []
         for arch, t in train.items():
             n = sum(c[kernel] for c in t["launches"])
@@ -1891,7 +1994,7 @@ def main() -> int:
             if f"{kernel} by route" in t["launches"][0]:
                 entry["launches_by_route"] = {
                     r: sum(c[f"{kernel} by route"][r] for c in t["launches"])
-                    for r in fa_kernel.ROUTES}
+                    for r in t["launches"][0][f"{kernel} by route"]}
             entries.append(entry)
         return sum(e["launches"] for e in entries), entries
 
@@ -1907,6 +2010,8 @@ def main() -> int:
     fa_by_path += fa_train
     bwd_launches, bwd_by_path = train_paths("flash_attention_bwd", bwd_t)
     wkv_launches, wkv_by_path = launches("rwkv6_wkv_fwd")
+    for entry in wkv_by_path:
+        entry["launches_by_route"] = wkv_routes_by_path[entry["model"]]
     scan_launches, scan_by_path = launches("rglru_scan_fwd")
     n_train, scan_train = train_paths("rglru_scan_fwd")
     scan_launches += n_train
@@ -1947,9 +2052,13 @@ def main() -> int:
     }, {
         "name": "rwkv6_wkv_fwd",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_fwd.cu",
+        "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_fwd_sm90.cu",
+        "sources": {"chunk": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_fwd_sm90.cu",
+                    "recurrent": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_fwd.cu"},
         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:47",
         "launches": wkv_launches,
+        "launches_by_route": {r: sum(e["launches_by_route"][r] for e in wkv_by_path)
+                              for r in wkv_kernel.ROUTES},
         "by_path": wkv_by_path,
         "max_abs_err": max(wkv_worst.values()),
         "max_abs_err_by_dtype": wkv_worst,
@@ -1971,10 +2080,14 @@ def main() -> int:
         "name": "rglru_scan_bwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu",
+        "sources": {r: "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu"
+                    for r in scan_kernel.BWD_ROUTES},
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:45 (forward only: the Pallas "
                     "kernel has no backward; jax.grad differentiates the scan, "
                     "src/repro/kernels/rglru_scan/ref.py:14)",
         "launches": scan_bwd_launches,
+        "launches_by_route": {r: sum(e["launches_by_route"][r] for e in scan_bwd_by_path)
+                              for r in scan_kernel.BWD_ROUTES},
         "by_path": scan_bwd_by_path,
         "max_abs_err": max(scan_bwd_worst.values()),
         "max_abs_err_by_dtype": scan_bwd_worst,

@@ -3,8 +3,11 @@
 Each kernel is compiled by ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch/`` at the root of the checkout (listed in .gitignore).
 The library's file name carries a hash of its sources and flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.  Nothing
-is built when a module is imported.
+changed source is rebuilt and an unchanged one is loaded as it is.  Every
+source may include the headers that the kernels share from ``csrc/`` beside
+this file (nvcc gets ``-I`` to it, and the hash covers its files, so a
+changed header rebuilds every library).  Nothing is built when a module is
+imported.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SHARED_INCLUDE = Path(__file__).resolve().parent / "csrc"  # sm90.cuh
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,12 +52,13 @@ def build_shared_library(name: str, sources: list[Path],
     fails.  ``defines`` become macros of every source, ``#define name
     value`` in a header that nvcc includes first (a header, not ``-D``, so
     that a value reaches the compiler as written).  The hash covers the
-    flags, the defines and every file of the sources' directories, the
-    headers they include among them."""
+    flags, the defines and every file of the sources' directories and of
+    SHARED_INCLUDE, the headers they include among them."""
     header = "".join(f"#define {k} {v}\n" for k, v in (defines or {}).items())
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     digest.update(header.encode())
-    for f in sorted({f for src in sources for f in src.parent.iterdir() if f.is_file()}):
+    dirs = {src.parent for src in sources} | {SHARED_INCLUDE}
+    for f in sorted({f for d in dirs if d.is_dir() for f in d.iterdir() if f.is_file()}):
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
     stem = f"lib{name}-{digest.hexdigest()[:16]}"
@@ -63,7 +68,7 @@ def build_shared_library(name: str, sources: list[Path],
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp"
     objs = [tmp.with_name(f"{tmp.name}.{i}.o") for i in range(len(sources))]
-    flags = [*NVCC_FLAGS]
+    flags = [*NVCC_FLAGS, "-I", str(SHARED_INCLUDE)]
     if header:
         defines_h = BUILD_DIR / f"{stem}.h"
         tmp.write_text(header)

@@ -1,7 +1,8 @@
-// What the flash-attention kernels on the Hopper tensor cores share
-// (flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu): mbarriers,
-// TMA loads and tensor maps, wgmma's shared-memory descriptors and the
-// products on bf16 operands with f32 accumulators, sm_90a only.
+// What the kernels on the Hopper tensor cores share (flash_attention_fwd_sm90.cu,
+// flash_attention_bwd_sm90.cu, rwkv6_wkv_fwd_sm90.cu): mbarriers, TMA loads
+// and tensor maps, wgmma's shared-memory descriptors and the products on
+// bf16 operands with f32 accumulators, sm_90a only.  build.py passes nvcc
+// -I to this directory.
 //
 // Tiles in shared memory.  A bf16 tile of R rows x D columns comes in by TMA
 // as D/64 chunks, each R rows of 64 elements (128 bytes) with the 128-byte
@@ -157,6 +158,49 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// O (64 x 64) = A (64 x 16) B (+ O if accumulate), A K-major and B MN-major
+// in shared memory (the last 1: B transposed).
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        D8(0), D8(8), D8(16), D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O (64 x 64) += A (64 x 16) B, A and B both MN-major in shared memory (both
+// transposed): A's rows in memory are its 16 columns of depth.
+__device__ __forceinline__ void wgmma_ss_ta_tb(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      :
+        D8(0), D8(8), D8(16), D8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// O (64 x 64) += A (64 x 16) B, A in registers, B MN-major in shared memory
+// (the last 1: B transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // S (64 x 128) = A (64 x 16) B^T (+ S if accumulate), A and B K-major in
 // shared memory.
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
@@ -278,6 +322,37 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BK / 2], uint32_t (&p)[
       const __nv_bfloat162 pk = __floats2bfloat162_rn(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
       p[kk][r] = *reinterpret_cast<const uint32_t*>(&pk);
     }
+}
+
+// The warp-wide product C (16 x 8) += A (16 x 16) B (16 x 8), bf16 in, f32
+// out (mma.sync, the pre-Hopper tensor-core path, for products narrower than
+// wgmma's 64 rows).  Lane 4 g + c holds A's a[0] (row g, columns 2c, 2c+1),
+// a[1] (row g + 8), a[2] (row g, columns 8 + 2c, 8 + 2c + 1), a[3] (row g +
+// 8, those columns); B's b0 (rows 2c, 2c+1 of column g), b1 (rows 8 + 2c,
+// 8 + 2c + 1); C's c[0], c[1] (row g, columns 2c, 2c+1), c[2], c[3] (row
+// g + 8): the layout of one 8-column block of a wgmma accumulator.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The byte offset of bf16 element (row, col) in a tile of 64-element
+// (128-byte) rows with the 128-byte swizzle, as TMA writes it and wgmma
+// reads it when the tile starts on a 1024-byte boundary: the 16-byte chunk
+// col / 8 of a row moves to chunk (col / 8) xor (row % 8).
+__device__ __forceinline__ uint32_t swizzle128(int row, int col) {
+  return row * kRowBytes + ((((col >> 3) ^ row) & 7) << 4) + ((col & 7) << 1);
+}
+
+// Two floats rounded to bf16 and packed as one 32-bit word, the first in
+// the low half (the lower address).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 pk = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&pk);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

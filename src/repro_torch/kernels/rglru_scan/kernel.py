@@ -6,9 +6,18 @@ The forward (``csrc/rglru_scan_fwd.cu``) replaces the Pallas TPU kernel
 (``csrc/rglru_scan_bwd.cu``) is its gradient, which the Pallas kernel does
 not have (on the TPU ``jax.grad`` differentiates the scan).  Each is built
 with ``nvcc`` into a shared library of its own with a plain C interface at
-first use and called through ``ctypes`` on PyTorch's current stream.  These
-wrappers take CUDA tensors only and raise on anything the kernels do not
-take; the CPU's plain versions are ``ref.rglru_reference`` and
+first use and called through ``ctypes`` on PyTorch's current stream.  The
+backward's library exports one entry point a route, and ``bwd_route()``
+below, the rule's only copy, picks it:
+
+* ``"tma"``: a, h and dh on 16-byte boundaries and a row of W elements a
+  multiple of 16 bytes (recurrentgemma-2b's train shape among them), a ring
+  in shared memory filled by TMA;
+* ``"prefetch"``: any other contiguous tensors, the next 16 steps held in
+  registers.
+
+These wrappers take CUDA tensors only and raise on anything the kernels do
+not take; the CPU's plain versions are ``ref.rglru_reference`` and
 ``ref.rglru_scan_bwd_reference``.
 """
 from __future__ import annotations
@@ -24,7 +33,8 @@ from ..build import Built, build_shared_library
 SOURCES = [Path(__file__).parent / "csrc" / "rglru_scan_fwd.cu"]
 BWD_SOURCES = [Path(__file__).parent / "csrc" / "rglru_scan_bwd.cu"]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_W_MAX = 2**31 - 1 - 128  # keep in step with the .cu's kThreads
+_W_MAX = 2**31 - 1 - 128  # keep in step with the .cu's widest block
+BWD_ROUTES = ("tma", "prefetch")
 
 
 def build() -> Built:
@@ -33,8 +43,8 @@ def build() -> Built:
 
 
 def build_bwd() -> Built:
-    """Compile the backward kernel, a library of its own, from the sources in
-    this checkout (cached by hash)."""
+    """Compile the backward kernels, a library of their own, from the sources
+    in this checkout (cached by hash)."""
     return build_shared_library("rglru_scan_bwd", BWD_SOURCES)
 
 
@@ -54,12 +64,14 @@ def _library() -> ctypes.CDLL:
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_bwd().path))
-    lib.rglru_scan_bwd.argtypes = (
-        [ctypes.c_void_p] * 8          # a, h, h0 (may be null), dh, dh_last (may be null),
+    for rt in BWD_ROUTES:
+        entry = getattr(lib, f"rglru_scan_bwd_{rt}")
+        entry.argtypes = (
+            [ctypes.c_void_p] * 8      # a, h, h0 (may be null), dh, dh_last (may be null),
                                        # da, db, dh0
-        + [ctypes.c_int] * 4           # dtype, B, T, W
-        + [ctypes.c_void_p])           # stream
-    lib.rglru_scan_bwd.restype = ctypes.c_int
+            + [ctypes.c_int] * 4       # dtype, B, T, W
+            + [ctypes.c_void_p])       # stream
+        entry.restype = ctypes.c_int
     lib.rglru_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.rglru_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -131,18 +143,27 @@ def rglru_scan_fwd(a, b, h0=None):
     return h, h_last
 
 
-rglru_scan_fwd.launches = 0
+
+def bwd_route(a, h, dh) -> str:
+    """The backward kernel a launch goes to: ``"tma"`` when a, h and dh each
+    start on a 16-byte boundary and a row of W elements is a multiple of 16
+    bytes (a TMA tensor map's rules; da and db are fresh allocations, which
+    start on one), else ``"prefetch"``.  The wrapper calls the entry point it
+    names; nothing else decides."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a, h, dh))
+    return "tma" if aligned and a.shape[-1] * a.element_size() % 16 == 0 else "prefetch"
 
 
 def rglru_scan_bwd(a, h, h0, dh, dh_last=None):
-    """Launch the backward kernel.  a, h0: as ``rglru_scan_fwd`` was given
-    them (h0 None for a zero state); h: its output (B, T, W) in a.dtype; dh:
-    the gradient of h, in h's shape and dtype; dh_last: the gradient of
-    h_last, (B, W) f32, or None for zero.
+    """Launch the backward kernel that ``bwd_route()`` names.  a, h0: as
+    ``rglru_scan_fwd`` was given them (h0 None for a zero state); h: its
+    output (B, T, W) in a.dtype; dh: the gradient of h, in h's shape and
+    dtype; dh_last: the gradient of h_last, (B, W) f32, or None for zero.
 
     Returns (da, db) in a.dtype, a's shape, and dh0 (B, W) in f32 (see
     ``ref.rglru_scan_bwd_reference``).  Adds one to
-    ``rglru_scan_bwd.launches`` for each launch.
+    ``rglru_scan_bwd.launches`` and to
+    ``rglru_scan_bwd.launches_by_route[bwd_route(...)]`` for each launch.
     """
     who = "rglru_scan_bwd"
     _check(who, a, {"h": h, "dh": dh}, {"h0": h0, "dh_last": dh_last})
@@ -150,17 +171,27 @@ def rglru_scan_bwd(a, h, h0, dh, dh_last=None):
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = torch.empty((B, W), dtype=torch.float32, device=a.device)
     lib = _bwd_library()
+    rt = bwd_route(a, h, dh)
     with torch.cuda.device(a.device):
-        err = lib.rglru_scan_bwd(
+        err = getattr(lib, f"rglru_scan_bwd_{rt}")(
             a.data_ptr(), h.data_ptr(), None if h0 is None else h0.data_ptr(), dh.data_ptr(),
             None if dh_last is None else dh_last.data_ptr(), da.data_ptr(), db.data_ptr(),
             dh0.data_ptr(), _DTYPE_CODE[a.dtype], B, T, W,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         msg = lib.rglru_scan_bwd_error_string(err).decode()
-        raise RuntimeError(f"{who}: launch failed with CUDA error {err}: {msg}")
+        raise RuntimeError(f"{who}: launch failed on the {rt} route with CUDA error {err}: "
+                           f"{msg}")
     rglru_scan_bwd.launches += 1
+    rglru_scan_bwd.launches_by_route[rt] += 1
     return da, db, dh0
 
 
-rglru_scan_bwd.launches = 0
+def reset_launches():
+    """Set the launch counters to 0."""
+    rglru_scan_fwd.launches = 0
+    rglru_scan_bwd.launches = 0
+    rglru_scan_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
+
+
+reset_launches()

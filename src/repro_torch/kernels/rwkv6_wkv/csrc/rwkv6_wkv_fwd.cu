@@ -1,6 +1,9 @@
 // RWKV6 (Finch) WKV recurrence, forward, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
+// The "recurrent" route of rwkv6_wkv_fwd: route() in kernel.py sends it f32
+// at every head dim, bf16 at head dims 8, 16 and 32, and T = 1, every decode
+// step; bf16 prefill at head dim 64 goes to wkv_fwd_chunk in
+// rwkv6_wkv_fwd_sm90.cu.  Replaces the Pallas TPU kernel
 //   src/repro/kernels/rwkv6_wkv/kernel.py :: rwkv6_wkv_kernel
 // (body _wkv_kernel).  It computes what that kernel computes: for each
 // (b, h), a D x D state S in f32, with S[i][j] indexed by i over k and j over
@@ -30,8 +33,9 @@
 // f32 rate, so bytes set the floor.  This first version is limited by
 // neither: each of the B x H blocks runs its T steps one after the other,
 // with a barrier and a dependent chain of D FMAs per step, and holds only D
-// threads.  Splitting a head's columns over several blocks and a chunked
-// form on the tensor cores are the next steps.
+// threads.  That is what the chunk route is for; a decode step (T = 1) has
+// no chain, and f32 stays here because its callers hold it to 1e-5 of the
+// plain version step by step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,12 +142,14 @@ cudaError_t dispatch(const Params& p, int B, int D, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  s0 may be null (a zero state).  Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
-extern "C" int rwkv6_wkv_fwd(const void* r, const void* k, const void* v, const void* w,
-                             const float* u, const float* s0, void* y, float* s_last,
-                             int dtype, int B, int T, int H, int D, void* stream) {
+// The recurrent route's entry point.  dtype: 0 float32, 1 bfloat16.  s0 may
+// be null (a zero state).  Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for arguments the kernel does not take;
+// rwkv6_wkv_fwd_error_string (rwkv6_wkv_fwd_sm90.cu) gives the message.
+extern "C" int rwkv6_wkv_fwd_recurrent(const void* r, const void* k, const void* v,
+                                       const void* w, const float* u, const float* s0, void* y,
+                                       float* s_last, int dtype, int B, int T, int H, int D,
+                                       void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || (long long)B * H > 2147483647LL)
     return cudaErrorInvalidValue;
   const Params p{r, k, v, w, u, s0, y, s_last, T, H};
@@ -151,8 +157,4 @@ extern "C" int rwkv6_wkv_fwd(const void* r, const void* k, const void* v, const 
   if (dtype == 0) return dispatch<float>(p, B, D, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(p, B, D, s);
   return cudaErrorInvalidValue;
-}
-
-extern "C" const char* rwkv6_wkv_fwd_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,7 +1,9 @@
 """RWKV6 WKV entry point (``repro.kernels.rwkv6_wkv.ops`` twin).
 
-A CUDA tensor goes to the hand-written kernel (``kernel.rwkv6_wkv_fwd``) for
-every T >= 1; a CPU tensor goes to the plain version (``rwkv6_reference``).
+A CUDA tensor goes to the hand-written kernels (``kernel.rwkv6_wkv_fwd``)
+for every T >= 1, which launch the route ``kernel.route()`` names (in chunks
+on the tensor cores for bf16 prefill at head dim 64, a step at a time
+otherwise); a CPU tensor goes to the plain version (``rwkv6_reference``).
 There is no other switch.
 """
 from __future__ import annotations

@@ -1,6 +1,8 @@
 """The checks of chip_smoke.py that need no GPU: the build's ptxas check on the
 flash kernel's tensor-core route, device_ms's check that the card ran the
 timed calls back to back, and the profiler's per-launch average."""
+import math
+import re
 import sys
 from pathlib import Path
 
@@ -278,6 +280,7 @@ def test_hybrid_train_launches_at_full_depth():
     assert want["flash_attention_fwd by route"] == {"wgmma": 16, "simt": 0}
     assert want["flash_attention_bwd by route"] == {"wgmma": 8, "simt": 0}
     assert want["flash_attention_fwd with lse"] == 16
+    assert want["rglru_scan_bwd by route"] == {"tma": 18, "prefetch": 0}
     qwen = chip_smoke.want_train_launches(chip_smoke.get_config("qwen3-1.7b"), torch.float32)
     assert {k: qwen[k] for k in chip_smoke.KERNELS} == chip_smoke.train_launches(28)
     assert qwen["flash_attention_bwd by route"] == {"wgmma": 0, "simt": 28}
@@ -365,3 +368,102 @@ def test_sign_flips_counts_small_flips_and_refuses_a_large_one():
     gk, gp = (torch.tensor(v, dtype=torch.bfloat16) for v in ([1.0, -0.05], [1.0, 0.05]))
     with pytest.raises(AssertionError, match="changes sign"):
         chip_smoke.sign_flips(gk, gp, 2e-2)
+
+
+def test_wkv_cases_hold_every_route_and_the_new_edges():
+    """In bf16 the chunk route takes every case at head dim 64 with T >= 2:
+    the ragged (2, 37, 4, 64), the prefill shape with both decays, a ragged
+    T over two chunks with s0, and the edge case; the decode shape (T = 1)
+    and the smaller head dims stay recurrent, as every f32 case does."""
+    route = chip_smoke.wkv_kernel.route
+    chunk = [c for c in chip_smoke.WKV_CASES if route(torch.bfloat16, c[3], c[1]) == "chunk"]
+    assert (2, 37, 4, 64, True, "sigmoid") in chunk
+    assert (2, 100, 8, 64, True, "model") in chunk
+    assert chip_smoke.WKV_PREFILL_CASE in chunk and (8, 1024, 64, 64, False, "model") in chunk
+    assert any(c[5] == "edges" for c in chunk)
+    assert route(torch.bfloat16, 64, chip_smoke.WKV_DECODE_CASE[1]) == "recurrent"
+    assert all(route(torch.float32, c[3], c[1]) == "recurrent" for c in chip_smoke.WKV_CASES)
+    assert chip_smoke.WKV_DECODE_CASE[1] == 1 and chip_smoke.WKV_PREFILL_CASE[:4] == (
+        8, 1024, 64, 64)
+
+
+def test_wkv_edge_case_forces_zero_one_and_deep_decays_inside_its_steps():
+    edge = next(c for c in chip_smoke.WKV_CASES if c[5] == "edges")
+    T = edge[1]
+    steps = chip_smoke.WKV_EDGE_STEPS
+    assert set(steps) == {0.0, 1.0, math.exp(-100.0)}
+    assert all(any(t < T for t in ts) for ts in steps.values())
+    assert T % 64 and T > 64                    # a ragged last chunk after a full one
+    assert {0, 63, 64} <= set(steps[0.0])       # a chunk's first and last steps
+    assert {15, 16} <= set(steps[1.0])          # both sides of a sub-chunk's edge
+
+
+def test_rwkv6_serve_launches_by_route():
+    """32 prefill launches (bf16, 1024 steps) in chunks, 63 decode steps of
+    32 layers recurrent; the other served models launch no WKV."""
+    routes = chip_smoke.SERVE_WKV_ROUTES
+    assert routes["rwkv6-7b"] == {"chunk": 32, "recurrent": 2016}
+    assert sum(routes["rwkv6-7b"].values()) == chip_smoke.SERVE_LAUNCHES["rwkv6-7b"][
+        "rwkv6_wkv_fwd"]
+    assert all(r == {"chunk": 0, "recurrent": 0} for a, r in routes.items() if a != "rwkv6-7b")
+
+
+@pytest.mark.parametrize("dtype, want_fwd, want", [
+    (torch.bfloat16, {"chunk": 2, "recurrent": 0}, {"chunk": 2, "recurrent": 8}),
+    (torch.float32, {"chunk": 0, "recurrent": 2}, {"chunk": 0, "recurrent": 10})])
+def test_rwkv6_slice_launches_by_route(dtype, want_fwd, want):
+    """The 64-token slice at 2 layers: the train-mode forward and prefill in
+    chunks in bf16, each of the 4 decode steps recurrent; f32 all recurrent."""
+    arch, cut, prompt_len, _, fwd, launches = next(
+        s for s in chip_smoke.SLICES if s[0] == "rwkv6-7b")
+    cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config(arch), **cut)
+    n = fwd["rwkv6_wkv_fwd"]
+    assert chip_smoke.wkv_routes(cfg, dtype, prompt_len, n, 0) == want_fwd
+    got = chip_smoke.wkv_routes(cfg, dtype, prompt_len, n, n * chip_smoke.SLICE_DECODE_STEPS)
+    assert got == want and sum(got.values()) == launches["rwkv6_wkv_fwd"]
+
+
+@pytest.mark.parametrize("name", [
+    "(anonymous namespace)::wkv_fwd_chunk((anonymous namespace)::Args, CUtensorMap_st)",
+    "void (anonymous namespace)::wkv_fwd<__nv_bfloat16, 64>(Params)",
+    "void (anonymous namespace)::rglru_bwd_tma<float>(float const*, float const*)",
+    "void (anonymous namespace)::rglru_bwd<__nv_bfloat16>(__nv_bfloat16 const*)"])
+def test_profiler_names_of_the_recurrence_kernels_are_the_ports(name):
+    assert name.startswith(chip_smoke.PORT_KERNEL_SYMBOLS)
+
+
+def test_spill_check_finds_the_chunk_route_kernel():
+    chunk = ("_ZN54_GLOBAL__N__40cd4659_21_rwkv6_wkv_fwd_sm90_cu_b348a0ca13wkv_fwd_chunkENS_4Args"
+             "E14CUtensorMap_stS1_S1_S1_")
+    recurrent = ("_ZN49_GLOBAL__N__b056f199_16_rwkv6_wkv_fwd_cu_8869d4497wkv_fwdIfLi64EEEv"
+                 "NS_6ParamsE")
+    assert chip_smoke.spilling_entries(_log(_entry(recurrent), _entry(chunk)),
+                                       "wkv_fwd_chunk") == (1, [])
+    seen, spills = chip_smoke.spilling_entries(_log(_entry(chunk, 4, 4)), "wkv_fwd_chunk")
+    assert seen == 1 and spills and spills[0].startswith(chunk)
+
+
+def test_wkv_bound_at_the_prefill_shape():
+    """r, k, v, w read and y written in bf16 (5 x 67.1 MB), s_last in f32:
+    344 MB, 0.1027 ms at 3.35 TB/s."""
+    bound_ms, bound_by, flops, nbytes, _ = chip_smoke.wkv_bound(chip_smoke.WKV_PREFILL_CASE,
+                                                                torch.bfloat16)
+    assert nbytes == 2 * 5 * 8 * 1024 * 64 * 64 + 4 * 64 * 64 + 4 * 8 * 64 * 64 * 64
+    assert flops == 4 * 8 * 1024 * 64 * 64 * 64
+    assert bound_by == "bytes" and abs(bound_ms - 0.1027) < 1e-4
+
+
+def test_scan_backward_cases_take_every_route():
+    """On whole allocations, as the cases' inputs are, the bf16 cases of W =
+    100 (200-byte rows) take the prefetch route and every other case the TMA
+    route, recurrentgemma-2b's train shape among them: the card's run checks
+    each route against its plain version."""
+    routes = {}
+    for case in chip_smoke.SCAN_BWD_CASES:
+        B, T, W = case[:3]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.zeros(B, T, W, dtype=dtype)
+            routes[W, dtype] = chip_smoke.scan_kernel.bwd_route(x, x, x)
+    assert {r for r in routes.values()} == set(chip_smoke.scan_kernel.BWD_ROUTES)
+    assert [k for k, r in routes.items() if r == "prefetch"] == [(100, torch.bfloat16)]
+    assert routes[chip_smoke.SCAN_TRAIN_CASE[2], torch.float32] == "tma"

@@ -17,6 +17,7 @@ on ``recurrentgemma-2b.reduced()`` (2e-4, as tests/test_torch_train.py
 holds qwen3's), the prefill and decode steps (2e-4 on logits, greedy tokens
 equal), and the training CLI's SIGTERM checkpoint and resume.
 """
+import contextlib
 import os
 import signal
 
@@ -281,6 +282,84 @@ def test_function_refuses_cpu_tensors_and_wrong_dtypes(no_build):
         RGLRUScan.apply(a, b, None)
     with pytest.raises(ValueError, match="rglru_scan_fwd: h0 must be float32"):
         RGLRUScan.apply(_OnCuda(a.detach()), _OnCuda(b), _OnCuda(torch.zeros(1, 8).double()))
+
+
+def _offset(shape, dtype, elems):
+    """A contiguous tensor of ``shape`` that starts ``elems`` elements into
+    a fresh allocation (which starts on a 64-byte boundary)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + elems, dtype=dtype)[elems:].view(shape)
+
+
+@pytest.mark.parametrize("dtype, W, elems, want", [
+    (torch.float32, 2560, 0, "tma"),        # recurrentgemma-2b's width
+    (torch.bfloat16, 2560, 0, "tma"),
+    (torch.float32, 100, 0, "tma"),         # 400-byte rows
+    (torch.bfloat16, 100, 0, "prefetch"),   # 200-byte rows
+    (torch.float32, 2, 0, "prefetch"),      # 8-byte rows
+    (torch.float32, 2560, 1, "prefetch"),   # 4 bytes off a 16-byte boundary
+    (torch.bfloat16, 2560, 4, "prefetch"),  # 8 bytes off
+    (torch.bfloat16, 2560, 8, "tma"),       # 16 bytes in: on a boundary
+], ids=str)
+def test_backward_route_follows_alignment_and_row_bytes(dtype, W, elems, want):
+    """bwd_route() takes TMA only where a tensor map can cover a, h and dh:
+    each on a 16-byte boundary, a row a multiple of 16 bytes.  Any one of the
+    three off its boundary sends the launch to the prefetch route."""
+    shape = (2, 5, W)
+    moved = _offset(shape, dtype, elems)
+    whole = torch.zeros(shape, dtype=dtype)
+    assert scan_kernel.bwd_route(moved, moved, moved) == want
+    for i in range(3):
+        args = [whole] * 3
+        args[i] = moved
+        assert scan_kernel.bwd_route(*args) == want
+
+
+class _ScanLibrary:
+    """Counting stand-ins for the backward library's entry points: each
+    records its route and its dtype, B, T and W."""
+
+    def __init__(self):
+        self.calls = []
+
+        def entry(name):
+            def call(*args):
+                self.calls.append((name, args[8:12]))
+                return 0
+            return call
+        self.rglru_scan_bwd_tma = entry("tma")
+        self.rglru_scan_bwd_prefetch = entry("prefetch")
+
+
+def test_backward_wrapper_calls_the_entry_point_route_names_and_counts_it(monkeypatch):
+    """With the library and the device stood in, each call reaches the entry
+    point bwd_route() names and adds one to launches and to
+    launches_by_route on that route only; reset_launches() zeroes both."""
+    lib = _ScanLibrary()
+    monkeypatch.setattr(scan_kernel, "_bwd_library", lambda: lib)
+    monkeypatch.setattr(scan_kernel, "_check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: type("Stream", (), {"cuda_stream": 0})())
+    scan_kernel.reset_launches()
+    calls = [(torch.float32, 2560, 0), (torch.bfloat16, 100, 0), (torch.float32, 2560, 1),
+             (torch.bfloat16, 2560, 0), (torch.float32, 96, 0)]
+    for dtype, W, elems in calls:
+        x = _offset((2, 3, W), dtype, elems)
+        da, db, dh0 = rglru_scan_bwd(x, x, None, x, None)
+        assert da.shape == db.shape == x.shape and da.dtype == dtype
+        assert dh0.shape == (2, W) and dh0.dtype == torch.float32
+    want = [scan_kernel.bwd_route(*[_offset((2, 3, W), dtype, elems)] * 3)
+            for dtype, W, elems in calls]
+    assert [name for name, _ in lib.calls] == want == ["tma", "prefetch", "prefetch", "tma",
+                                                       "tma"]
+    assert [args for _, args in lib.calls] == [
+        (0, 2, 3, 2560), (1, 2, 3, 100), (0, 2, 3, 2560), (1, 2, 3, 2560), (0, 2, 3, 96)]
+    assert rglru_scan_bwd.launches == len(calls)
+    assert rglru_scan_bwd.launches_by_route == {"tma": 3, "prefetch": 2}
+    scan_kernel.reset_launches()
+    assert (rglru_scan_bwd.launches, rglru_scan_bwd.launches_by_route) == (
+        0, dict.fromkeys(scan_kernel.BWD_ROUTES, 0))
 
 
 # --- the slice: train, prefill and decode steps ------------------------------
