@@ -5,10 +5,13 @@ the same names as the JAX package's registry.
 """
 from repro_torch.types import ArchConfig
 
-from . import qwen3_1_7b, recurrentgemma_2b, rwkv6_7b
+from . import (minitron_4b, qwen2_moe_a2_7b, qwen3_1_7b, qwen3_moe_30b_a3b,
+               recurrentgemma_2b, rwkv6_7b, yi_9b)
 
 ARCHS = {cfg.name: cfg for cfg in (qwen3_1_7b.CONFIG, rwkv6_7b.CONFIG,
-                                   recurrentgemma_2b.CONFIG)}
+                                   recurrentgemma_2b.CONFIG, yi_9b.CONFIG,
+                                   minitron_4b.CONFIG, qwen2_moe_a2_7b.CONFIG,
+                                   qwen3_moe_30b_a3b.CONFIG)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,5 +1,5 @@
-"""LM assembly (``repro.models.lm`` twin) for the dense GQA decoder, RWKV6 and
-the RG-LRU hybrid.
+"""LM assembly (``repro.models.lm`` twin) for the dense GQA decoder (with an
+MLP or a MoE branch), RWKV6 and the RG-LRU hybrid.
 
 Modes:
   train   — full-sequence forward + chunked CE loss (no cache)
@@ -26,6 +26,7 @@ from repro_torch.types import ArchConfig
 
 from .attention import gqa_block
 from .layers import chunked_ce_loss, mlp_apply, rms_norm
+from .moe import moe_block
 from .rglru import rglru_block
 from .rwkv6 import rwkv_block
 from .schema import Param, leaf_dtype, map_schema
@@ -117,8 +118,6 @@ def _block_apply(kind, p, x, *, cfg, positions, mode, cache, pos):
         x, new_cache = rwkv_block(p, x, cfg=cfg, mode=mode, cache=cache)
         _store(cache, new_cache)
         return x, new_cache
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
     if kind == "rglru":
         x, new_cache = rglru_block(p, x, cfg=cfg, mode=mode, cache=cache)
         _store(cache, new_cache)
@@ -128,6 +127,8 @@ def _block_apply(kind, p, x, *, cfg, positions, mode, cache, pos):
                                  cache=cache, pos=pos, window=window)
     else:
         raise NotImplementedError(f"{cfg.name}: block kind {kind!r} is not ported yet")
+    if cfg.moe is not None:
+        return moe_block(p, x, cfg=cfg), new_cache  # the residual sum included
     mlp_p = {k[4:]: p[k] for k in ("mlp_wg", "mlp_wu", "mlp_wo") if k in p}
     x = x + mlp_apply(mlp_p, rms_norm(x, p["ln2"]), cfg.mlp_kind)
     return x, new_cache

@@ -7,8 +7,8 @@ made by either package feeds the other.  Initialization follows the same
 distributions (``fan_in``, ``normal``, ``zeros``, ``lru_lambda``), drawn from
 a ``torch.Generator``; it does not give the JAX package's bits.
 
-The port covers the dense GQA decoder, the RWKV6 block and the RG-LRU
-hybrid; other block kinds raise.
+The port covers the dense GQA decoder (gated or ungated MLP, or MoE), the
+RWKV6 block and the RG-LRU hybrid; MLA and encoder-only models raise.
 """
 from __future__ import annotations
 
@@ -51,13 +51,34 @@ def _attn_schema(cfg: ArchConfig):
     return s
 
 
-def _mlp_schema(cfg: ArchConfig):
-    d, f = cfg.d_model, cfg.d_ff
+def _mlp_schema(cfg: ArchConfig, d_ff=None, prefix="mlp_", ffn_axis="ffn"):
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
     s = {}
     if cfg._gated:
-        s["mlp_wg"] = Param((d, f), ("embed", "ffn"))
-    s["mlp_wu"] = Param((d, f), ("embed", "ffn"))
-    s["mlp_wo"] = Param((f, d), ("ffn", "embed"))
+        s[prefix + "wg"] = Param((d, f), ("embed", ffn_axis))
+    s[prefix + "wu"] = Param((d, f), ("embed", ffn_axis))
+    s[prefix + "wo"] = Param((f, d), (ffn_axis, "embed"))
+    return s
+
+
+def _moe_schema(cfg: ArchConfig):
+    """The MoE branch: its norm, an f32 router over the padded experts, the
+    stacked experts (E, D, f) and (E, f, D), and the shared experts with
+    their gate where the config has them."""
+    d, m = cfg.d_model, cfg.moe
+    ep = cfg.padded_experts
+    s = {
+        "ln2": Param((d,), ("embed",), "zeros"),
+        "router": Param((d, ep), ("embed", "experts"), dtype="float32"),
+    }
+    if cfg._gated:
+        s["we_g"] = Param((ep, d, m.d_expert), ("experts", "embed", "expert_ffn"))
+    s["we_u"] = Param((ep, d, m.d_expert), ("experts", "embed", "expert_ffn"))
+    s["we_o"] = Param((ep, m.d_expert, d), ("experts", "expert_ffn", "embed"))
+    if m.n_shared:
+        s.update(_mlp_schema(cfg, d_ff=m.d_shared, prefix="sh_", ffn_axis="shared_ffn"))
+        s["sh_gate"] = Param((d,), ("embed",))
     return s
 
 
@@ -121,9 +142,10 @@ def block_schema(cfg: ArchConfig, kind: str):
             f"{cfg.name}: block kind {kind!r} with attn_kind {cfg.attn_kind!r} "
             "is not ported yet")
     if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
-    s["ln2"] = Param((cfg.d_model,), ("embed",), "zeros")
-    s.update(_mlp_schema(cfg))
+        s.update(_moe_schema(cfg))
+    else:
+        s["ln2"] = Param((cfg.d_model,), ("embed",), "zeros")
+        s.update(_mlp_schema(cfg))
     return s
 
 
@@ -183,6 +205,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random parameters with the schema's distributions, made on ``device``.
 
     ``generator`` must live on the same device (``torch.Generator(device)``).
+    A normal or fan-in leaf is drawn straight into its dtype: ``normal_``
+    forms each value in f32 and rounds it once, as ``(randn * std).to(dtype)``
+    does, with no f32 temporary (qwen3-moe-30b-a3b's stacked ``we_u`` in f32
+    would be 38.7 GB).
     """
     dev = resolve_device(device)
 
@@ -195,9 +221,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             u = torch.rand(p.shape, generator=generator, dtype=torch.float32, device=dev)
             a8 = (0.9 + (0.999 - 0.9) * u) ** (1.0 / 8.0)
             return torch.log(a8 / (1 - a8)).to(dt)
-        z = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=dev)
         std = p.scale if p.init == "normal" else p.scale / (_fan_in(p) ** 0.5)
-        return (z * std).to(dt)
+        return torch.empty(p.shape, dtype=dt, device=dev).normal_(0.0, std, generator=generator)
 
     return map_schema(model_schema(cfg), make)
 

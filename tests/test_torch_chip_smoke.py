@@ -467,3 +467,114 @@ def test_scan_backward_cases_take_every_route():
     assert {r for r in routes.values()} == set(chip_smoke.scan_kernel.BWD_ROUTES)
     assert [k for k, r in routes.items() if r == "prefetch"] == [(100, torch.bfloat16)]
     assert routes[chip_smoke.SCAN_TRAIN_CASE[2], torch.float32] == "tma"
+
+
+def test_serve_launches_of_the_dense_siblings_and_moe_models():
+    """One flash launch a layer in prefill, on the tensor cores, none in
+    decode: yi-9b 48, minitron-4b 32, qwen2-moe-a2.7b 24, qwen3-moe-30b-a3b 48."""
+    want = {"yi-9b": 48, "minitron-4b": 32, "qwen2-moe-a2.7b": 24, "qwen3-moe-30b-a3b": 48}
+    for arch, n in want.items():
+        assert chip_smoke.SERVE_LAUNCHES[arch] == {**dict.fromkeys(chip_smoke.KERNELS, 0),
+                                                   "flash_attention_fwd": n}
+        assert chip_smoke.get_config(arch).n_layers == n
+        assert chip_smoke.SERVE_FLASH_ROUTES[arch] == {"wgmma": n, "simt": 0}
+        assert chip_smoke.SERVE_WKV_ROUTES[arch] == {"chunk": 0, "recurrent": 0}
+        assert chip_smoke.SERVE_PROMPT[arch] == 1024
+
+
+@pytest.mark.parametrize("arch, layers, fwd, bwd", [("minitron-4b", 26, 65, 26),
+                                                     ("yi-9b", 16, 46, 16)])
+def test_train_launches_at_the_cut_depths(arch, layers, fwd, bwd):
+    """At 26 layers in remat groups of 2, 3 x 26 - 13 forward launches and
+    26 backward; at 16 in groups of 8, 46 and 16; in bf16 all on the tensor
+    cores, every forward writing the lse."""
+    cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config(arch),
+                                         **chip_smoke.TRAIN_CUTS[arch])
+    assert cfg.n_layers == layers and chip_smoke.TRAIN_SHAPES[arch] == (2, 4096)
+    want = chip_smoke.want_train_launches(cfg, torch.bfloat16)
+    assert (want["flash_attention_fwd"], want["flash_attention_bwd"]) == (fwd, bwd)
+    assert want["flash_attention_fwd by route"] == {"wgmma": fwd, "simt": 0}
+    assert want["flash_attention_bwd by route"] == {"wgmma": bwd, "simt": 0}
+    assert want["flash_attention_fwd with lse"] == fwd
+
+
+def test_new_shapes_join_the_kernel_and_backward_cases():
+    """The prefill shapes of the new models (GQA groups of 8, 4 and 1) and
+    yi-9b's and minitron-4b's train shapes, forward and backward, on the
+    tensor cores in bf16; minitron's train shape with dout 0 on its 8
+    padded heads."""
+    new = (chip_smoke.YI_PREFILL, chip_smoke.MINITRON_PREFILL, chip_smoke.QWEN2_MOE_PREFILL,
+           chip_smoke.YI_TRAIN, chip_smoke.MINITRON_TRAIN)
+    assert [c[3] // c[4] for c in new] == [8, 4, 1, 8, 4]
+    for case in new:
+        assert case in chip_smoke.KERNEL_CASES and case in chip_smoke.BWD_CASES
+        assert chip_smoke.fa_kernel.route(torch.bfloat16, case[5], case[6]) == "wgmma"
+        assert fa_route(case) == "wgmma"
+    assert chip_smoke.BWD_REAL_HEADS[chip_smoke.MINITRON_TRAIN] == 24
+    assert len(set(chip_smoke.BWD_CASES)) == len(chip_smoke.BWD_CASES)
+    assert chip_smoke.FLASH_PATHS["yi-9b"] == chip_smoke.YI_PREFILL
+    assert chip_smoke.BWD_PATHS["yi-9b"][0] == chip_smoke.YI_TRAIN
+
+
+def test_bounds_at_yi_9b_shapes():
+    """4 x 8 x 32 x 128 x 524,800 FLOP at 989 TFLOP/s forward, 0.0696 ms;
+    the backward's five products over 2 x 32 x 4096 x 4097 / 2 pairs,
+    0.695 ms."""
+    fwd_ms, fwd_by, fwd_flops, _ = chip_smoke.attention_bound(chip_smoke.YI_PREFILL,
+                                                              torch.bfloat16)
+    assert fwd_flops == 4 * 8 * 32 * 128 * 524_800
+    assert fwd_by == "operations" and abs(fwd_ms - 0.0696) < 1e-4
+    bwd_ms, bwd_by, bwd_flops, _ = chip_smoke.bwd_bound(chip_smoke.YI_TRAIN, torch.bfloat16)
+    assert bwd_flops == 2 * (2 * 32 * 4096 * 4097 // 2) * 5 * 128
+    assert bwd_by == "operations" and abs(bwd_ms - 0.695) < 1e-3
+
+
+def _routing(probs_k, probs_p, top_k):
+    """Each path's probabilities (tokens x experts) and its own top-k."""
+    pk, pp = torch.tensor(probs_k), torch.tensor(probs_p)
+    return pp, torch.topk(pp, top_k).indices, pk, torch.topk(pk, top_k).indices
+
+
+def test_routing_differences_counts_near_ties():
+    """Token 1's second and third experts swap between the paths: the plain
+    path's gap there (0.002) is within the two experts' differences between
+    the paths (0.0015 + 0.0015); token 0 agrees."""
+    pp, ip, pk, ik = _routing([[0.5, 0.3, 0.2, 0.0], [0.4, 0.2995, 0.3005, 0.0]],
+                              [[0.5, 0.3, 0.2, 0.0], [0.4, 0.301, 0.299, 0.0]], 2)
+    n, worst = chip_smoke.routing_differences(pp, ip, pk, ik, 2)
+    assert n == 1 and worst == pytest.approx(0.002 / 0.003, rel=1e-4)
+    assert chip_smoke.routing_differences(pp, ip, pp, ip, 2) == (0, 0.0)
+
+
+def test_routing_differences_refuses_a_difference_that_is_no_tie():
+    """The plain path's second and third probabilities are 0.1 apart and
+    the paths' probabilities differ by 0.001: a kernel path that chose the
+    third expert made no near-tie."""
+    pp, ip = torch.tensor([[0.5, 0.25, 0.15, 0.1]]), torch.tensor([[0, 1]])
+    pk, ik = torch.tensor([[0.5, 0.249, 0.151, 0.1]]), torch.tensor([[0, 2]])
+    with pytest.raises(AssertionError, match="gap"):
+        chip_smoke.routing_differences(pp, ip, pk, ik, 2)
+
+
+@pytest.mark.parametrize("norm", [True, False])
+def test_router_replay_hands_the_plain_path_the_kernel_paths_experts(norm):
+    """The plain path's call gets the kernel path's expert ids, in its
+    order, and its own probabilities at them as gates (renormalised when the
+    config says so); a near-tie between the paths' choices is counted."""
+    moe_cfg = chip_smoke.get_config("qwen3-moe-30b-a3b").reduced().moe
+    moe_cfg = chip_smoke.dataclasses.replace(moe_cfg, n_experts=4, top_k=2,
+                                             router_norm_topk=norm)
+    router = torch.eye(4)
+    replay = chip_smoke.RouterReplay()
+    y_k = torch.tensor([[[2.0, 1.0001, 1.0, 0.0]]])
+    y_p = torch.tensor([[[2.0, 1.0, 1.0001, 0.0]]])
+    _, idx_k, _ = replay.record(y_k, {"router": router}, moe_cfg)
+    gates, idx, probs = replay.replay(y_p, {"router": router}, moe_cfg)
+    assert idx_k.tolist() == [[[0, 1]]] and torch.equal(idx, idx_k)
+    want = probs[..., [0, 1]]
+    if norm:
+        want = want / want.sum(-1, keepdim=True)
+    assert torch.allclose(gates, want)
+    assert replay.differ == [1] and replay.replayed == 1 and 0 < replay.worst <= 1
+    with pytest.raises(AssertionError, match="more often"):
+        replay.replay(y_p, {"router": router}, moe_cfg)

@@ -19,7 +19,7 @@ from repro.models import schema as jax_schema
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.models import lm
-from repro_torch.types import MoEConfig
+from repro_torch.types import MLAConfig
 
 NAME = "qwen3-1.7b"
 TOL = 2e-4
@@ -91,9 +91,17 @@ def test_init_params_follows_schema_distributions():
     assert torch.all(params["blocks"]["ln1"] == 0) and torch.all(params["final_norm"] == 0)
 
 
-def test_unported_blocks_raise():
-    cfg = dataclasses.replace(get_config(NAME).reduced(),
-                              moe=MoEConfig(n_experts=4, top_k=2, d_expert=32))
+# What the port does not run yet: MLA attention (minicpm3-4b) and an
+# encoder-only model (hubert-xlarge), each as the reduced widths give it.
+UNPORTED = {"mla": dict(attn_kind="mla", mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                                       qk_nope_dim=16, qk_rope_dim=8,
+                                                       v_head_dim=16)),
+            "encoder-only": dict(has_decoder=False, causal=False, mlp_kind="gelu")}
+
+
+@pytest.mark.parametrize("kind", sorted(UNPORTED))
+def test_unported_blocks_raise(kind):
+    cfg = dataclasses.replace(get_config(NAME).reduced(), **UNPORTED[kind])
     with pytest.raises(NotImplementedError):
         lm.model_schema(cfg)
 
