@@ -10,10 +10,10 @@ layers), rwkv6-7b (32 layers), recurrentgemma-2b (26 layers), yi-9b (48),
 minitron-4b (32), qwen2-moe-a2.7b (24) and qwen3-moe-30b-a3b (48) at their
 full published widths (bf16, random weights from a seed) through the
 port's entry point, trains qwen3-1.7b and recurrentgemma-2b at full width
-and depth, and minitron-4b and yi-9b at full width with fewer layers, for a
-few steps (AdamW, chunked cross-entropy, remat), checks that each serve and
-each train step went through its kernels, and times each kernel beside its
-bound.  Any failure raises, so the exit code is
+and depth, and minitron-4b, yi-9b and rwkv6-7b at full width with fewer
+layers, for a few steps (AdamW, chunked cross-entropy, remat), checks that
+each serve and each train step went through its kernels, and times each
+kernel beside its bound.  Any failure raises, so the exit code is
 not 0.  With no CUDA device, or away from the checkout, it exits non-zero
 and prints no result.  It imports nothing of JAX and nothing of ``repro``.
 
@@ -22,7 +22,10 @@ Standard output ends with a ``{"kernels": [...]}`` line and then the line
 
 With ``--tile-sweep`` it builds the kernels and runs tile_sweep and
 bwd_tile_sweep only: the per-tile (per-step) and fixed cost of the flash
-forward's and backward's tensor-core kernels.
+forward's and backward's tensor-core kernels.  With ``--wkv-grad-routes``
+it builds the kernels and runs wkv_grad_routes only: rwkv6-7b's train
+slice gradients by the route of the WKV forward, the evidence for
+``route(..., grad=True)``.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import ref as scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
 from repro_torch.models import attention, lm, moe, rglru, rwkv6  # noqa: E402
 from repro_torch.optim import adamw_update, init_train_state  # noqa: E402
@@ -165,6 +169,14 @@ WKV_CASES = [
     (1, 130, 4, 64, True, "edges"),
 ]
 WKV_DECODE_CASE, WKV_PREFILL_CASE = WKV_CASES[4], WKV_CASES[5]
+# The forward of a gradient (kernel.route(..., grad=True): the recurrent
+# route in both dtypes) at the shapes training gives it, the model's decay,
+# no s0: rwkv6-7b's train slice (2 x 200 tokens, TRAIN_SLICES) and its main
+# train path (2 x 4096, TRAIN_SHAPES), 64 heads of 64.
+WKV_GRAD_CASES = [
+    (2, 200, 64, 64, False, "model"),
+    (2, 4096, 64, 64, False, "model"),
+]
 # The steps where the edge case forces w: exactly 0, exactly 1, exp(-100)
 # (0 in bf16, below f32's normal range in f32): at a chunk's first and last
 # step, inside and at the edges of sub-chunks, and in the ragged last chunk.
@@ -256,14 +268,41 @@ SCAN_BWD_CASES = [
 SCAN_TRAIN_CASE = SCAN_BWD_CASES[-1]
 SCAN_BWD_REL_TOL = {torch.float32: 0.0, torch.bfloat16: 2**-7}
 
+# (B, T, H, D, random s0, a cotangent on s_last, decay): the WKV backward's
+# cases, decays as WKV_CASES: WKV_CASES' head dims 8, 16 and 32; at 64 a
+# ragged T (37 and 130 are not multiples of the kernel's checkpoint
+# interval, wkv_kernel.CHECKPOINT_STEPS) with and without s0 and ds_last;
+# T = 1; the edge decays of WKV_EDGE_STEPS (w exactly 0, exactly 1 and
+# exp(-100)); and rwkv6-7b's train shape (2 x 4096 tokens, 64 heads of 64)
+# at the model's decay, s0 and ds_last absent as in a train step.
+WKV_BWD_CASES = [
+    (1, 16, 2, 8, True, True, "sigmoid"),
+    (2, 64, 3, 16, True, True, "sigmoid"),
+    (1, 48, 4, 32, True, False, "sigmoid"),
+    (2, 37, 4, 64, True, True, "sigmoid"),
+    (2, 37, 4, 64, False, False, "sigmoid"),
+    (3, 1, 4, 64, True, True, "sigmoid"),
+    (1, 130, 4, 64, True, True, "edges"),
+    (2, 4096, 64, 64, False, False, "model"),
+]
+WKV_BWD_TRAIN_CASE = WKV_BWD_CASES[-1]
+# Tolerance on ||out - ref|| / ||ref|| of each gradient.  Both sides sum in
+# f32 from the same inputs and differ in the order of the sums only (1e-5,
+# the flash backward's f32 limit); in bf16 dr, dk, dv and dw are rounded once
+# to bf16 (2**-7), and du and ds0, in f32, as in f32.
+WKV_BWD_OUTPUTS = ("dr", "dk", "dv", "dw", "du", "ds0")
+WKV_BWD_REL_TOL = {torch.float32: dict.fromkeys(WKV_BWD_OUTPUTS, 1e-5),
+                   torch.bfloat16: {**dict.fromkeys(WKV_BWD_OUTPUTS[:4], 2**-7),
+                                    "du": 1e-5, "ds0": 1e-5}}
+
 # Each kernel by name, with the module whose function of the same name is
 # its wrapper and carries its launch counter, and the call that builds it.
 KERNELS = {"flash_attention_fwd": fa_kernel, "flash_attention_bwd": fa_kernel,
            "rwkv6_wkv_fwd": wkv_kernel, "rglru_scan_fwd": scan_kernel,
-           "rglru_scan_bwd": scan_kernel}
+           "rglru_scan_bwd": scan_kernel, "rwkv6_wkv_bwd": wkv_kernel}
 BUILDS = {"flash_attention_fwd": fa_kernel.build, "flash_attention_bwd": fa_kernel.build_bwd,
           "rwkv6_wkv_fwd": wkv_kernel.build, "rglru_scan_fwd": scan_kernel.build,
-          "rglru_scan_bwd": scan_kernel.build_bwd}
+          "rglru_scan_bwd": scan_kernel.build_bwd, "rwkv6_wkv_bwd": wkv_kernel.build_bwd}
 # How the profiler names the kernels' device functions (a template with its
 # return type first, a plain function such as wkv_fwd_chunk without).
 PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
@@ -277,7 +316,10 @@ PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
                        "(anonymous namespace)::wkv_fwd_chunk(",
                        "void (anonymous namespace)::rglru_fwd<",
                        "void (anonymous namespace)::rglru_bwd_tma<",
-                       "void (anonymous namespace)::rglru_bwd<")
+                       "void (anonymous namespace)::rglru_bwd<",
+                       "void (anonymous namespace)::wkv_bwd_fwd<",
+                       "void (anonymous namespace)::wkv_bwd_rev<",
+                       "void (anonymous namespace)::wkv_bwd_du<")
 
 
 def log(msg):
@@ -342,6 +384,10 @@ def read_wkv_routes() -> dict:
 
 def read_scan_bwd_routes() -> dict:
     return dict(scan_kernel.rglru_scan_bwd.launches_by_route)
+
+
+def read_wkv_bwd_routes() -> dict:
+    return dict(wkv_kernel.rwkv6_wkv_bwd.launches_by_route)
 
 
 def rel_err(out, ref) -> float:
@@ -420,10 +466,13 @@ def phase_build():
             raise AssertionError(f"build: ptxas compiled {seen} {WGMMA_SYMBOL} kernels in "
                                  f"{name} (expected {want}); faults: {faults}")
         log(f"[build] {name}: {seen} {WGMMA_SYMBOL} kernels, no spill, no serialized wgmma")
-    # the scan's backward (both paths), the WKV chunk route, and the SIMT
-    # backward at 256 (f32 only: bf16 takes the tensor cores there)
+    # the scan's backward (both paths), the WKV chunk route, the SIMT
+    # backward at 256 (f32 only: bf16 takes the tensor cores there), and the
+    # WKV backward's kernels (each keeps a row or column of the state in
+    # registers)
     for name, pattern in (("rglru_scan_bwd", "rglru_bwd"), ("rwkv6_wkv_fwd", "wkv_fwd_chunk"),
-                          ("flash_attention_bwd", r"attn_bwd_(dkdv|dq)I.*Li256ELi256E")):
+                          ("flash_attention_bwd", r"attn_bwd_(dkdv|dq)I.*Li256ELi256E"),
+                          ("rwkv6_wkv_bwd", "wkv_bwd")):
         seen, spills = spilling_entries(builds[name].log, pattern)
         if not seen or spills:
             raise AssertionError(f"build: {name}: {seen} kernels match {pattern!r}; spills: "
@@ -558,18 +607,22 @@ def wkv_bound(case, dtype):
 def phase_wkv_cases():
     """Each case in f32 and bf16: the WKV kernel against its plain version.
     Each case's kernel call must add exactly one to launches_by_route, on the
-    route kernel.route() names, and the plain call none."""
+    route kernel.route() names, and the plain call none.  WKV_CASES as a
+    serve launches them, WKV_GRAD_CASES as the forward of a gradient
+    (grad=True), each held alike."""
     worst, by_route = {}, {}
-    for n, case in enumerate(WKV_CASES):
+    cases = ([(1000 + n, case, False) for n, case in enumerate(WKV_CASES)]
+             + [(1100 + n, case, True) for n, case in enumerate(WKV_GRAD_CASES)])
+    for seed, case, grad in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            args = wkv_inputs(case, dtype, seed=1000 + n)
-            route = wkv_kernel.route(dtype, case[3], case[1])
+            args = wkv_inputs(case, dtype, seed=seed)
+            route = wkv_kernel.route(dtype, case[3], case[1], grad)
             before = read_wkv_routes()
-            outs = dict(zip(("y", "s_last"), wkv_kernel.rwkv6_wkv_fwd(*args)))
+            outs = dict(zip(("y", "s_last"), wkv_kernel.rwkv6_wkv_fwd(*args, grad=grad)))
             mid = read_wkv_routes()
             refs = dict(zip(("y", "s_last"), wkv_ref.rwkv6_reference(*args)))
             torch.cuda.synchronize()
-            name = dtype_name(dtype)
+            name = dtype_name(dtype) + (", the forward of a gradient" if grad else "")
             want = {r: before[r] + (r == route) for r in before}
             if (mid, read_wkv_routes()) != (want, want):
                 raise AssertionError(f"wkv case {case} {name}: launches by route {before} "
@@ -595,9 +648,9 @@ def phase_wkv_cases():
                                          f"max_abs_err {err} > {abs_tol}")
                 if rel > tol:
                     raise AssertionError(f"wkv case {case} {name} {what}: rel_err {rel} > {tol}")
-                worst[name] = max(worst.get(name, 0.0), err)
+                worst[dtype_name(dtype)] = max(worst.get(dtype_name(dtype), 0.0), err)
                 by_route[route, what] = max(by_route.get((route, what), 0.0), rel)
-    log(f"[wkv] largest error over {len(WKV_CASES)} cases: "
+    log(f"[wkv] largest error over {len(cases)} cases: "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + "; largest rel_err by route: "
         + ", ".join(f"{r} {w} {v:.3e}" for (r, w), v in by_route.items()))
     return worst
@@ -748,6 +801,69 @@ def phase_scan_bwd_cases():
     return worst
 
 
+def wkv_bwd_inputs(case, dtype, seed):
+    """r, k, v, w, u and s0 of a WKV backward case (wkv_inputs), the
+    cotangent dy ~ N(0,1) in ``dtype`` and ds_last ~ N(0,1)*0.1 (f32) or
+    None."""
+    B, T, H, D, with_s0, with_ds, decay = case
+    r, k, v, w, u, s0 = wkv_inputs((B, T, H, D, with_s0, decay), dtype, seed)
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    dy = torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype)
+    ds_last = torch.randn((B, H, D, D), generator=g, device="cuda") * 0.1 if with_ds else None
+    return r, k, v, w, u, s0, dy, ds_last
+
+
+def phase_wkv_bwd_cases():
+    """Each WKV backward case in f32 and bf16: the backward kernel's dr, dk,
+    dv, dw, du and ds0 against its plain version on the same inputs, within
+    WKV_BWD_REL_TOL.  Each case's kernel call must add exactly one to its
+    launch counter and to launches_by_route, and the plain call none; a
+    second kernel call must give the same gradients to the bit."""
+    kernel = wkv_kernel.rwkv6_wkv_bwd
+    worst = {}
+    for n, case in enumerate(WKV_BWD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = wkv_bwd_inputs(case, dtype, seed=6000 + n)
+            before, routes_before = kernel.launches, read_wkv_bwd_routes()
+            outs = kernel(*args)
+            mid, routes_mid = kernel.launches, read_wkv_bwd_routes()
+            refs = wkv_ref.rwkv6_wkv_bwd_reference(*args)
+            after = kernel.launches
+            repeat = kernel(*args)
+            torch.cuda.synchronize()
+            name = dtype_name(dtype)
+            want = {r: routes_before[r] + (r == "recurrent") for r in routes_before}
+            if (mid - before, after - mid, routes_mid) != (1, 0, want):
+                raise AssertionError(f"wkv bwd case {case} {name}: the kernel call launched "
+                                     f"{mid - before} times ({routes_before} by route before "
+                                     f"it, {routes_mid} after) and the plain call "
+                                     f"{after - mid}, expected one recurrent launch and none")
+            if any(not torch.equal(a, b) for a, b in zip(outs, repeat)):
+                raise AssertionError(f"wkv bwd case {case} {name}: a second call gave other "
+                                     "values")
+            for what, out, ref in zip(WKV_BWD_OUTPUTS, outs, refs):
+                want = torch.float32 if what in ("du", "ds0") else dtype
+                if out.shape != ref.shape or out.dtype != want:
+                    raise AssertionError(f"wkv bwd case {case} {name} {what}: "
+                                         f"{tuple(out.shape)} {out.dtype}")
+                if not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"wkv bwd case {case} {name} {what}: non-finite")
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = rel_err(out, ref)
+                tol = WKV_BWD_REL_TOL[dtype][what]
+                log(f"[wkv-bwd] {case} {name} {what}: max_abs_err {err:.3e}, rel_err {rel:.3e} "
+                    f"(tol {tol:.3e}), max |ref| {ref.float().abs().max().item():.3f}; launches: "
+                    "kernel call 1, plain call 0; a second call equal to the bit")
+                if rel > tol:
+                    raise AssertionError(f"wkv bwd case {case} {name} {what}: rel_err {rel} > "
+                                         f"{tol}")
+                worst[name] = max(worst.get(name, 0.0), err)
+            del outs, refs, repeat, args
+    log(f"[wkv-bwd] largest error over {len(WKV_BWD_CASES)} cases: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
 def _slice_run(params, cfg, prompts, follow):
     """One path of the slice, with the launches of each part.  First a
     train-mode forward over the prompts: the final hidden state at every
@@ -771,12 +887,13 @@ def _slice_run(params, cfg, prompts, follow):
             dict(cache_leaves(cache["layers"])))
 
 
-def wkv_routes(cfg, dtype, tokens, n_multi, n_single):
+def wkv_routes(cfg, dtype, tokens, n_multi, n_single, grad=False):
     """WKV launches by route: n_multi over ``tokens`` steps each (a prefill
-    or a train-mode forward) and n_single of one step (decode steps)."""
+    or a train-mode forward) and n_single of one step (decode steps); with
+    ``grad``, each the forward of a gradient (a train step's)."""
     out = dict.fromkeys(wkv_kernel.ROUTES, 0)
-    out[wkv_kernel.route(dtype, cfg.rwkv_head_dim, tokens)] += n_multi
-    out[wkv_kernel.route(dtype, cfg.rwkv_head_dim, 1)] += n_single
+    out[wkv_kernel.route(dtype, cfg.rwkv_head_dim, tokens, grad)] += n_multi
+    out[wkv_kernel.route(dtype, cfg.rwkv_head_dim, 1, grad)] += n_single
     return out
 
 
@@ -1090,8 +1207,14 @@ def phase_autograd_wiring():
     bit.  The scan likewise in f32 and bf16, with h0 and a cotangent on
     h_last: rglru_scan's h and h_last have a grad_fn, one forward and one
     backward launch, and the gradients of a, b and h0 equal the backward
-    kernel's own.  The WKV entry point, which has no backward kernel yet,
-    raises."""
+    kernel's own.  WKV as the scan, in f32 and bf16, with s0 and a cotangent
+    on s_last: rwkv6_wkv's y and s_last have a grad_fn, one forward launch
+    on the route kernel.route(..., grad=True) names (recurrent) and one
+    backward launch, and the gradients of r, k, v, w, u and s0 equal the
+    backward kernel's own; under no_grad the same inputs take the serving
+    route (route(), chunk in bf16) once, with no backward and no grad_fn,
+    and y equals the serving kernel's own.  The WKV forward kernel called
+    directly refuses inputs that require grad."""
     for dtype, case in AUTOGRAD_CASES.items():
         q, k, v, _, dout, _ = bwd_inputs(case, dtype, seed=99)
         leaf = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -1136,33 +1259,77 @@ def phase_autograd_wiring():
                 not torch.equal(x, y) for x, y in zip(grads, want)):
             raise AssertionError(f"autograd scan {dtype_name(dtype)}: the output or gradients "
                                  "differ from the kernels' own")
-    refused = []
-    wkv_args = wkv_inputs(WKV_CASES[0], torch.float32, seed=98)
-    wkv_args[0] = wkv_args[0].clone().requires_grad_(True)
+    for dtype in (torch.float32, torch.bfloat16):
+        case = (2, 37, 4, 64, True, True, "sigmoid")
+        r, k, v, w, u, s0, dy, ds_last = wkv_bwd_inputs(case, dtype, seed=95)
+        leaf = [t.clone().requires_grad_(True) for t in (r, k, v, w, u, s0)]
+        reset_launches()
+        y, s_last = rwkv6.rwkv6_wkv(*leaf)
+        if y.grad_fn is None or s_last.grad_fn is None:
+            raise AssertionError("autograd: rwkv6_wkv's outputs on the card have no grad_fn")
+        grads = torch.autograd.grad((y, s_last), leaf, (dy, ds_last))
+        counts, routes, bwd_routes = read_launches(), read_wkv_routes(), read_wkv_bwd_routes()
+        y_kernel, _ = wkv_kernel.rwkv6_wkv_fwd(r, k, v, w, u, s0, grad=True)
+        want = wkv_kernel.rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds_last)
+        route = wkv_kernel.route(dtype, case[3], case[1], grad=True)
+        if (counts["rwkv6_wkv_fwd"], routes[route], counts["rwkv6_wkv_bwd"],
+                bwd_routes["recurrent"]) != (1, 1, 1, 1):
+            raise AssertionError(f"autograd wkv {dtype_name(dtype)}: launches {counts}, forward "
+                                 f"by route {routes}, backward by route {bwd_routes}; expected "
+                                 f"one {route} forward and one backward")
+        if not torch.equal(y.detach(), y_kernel) or any(
+                not torch.equal(x, z) for x, z in zip(grads, want)):
+            raise AssertionError(f"autograd wkv {dtype_name(dtype)}: the output or gradients "
+                                 "differ from the kernels' own")
+        # the same inputs, still requiring grad, with grad mode off (a prefill
+        # or an eval on a trainer's parameters): the serving route, no grad_fn
+        served = wkv_kernel.route(dtype, case[3], case[1])
+        reset_launches()
+        with torch.no_grad():
+            y_served, s_served = rwkv6.rwkv6_wkv(*leaf)
+        counts, routes = read_launches(), read_wkv_routes()
+        if (counts["rwkv6_wkv_fwd"], routes[served], counts["rwkv6_wkv_bwd"]) != (1, 1, 0) or (
+                y_served.grad_fn is not None or s_served.grad_fn is not None):
+            raise AssertionError(f"autograd wkv {dtype_name(dtype)} under no_grad: launches "
+                                 f"{counts}, by route {routes}, grad_fn {y_served.grad_fn}; "
+                                 f"expected one {served} forward, no backward, no grad_fn")
+        if not torch.equal(y_served, wkv_kernel.rwkv6_wkv_fwd(r, k, v, w, u, s0)[0]):
+            raise AssertionError(f"autograd wkv {dtype_name(dtype)} under no_grad: the output "
+                                 "differs from the serving kernel's own")
     try:
-        rwkv6.rwkv6_wkv(*wkv_args)
+        wkv_kernel.rwkv6_wkv_fwd(*leaf)
     except NotImplementedError:
-        refused.append("rwkv6_wkv")
-    if refused != ["rwkv6_wkv"]:
-        raise AssertionError(f"autograd: only {refused} refused inputs that require grad")
+        pass
+    else:
+        raise AssertionError("autograd: rwkv6_wkv_fwd called directly took inputs that "
+                             "require grad")
     log("[autograd] flash_attention on the card, f32 (simt) and bf16 (wgmma): grad_fn, 1 "
         "forward launch with lse and 1 backward launch, output and gradients equal to the "
         "kernels' own; rglru_scan, f32 and bf16, h0 and a cotangent on h_last: grad_fn, 1 "
         "forward and 1 backward launch, gradients of a, b and h0 equal to the kernel's own; "
-        "rwkv6_wkv refuses inputs that require grad")
+        "rwkv6_wkv likewise, s0 and a cotangent on s_last: grad_fn, 1 forward launch "
+        "(recurrent, as route(..., grad=True) names in both dtypes) and 1 backward launch, "
+        "gradients of r, k, v, w, u "
+        "and s0 equal to the kernel's own, and under no_grad one launch on the serving route "
+        "(chunk in bf16) and no grad_fn; rwkv6_wkv_fwd called directly refuses inputs that "
+        "require grad")
 
 
-# One train step with remat "full" launches the forward kernel 3L - L/k
-# times (k layers a checkpointed group, each layer checkpointed inside it:
-# PyTorch's nested non-reentrant checkpoints run a layer's forward in the
-# step's forward, in its group's recompute and in its own, and the group's
-# recompute serves the last layer of the group) and the backward kernel L
-# times, L the attention layers.
-def train_launches(n_layers, remat_group=8):
+# One train step of a uniform stack with remat "full" launches its layers'
+# forward kernel 3L - L/k times (k layers a checkpointed group, each layer
+# checkpointed inside it: PyTorch's nested non-reentrant checkpoints run a
+# layer's forward in the step's forward, in its group's recompute and in its
+# own, and the group's recompute serves the last layer of the group) and
+# the backward kernel L times, L the layers.  STACK_KERNELS: the forward and
+# backward kernel of a uniform stack's layer kind.
+STACK_KERNELS = {"attn": ("flash_attention_fwd", "flash_attention_bwd"),
+                 "rwkv": ("rwkv6_wkv_fwd", "rwkv6_wkv_bwd")}
+
+
+def train_launches(n_layers, remat_group=8, kernels=STACK_KERNELS["attn"]):
     k = next(g for g in (remat_group, 4, 2, 1) if n_layers % g == 0)
-    return {**dict.fromkeys(KERNELS, 0),
-            "flash_attention_fwd": 3 * n_layers - n_layers // k,
-            "flash_attention_bwd": n_layers}
+    fwd, bwd = kernels
+    return {**dict.fromkeys(KERNELS, 0), fwd: 3 * n_layers - n_layers // k, bwd: n_layers}
 
 
 def hybrid_train_launches(cfg):
@@ -1184,6 +1351,9 @@ def hybrid_train_launches(cfg):
 # differentiates.  recurrentgemma: layers rglru, rglru, attn_local, rglru at
 # a 128-token window under 256 tokens, so the windowed backward runs.
 # yi-9b and minitron-4b (32 padded heads over 8 kv heads) as qwen3.
+# rwkv6-7b at 2 layers, 2 x 200 tokens: the backward's chunks
+# (wkv_kernel.CHECKPOINT_STEPS steps) cross boundaries, its forward on the
+# recurrent route, as every forward of a gradient (wkv_kernel.route).
 TRAIN_SLICES = [
     ("qwen3-1.7b", {"n_layers": 2}, 2, 64,
      [(attention, "flash_attention", fa_ops.chunked_attention)]),
@@ -1191,7 +1361,9 @@ TRAIN_SLICES = [
      [(attention, "flash_attention", fa_ops.chunked_attention),
       (rglru, "rglru_scan", scan_ref.rglru_reference)]),
 ] + [(arch, {"n_layers": 2}, 2, 64, [(attention, "flash_attention", fa_ops.chunked_attention)])
-     for arch in ("yi-9b", "minitron-4b")]
+     for arch in ("yi-9b", "minitron-4b")] + [
+    ("rwkv6-7b", {"n_layers": 2}, 2, 200, [(rwkv6, "rwkv6_wkv", wkv_ref.rwkv6_reference)]),
+]
 # The dtypes each train slice runs in, with the tolerance of each: f32 and
 # bf16, but minitron-4b in bf16 only.  Its f32 slice failed the f32 master
 # hold on its zero-initialised ln2 (rel_err 1.62e-4 against 1e-4), whose
@@ -1200,7 +1372,11 @@ TRAIN_SLICES = [
 # own relative error, which the leaf's norm does not bound (the reason the
 # hold was dropped in bf16), while first_step_excess held every element and
 # every f32 gradient leaf agreed within 1.2e-6 (PERF.md §6, ROADMAP C4).
-TRAIN_SLICE_DTYPES = {"minitron-4b": SLICE_DTYPES[1:]}
+# rwkv6-7b in bf16 only too: its block holds seven zero-initialised leaves
+# (ln1, tm_mu_x, tm_mus, ln_x, ln2, cm_mu_k, cm_mu_r;
+# src/repro_torch/models/schema.py:109-126), each exposed to that f32 master
+# hold as minitron's ln2 was (ROADMAP C4, open).
+TRAIN_SLICE_DTYPES = {"minitron-4b": SLICE_DTYPES[1:], "rwkv6-7b": SLICE_DTYPES[1:]}
 TRAIN_CE_CHUNK = 512
 # adamw_update's eps, which make_train_step leaves at its default.
 ADAM_EPS = inspect.signature(adamw_update).parameters["eps"].default
@@ -1208,26 +1384,39 @@ ADAM_EPS = inspect.signature(adamw_update).parameters["eps"].default
 
 def read_train_launches() -> dict:
     """The launches of each kernel, the flash kernels' by route and with lse,
-    and the scan backward's by route."""
+    the scan backward's by route, and both WKV kernels' by route."""
     return {**read_launches(), "flash_attention_fwd by route": read_flash_routes(),
             "flash_attention_fwd with lse": fa_kernel.flash_attention_fwd.lse_launches,
             "flash_attention_bwd by route": read_bwd_routes(),
-            "rglru_scan_bwd by route": read_scan_bwd_routes()}
+            "rglru_scan_bwd by route": read_scan_bwd_routes(),
+            "rwkv6_wkv_fwd by route": read_wkv_routes(),
+            "rwkv6_wkv_bwd by route": read_wkv_bwd_routes()}
 
 
-def want_train_launches(cfg, dtype):
-    """read_train_launches() of a train step (or a gradient) of cfg in dtype,
-    remat "full": each flash kernel's launches all on its route, every
-    forward launch writing the lse (its inputs require grad), and every scan
-    backward on the TMA route (the model's a, h and dh are whole allocations,
-    and a row of the model's width fills 16-byte lines in either dtype)."""
-    want = train_launches(cfg.n_layers) if cfg.uniform_blocks else hybrid_train_launches(cfg)
+def want_train_launches(cfg, dtype, seq=None):
+    """read_train_launches() of a train step (or a gradient) of cfg in dtype
+    over sequences of ``seq`` tokens, remat "full": a uniform stack's
+    kernels by its layer kind (STACK_KERNELS), each flash kernel's launches
+    all on its route, every forward launch writing the lse (its inputs
+    require grad), every scan backward on the TMA route (the model's a, h
+    and dh are whole allocations, and a row of the model's width fills
+    16-byte lines in either dtype), and every WKV forward on the route
+    wkv_kernel.route() names for the forward of a gradient over ``seq``
+    steps (recurrent)."""
+    if cfg.uniform_blocks:
+        want = train_launches(cfg.n_layers, kernels=STACK_KERNELS[cfg.layer_kinds()[0]])
+    else:
+        want = hybrid_train_launches(cfg)
     by_route = {}
     for name, backward in (("flash_attention_fwd", False), ("flash_attention_bwd", True)):
         route = fa_kernel.route(dtype, cfg.head_dim, cfg.head_dim, backward=backward)
         by_route[f"{name} by route"] = {r: want[name] * (r == route) for r in fa_kernel.ROUTES}
     by_route["rglru_scan_bwd by route"] = {r: want["rglru_scan_bwd"] * (r == "tma")
                                            for r in scan_kernel.BWD_ROUTES}
+    n_wkv = want["rwkv6_wkv_fwd"]
+    by_route["rwkv6_wkv_fwd by route"] = (wkv_routes(cfg, dtype, seq, n_wkv, 0, grad=True)
+                                          if n_wkv else dict.fromkeys(wkv_kernel.ROUTES, 0))
+    by_route["rwkv6_wkv_bwd by route"] = {"recurrent": want["rwkv6_wkv_bwd"]}
     return {**want, **by_route, "flash_attention_fwd with lse": want["flash_attention_fwd"]}
 
 
@@ -1237,7 +1426,9 @@ def no_train_launches():
             "flash_attention_fwd by route": dict.fromkeys(fa_kernel.ROUTES, 0),
             "flash_attention_fwd with lse": 0,
             "flash_attention_bwd by route": dict.fromkeys(fa_kernel.ROUTES, 0),
-            "rglru_scan_bwd by route": dict.fromkeys(scan_kernel.BWD_ROUTES, 0)}
+            "rglru_scan_bwd by route": dict.fromkeys(scan_kernel.BWD_ROUTES, 0),
+            "rwkv6_wkv_fwd by route": dict.fromkeys(wkv_kernel.ROUTES, 0),
+            "rwkv6_wkv_bwd by route": dict.fromkeys(wkv_kernel.BWD_ROUTES, 0)}
 
 
 def to_host(tree):
@@ -1354,7 +1545,8 @@ def phase_train_slice():
     kernel path want_train_launches(cfg, dtype) in each part (qwen3: 5
     forward, each writing the lse, and 2 backward, all on the dtype's route:
     SIMT in f32, tensor cores in bf16; recurrentgemma: 2 forward and 1
-    backward, on the dtype's route, 6 scan forward and 3 scan backward), the
+    backward, on the dtype's route, 6 scan forward and 3 scan backward;
+    rwkv6-7b: 5 WKV forward on the recurrent route and 2 WKV backward), the
     plain path none.
     """
     none = no_train_launches()
@@ -1366,7 +1558,8 @@ def phase_train_slice():
         what_cut = ", ".join(f"{k} {v}" for k, v in cut.items())
         for dtype, tol in TRAIN_SLICE_DTYPES.get(arch, SLICE_DTYPES):
             label = f"{arch} full width, {what_cut}, {batch_size}x{seq} tokens, {dtype_name(dtype)}"
-            want = want_train_launches(cfg, dtype)
+            t0 = time.perf_counter()
+            want = want_train_launches(cfg, dtype, seq)
 
             def params():
                 return lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype, "cuda")
@@ -1429,7 +1622,7 @@ def phase_train_slice():
                 f"slack {largest:.3e}, held <= 1)"
                 + (f", and every master leaf within {tol}" if dtype == torch.float32 else
                    f"; gradient sign flips (count, largest |g| over the leaf's largest): "
-                   f"{flipped or 'none'}"))
+                   f"{flipped or 'none'}") + f"; {time.perf_counter() - t0:.1f} s")
             del kernel, plain
             torch.cuda.empty_cache()
 
@@ -1437,13 +1630,15 @@ def phase_train_slice():
 # Each main train path at full width: batch x tokens a step.  qwen3-1.7b
 # takes 8 x 1024; recurrentgemma-2b, minitron-4b and yi-9b the reference's
 # train_4k sequence of 4096 tokens with its global batch of 256 cut to 2 for
-# one card.  TRAIN_CUTS: the layers a model trains at where its full depth
-# does not fit one card (at 16 bytes a parameter, bf16 weight and gradient
-# and f32 master, mu and nu, minitron-4b's 4.39e9 parameters take 70 GB
-# before the CE head's f32 copy and activations; yi-9b's 8.83e9, 141 GB).
+# one card, and rwkv6-7b likewise.  TRAIN_CUTS: the layers a model trains
+# at where its full depth does not fit one card (at 16 bytes a parameter,
+# bf16 weight and gradient and f32 master, mu and nu, minitron-4b's 4.39e9
+# parameters take 70 GB before the CE head's f32 copy and activations;
+# yi-9b's 8.83e9, 141 GB; rwkv6-7b's 7.58e9, 121 GB).
 TRAIN_SHAPES = {"qwen3-1.7b": (8, 1024), "recurrentgemma-2b": (2, 4096),
-                "minitron-4b": (2, 4096), "yi-9b": (2, 4096)}
-TRAIN_CUTS = {"minitron-4b": {"n_layers": 26}, "yi-9b": {"n_layers": 16}}
+                "minitron-4b": (2, 4096), "yi-9b": (2, 4096), "rwkv6-7b": (2, 4096)}
+TRAIN_CUTS = {"minitron-4b": {"n_layers": 26}, "yi-9b": {"n_layers": 16},
+              "rwkv6-7b": {"n_layers": 14}}
 TRAIN_STEPS = 3
 
 
@@ -1463,8 +1658,9 @@ def phase_train(arch):
     backward, all wgmma; recurrentgemma-2b 16 forward, all wgmma and each
     writing the lse, 8 backward, all wgmma, 36 scan forward and 18 scan
     backward; minitron-4b at 26 layers 65 forward and 26 backward, yi-9b at
-    16 layers 46 and 16, as qwen3's); then one more step under the
-    profiler."""
+    16 layers 46 and 16, as qwen3's; rwkv6-7b at 14 layers, in remat groups
+    of 2, 35 WKV forward, all on the recurrent route, and 14 WKV backward);
+    then one more step under the profiler."""
     cfg = dataclasses.replace(get_config(arch), **TRAIN_CUTS.get(arch, {}))
     batch_size, seq = TRAIN_SHAPES[arch]
     params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda")
@@ -1475,7 +1671,7 @@ def phase_train(arch):
     state, metrics = step_fn(state, train_batch(data, 0, batch_size))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    want = want_train_launches(cfg, torch.bfloat16)
+    want = want_train_launches(cfg, torch.bfloat16, seq)
     times, launches, losses = [], [], []
     for i in range(1, 1 + TRAIN_STEPS):
         batch = train_batch(data, i, batch_size)
@@ -2038,6 +2234,56 @@ def phase_scan_bwd_timings():
     return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by)
 
 
+def wkv_bwd_bound(case, dtype):
+    """Least time on the card for the WKV backward: r, k, v, w and dy read
+    once (u, and s0 and ds_last when given), dr, dk, dv and dw written once,
+    du and ds0 (f32); 14 D^2 + 8 D FLOP a (b, h, t) at the f32 rate outside
+    the tensor cores, where the kernel does them (the state's walk and the
+    gradient's, 3 D^2 each: a product and an fma an element; dr, dk, dv and
+    dw, 2 D^2 each; v . dy, u r . k and du's term, 8 D).  The larger of the
+    two."""
+    B, T, H, D, with_s0, with_ds, _ = case
+    item = torch.finfo(dtype).bits // 8
+    state = 4 * B * H * D * D
+    nbytes = (item * 9 * B * T * H * D + 2 * 4 * H * D
+              + state * (1 + with_s0 + with_ds))
+    flops = (14 * D * D + 8 * D) * B * T * H
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def phase_wkv_bwd_timings():
+    """The WKV backward kernel and its plain version at rwkv6-7b's train
+    shape (WKV_BWD_TRAIN_CASE: 2 x 4096 tokens, 64 heads of 64), bf16, s0
+    and ds_last None as in a train step, in turns by CUDA events around
+    back-to-back calls, beside the forward a train step runs there (the
+    recurrent route) and the chunk route; the plain version, about 2 s a
+    call (a step at a time from the host), by one timed call after a
+    warm-up; then the backward's device time a call (device_ms).  No single
+    PyTorch call computes the recurrence's gradient, so there is no library
+    time."""
+    args = wkv_bwd_inputs(WKV_BWD_TRAIN_CASE, torch.bfloat16, seed=656)
+    ms, times = in_turns({
+        "kernel": (lambda: wkv_kernel.rwkv6_wkv_bwd(*args), 10),
+        "forward, recurrent": (lambda: wkv_kernel.rwkv6_wkv_fwd(*args[:6], grad=True), 10),
+        "forward, chunk": (lambda: wkv_kernel.rwkv6_wkv_fwd(*args[:6]), 10),
+    })
+    ms["plain"] = time_ms(lambda: wkv_ref.rwkv6_wkv_bwd_reference(*args), 1)
+    dev, dev_times = in_turns({"kernel": (lambda: wkv_kernel.rwkv6_wkv_bwd(*args), 10)},
+                              device_ms)
+    bound_ms, bound_by, flops, nbytes = wkv_bwd_bound(WKV_BWD_TRAIN_CASE, torch.bfloat16)
+    log(f"[timings] rwkv6_wkv_bwd at r, k, v, w, dy {tuple(args[0].shape)} bf16, s0 and ds_last "
+        f"None, median of 4, CUDA events: kernel {ms['kernel']:.4f} ms (device time a call "
+        f"{dev['kernel']:.4f}); plain {ms['plain']:.4f} ms (one call); bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({flops:.3e} FLOP, {nbytes} bytes); the forward a train step runs "
+        f"there (recurrent, route(..., grad=True)) {ms['forward, recurrent']:.4f} ms, the "
+        f"chunk route {ms['forward, chunk']:.4f} ms")
+    log(f"[timings] all runs (ms): {json.dumps(times)}; device time: {json.dumps(dev_times)}")
+    return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
+                device_ms=dev["kernel"], train_forward_ms=ms["forward, recurrent"],
+                chunk_forward_ms=ms["forward, chunk"])
+
+
 # Kv tile rows of the flash kernel's tensor-core route at each head dim, and
 # the kv tiles an item that tile_sweep times.
 WGMMA_BK = {128: 128, 256: 64}
@@ -2111,14 +2357,72 @@ def bwd_tile_sweep():
             f"{json.dumps(bwd_device_ms(case))}")
 
 
+def wkv_grad_routes():
+    """The evidence for a train step's WKV forward on the recurrent route
+    (wkv_kernel.route(..., grad=True)), reproducible by --wkv-grad-routes:
+    rwkv6-7b's train slice (TRAIN_SLICES: 2 layers at full width, 2 x 200
+    tokens), the gradients of loss_fn with the WKV forward launched on the
+    chunk route (bf16 only), on the recurrent route, or by the plain
+    version, each with the backward kernel, against the plain path's (torch
+    differentiating the plain version): each leaf's rel_err, the largest
+    named.  Twice: at the slice's own seeds (weights 0, tokens 4) and at a
+    second pair (1, 5)."""
+    arch, cut, batch_size, seq, patches = next(s for s in TRAIN_SLICES if s[0] == "rwkv6-7b")
+    cfg = dataclasses.replace(get_config(arch), **cut)
+
+    def on_route(rt):
+        def fwd(r, k, v, w, u, s0=None, grad=False):
+            wkv_kernel._check(r, k, v, w, u, s0)
+            return wkv_kernel.launch(rt, r, k, v, w, u, s0)
+        return fwd
+    forwards = {"chunk": on_route("chunk"), "recurrent": on_route("recurrent"),
+                "plain": lambda r, k, v, w, u, s0=None, grad=False: wkv_ref.rwkv6_reference(
+                    r, k, v, w, u, s0)}
+    for weights_seed, tokens_seed in ((0, 4), (1, 5)):
+        g = torch.Generator("cuda").manual_seed(tokens_seed)
+        toks = torch.randint(0, cfg.vocab, (batch_size, seq + 1), generator=g, device="cuda")
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        for dtype in (torch.bfloat16, torch.float32):
+            def grads():
+                params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(weights_seed),
+                                        dtype, "cuda")
+                weights = leaves(params)
+                for w in weights:
+                    w.requires_grad_(True)
+                loss, _ = lm.loss_fn(params, cfg, batch, remat="full", ce_chunk=TRAIN_CE_CHUNK)
+                return dict(zip(paths(params), torch.autograd.grad(loss, weights)))
+            with contextlib.ExitStack() as stack:
+                for module, attr, plain in patches:
+                    stack.enter_context(mock.patch.object(module, attr, plain))
+                want = grads()
+            for name, fwd in forwards.items():
+                if name == "chunk" and dtype != torch.bfloat16:
+                    continue  # the chunk route takes bf16 only
+                with mock.patch.object(wkv_ops, "rwkv6_wkv_fwd", fwd):
+                    got = grads()
+                rels = {p: rel_err(got[p], want[p]) for p in want}
+                worst, tol = max(rels, key=rels.get), dict(SLICE_DTYPES)[dtype]
+                log(f"[grad-routes] {arch} at {cut['n_layers']} layers, {batch_size}x{seq} "
+                    f"tokens, seeds {weights_seed} (weights) and {tokens_seed} (tokens), "
+                    f"{dtype_name(dtype)}, WKV forward {name}, backward kernel: gradients "
+                    f"against the plain path's, largest rel_err {rels[worst]:.4e} ({worst}), "
+                    f"{sum(r > tol for r in rels.values())} of {len(rels)} leaves above the "
+                    f"slice's {tol}; "
+                    f"every leaf: {json.dumps({p: round(r, 6) for p, r in rels.items()})}")
+                del got
+            del want
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
     sweep = sys.argv[1:] == ["--tile-sweep"]
-    if sys.argv[1:] and not sweep:
-        print(f"usage: {sys.argv[0]} [--tile-sweep]", file=sys.stderr)
+    routes = sys.argv[1:] == ["--wkv-grad-routes"]
+    if sys.argv[1:] and not (sweep or routes):
+        print(f"usage: {sys.argv[0]} [--tile-sweep | --wkv-grad-routes]", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2128,39 +2432,52 @@ def main() -> int:
     log(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
 
-    phase_build()
-    if sweep:
-        tile_sweep()
-        bwd_tile_sweep()
+    seconds = {}  # each phase's wall time, by name
+
+    def run(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = round(seconds.get(name, 0.0) + time.perf_counter() - t0, 1)
+        return out
+
+    run("build", phase_build)
+    if sweep or routes:
+        if sweep:
+            tile_sweep()
+            bwd_tile_sweep()
+        else:
+            wkv_grad_routes()
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
-    fa_worst = phase_kernel_cases()
-    bwd_worst = phase_bwd_cases()
-    phase_autograd_wiring()
-    wkv_worst = phase_wkv_cases()
-    scan_worst = phase_scan_cases()
-    scan_bwd_worst = phase_scan_bwd_cases()
-    phase_slice()
-    phase_train_slice()
+    fa_worst = run("kernel cases", phase_kernel_cases)
+    bwd_worst = run("bwd cases", phase_bwd_cases)
+    run("autograd wiring", phase_autograd_wiring)
+    wkv_worst = run("wkv cases", phase_wkv_cases)
+    scan_worst = run("scan cases", phase_scan_cases)
+    scan_bwd_worst = run("scan bwd cases", phase_scan_bwd_cases)
+    wkv_bwd_worst = run("wkv bwd cases", phase_wkv_bwd_cases)
+    run("slices", phase_slice)
+    run("train slices", phase_train_slice)
     by_path, routes_by_path, wkv_routes_by_path = {}, {}, {}
     for arch in SERVE_LAUNCHES:
         (params, cfg, prompts, by_path[arch], routes_by_path[arch],
-         wkv_routes_by_path[arch]) = phase_serve(arch)
-        phase_profile(params, cfg, prompts)
+         wkv_routes_by_path[arch]) = run(f"serve {arch}", phase_serve, arch)
+        run(f"serve {arch}", phase_profile, params, cfg, prompts)
         del params  # free one model's weights before the next
         torch.cuda.empty_cache()
     train = {}
     for arch in TRAIN_SHAPES:  # one model's weights and state at a time
-        train[arch] = phase_train(arch)
+        train[arch] = run(f"train {arch}", phase_train, arch)
         torch.cuda.empty_cache()
-    fa_t = phase_timings()
-    bwd_t = phase_bwd_timings()
-    wkv_t = phase_wkv_timings()
-    scan_t = phase_scan_timings()
-    scan_bwd_t = phase_scan_bwd_timings()
+    fa_t = run("timings", phase_timings)
+    bwd_t = run("timings", phase_bwd_timings)
+    wkv_t = run("timings", phase_wkv_timings)
+    scan_t = run("timings", phase_scan_timings)
+    scan_bwd_t = run("timings", phase_scan_bwd_timings)
+    wkv_bwd_t = run("timings", phase_wkv_bwd_timings)
     log(f"[timings] device_ms: {DEVICE_MS_TALLY['measurements']} measurements in "
         f"{DEVICE_MS_TALLY['runs']} timed runs")
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; by phase (s): {json.dumps(seconds)}")
 
     def launches(kernel, timed=None):
         """Each serve's launches of kernel, with timed[model] where given."""
@@ -2201,6 +2518,10 @@ def main() -> int:
     wkv_launches, wkv_by_path = launches("rwkv6_wkv_fwd")
     for entry in wkv_by_path:
         entry["launches_by_route"] = wkv_routes_by_path[entry["model"]]
+    n_train, wkv_train = train_paths("rwkv6_wkv_fwd")
+    wkv_launches += n_train
+    wkv_by_path += wkv_train
+    wkv_bwd_launches, wkv_bwd_by_path = train_paths("rwkv6_wkv_bwd", {"rwkv6-7b": wkv_bwd_t})
     scan_launches, scan_by_path = launches("rglru_scan_fwd")
     n_train, scan_train = train_paths("rglru_scan_fwd")
     scan_launches += n_train
@@ -2281,6 +2602,23 @@ def main() -> int:
         "max_abs_err": max(scan_bwd_worst.values()),
         "max_abs_err_by_dtype": scan_bwd_worst,
         **scan_bwd_t,
+        "library_ms": None,
+    }, {
+        "name": "rwkv6_wkv_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd.cu",
+        "sources": {r: "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd.cu"
+                    for r in wkv_kernel.BWD_ROUTES},
+        "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:47 (forward only: the Pallas "
+                    "kernel has no backward; jax.grad differentiates the plain recurrence, "
+                    "src/repro/kernels/rwkv6_wkv/ref.py:14)",
+        "launches": wkv_bwd_launches,
+        "launches_by_route": {r: sum(e["launches_by_route"][r] for e in wkv_bwd_by_path)
+                              for r in wkv_kernel.BWD_ROUTES},
+        "by_path": wkv_bwd_by_path,
+        "max_abs_err": max(wkv_bwd_worst.values()),
+        "max_abs_err_by_dtype": wkv_bwd_worst,
+        **wkv_bwd_t,
         "library_ms": None,
     }]}))
     print(nvidia_smi())

@@ -1,23 +1,30 @@
-"""Wrapper of the hand-written CUDA kernels for the RWKV6 WKV recurrence.
+"""Wrappers of the hand-written CUDA kernels for the RWKV6 WKV recurrence,
+forward and backward.
 
-The kernels replace the Pallas TPU kernel
+The forward kernels replace the Pallas TPU kernel
 ``repro/kernels/rwkv6_wkv/kernel.py::rwkv6_wkv_kernel``.  They are built with
 ``nvcc`` into one shared library with a plain C interface at first use and
 called through ``ctypes`` on PyTorch's current stream.  The library exports
 one entry point a route, and ``route()`` below, the rule's only copy, picks
 it:
 
-* ``"chunk"``: bf16 at head dim 64 (rwkv6-7b's) for T >= 2, the prefill, in
-  chunks of 64 steps on the tensor cores (``csrc/rwkv6_wkv_fwd_sm90.cu``:
-  wgmma, mma.sync, TMA);
+* ``"chunk"``: bf16 at head dim 64 (rwkv6-7b's) for T >= 2 with no gradient
+  to take, the prefill, in chunks of 64 steps on the tensor cores
+  (``csrc/rwkv6_wkv_fwd_sm90.cu``: wgmma, mma.sync, TMA);
 * ``"recurrent"``: everything else, a step at a time in f32 on the CUDA
   cores (``csrc/rwkv6_wkv_fwd.cu``): T = 1 (every decode step), f32 at every
   head dim (its callers hold it to 1e-5 of the plain version), bf16 at head
-  dims 8, 16 and 32.
+  dims 8, 16 and 32, and the forward of a gradient (training), which rounds
+  y once from its f32 sums, as the plain version does.
 
-Neither route falls back to the other.  This wrapper takes CUDA tensors only
-and raises on anything the kernels do not take; the CPU's plain version is
-``ref.rwkv6_reference``.
+Neither route falls back to the other.  The backward (``csrc/rwkv6_wkv_bwd.cu``,
+a library of its own, one route: ``"recurrent"``) is the forward's gradient,
+which the Pallas kernel does not have (on the TPU ``jax.grad`` differentiates
+the plain recurrence).  The forward wrapper called directly refuses inputs
+that require grad; ``ops.rwkv6_wkv`` (``RWKV6WKV``) runs both kernels.  These
+wrappers take CUDA tensors only and raise on anything the kernels do not
+take; the CPU's plain versions are ``ref.rwkv6_reference`` and
+``ref.rwkv6_wkv_bwd_reference``.
 """
 from __future__ import annotations
 
@@ -31,21 +38,36 @@ from ..build import Built, build_shared_library
 
 _CSRC = Path(__file__).parent / "csrc"
 SOURCES = [_CSRC / "rwkv6_wkv_fwd.cu", _CSRC / "rwkv6_wkv_fwd_sm90.cu"]
+BWD_SOURCES = [_CSRC / "rwkv6_wkv_bwd.cu"]
 # Head sizes the recurrent kernel is instantiated for; keep in step with the .cu.
 HEAD_DIMS = frozenset({8, 16, 32, 64})
 # The route rule: bf16 at these head dims runs in chunks when T >= CHUNK_MIN_T.
 CHUNK_HEAD_DIMS = frozenset({64})
 CHUNK_MIN_T = 2
 ROUTES = ("chunk", "recurrent")
+BWD_ROUTES = ("recurrent",)
+# Steps between the backward's checkpoints of the state (kC in the .cu, which
+# rwkv6_wkv_bwd_checkpoint_steps() returns; the wrapper sizes the scratch by it).
+CHECKPOINT_STEPS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 
 
-def route(dtype, D: int, T: int) -> str:
+def route(dtype, D: int, T: int, grad: bool = False) -> str:
     """The kernel a launch goes to: ``"chunk"`` for bf16 at CHUNK_HEAD_DIMS
-    with T >= CHUNK_MIN_T, else ``"recurrent"``.  The wrapper calls the entry
-    point it names; nothing else decides."""
-    chunk = dtype == torch.bfloat16 and D in CHUNK_HEAD_DIMS and T >= CHUNK_MIN_T
+    with T >= CHUNK_MIN_T when ``grad`` is false, else ``"recurrent"``.
+    ``grad``: the launch is the forward of a gradient (``RWKV6WKV`` in grad
+    mode with an input that requires grad, ``ops.rwkv6_wkv_cuda``), which
+    the backward kernel differentiates as the exact f32 recurrence; the
+    recurrent route rounds y once from that recurrence's sums, where the
+    chunk route's further bf16 roundings (of r . P, of S_c, of the decayed
+    r and k, of A) moved the bf16 gradients of rwkv6-7b's 2-layer train
+    slice on the H100 by 2.2e-2 and, at a second seed, 1.2e-1 from the
+    plain path's, beyond the slice's 2e-2, and the recurrent route's by
+    1.0e-2 (PERF.md).  The wrapper calls the entry point it names; nothing
+    else decides."""
+    chunk = (dtype == torch.bfloat16 and D in CHUNK_HEAD_DIMS and T >= CHUNK_MIN_T
+             and not grad)
     return "chunk" if chunk else "recurrent"
 
 
@@ -53,6 +75,12 @@ def build() -> Built:
     """Compile both routes, one library, from the sources in this checkout
     (cached by hash)."""
     return build_shared_library("rwkv6_wkv_fwd", SOURCES)
+
+
+def build_bwd() -> Built:
+    """Compile the backward kernels, a library of their own, from the
+    sources in this checkout (cached by hash)."""
+    return build_shared_library("rwkv6_wkv_bwd", BWD_SOURCES)
 
 
 @functools.cache
@@ -70,67 +98,95 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_tensor(name, t, device):
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_bwd().path))
+    lib.rwkv6_wkv_bwd.argtypes = (
+        [ctypes.c_void_p] * 17     # r, k, v, w, u, s0 (may be null), dy, ds_last (may be
+                                   # null), dr, dk, dv, dw, du, ds0, ck, vdy, du_part
+        + [ctypes.c_int] * 5       # dtype, B, T, H, D
+        + [ctypes.c_void_p])       # stream
+    lib.rwkv6_wkv_bwd.restype = ctypes.c_int
+    lib.rwkv6_wkv_bwd_checkpoint_steps.restype = ctypes.c_int
+    lib.rwkv6_wkv_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.rwkv6_wkv_bwd_error_string.restype = ctypes.c_char_p
+    steps = lib.rwkv6_wkv_bwd_checkpoint_steps()
+    if steps != CHECKPOINT_STEPS:
+        raise RuntimeError(f"rwkv6_wkv_bwd: the library checkpoints every {steps} steps, "
+                           f"the wrapper sizes its scratch for {CHECKPOINT_STEPS}")
+    return lib
+
+
+def _check_tensor(who, name, t, device):
     if t.device.type != "cuda":
-        raise ValueError(f"rwkv6_wkv_fwd: {name} is on {t.device}, not a CUDA device")
+        raise ValueError(f"{who}: {name} is on {t.device}, not a CUDA device")
     if t.device != device:
-        raise ValueError(f"rwkv6_wkv_fwd: {name} is on {t.device}, r on {device}")
+        raise ValueError(f"{who}: {name} is on {t.device}, r on {device}")
     if not t.is_contiguous():
-        raise ValueError(f"rwkv6_wkv_fwd: {name} must be contiguous")
+        raise ValueError(f"{who}: {name} must be contiguous")
 
 
-def _check(r, k, v, w, u, s0):
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
-        _check_tensor(name, t, r.device)
+def _check_inputs(who, r, like_r, states, u):
+    """r (B, T, H, D), f32 or bf16, and each tensor of ``like_r`` ({name:
+    tensor}) alike, on one CUDA device, contiguous; u f32 (H, D) there; each
+    of ``states`` ({name: tensor or None}) f32 (B, H, D, D) there, or None."""
+    for name, t in (("r", r), *like_r.items()):
+        _check_tensor(who, name, t, r.device)
         if t.dtype != r.dtype:
-            raise TypeError(f"rwkv6_wkv_fwd: {name} is {t.dtype}, r is {r.dtype}")
+            raise TypeError(f"{who}: {name} is {t.dtype}, r is {r.dtype}")
         if t.shape != r.shape:
-            raise ValueError(f"rwkv6_wkv_fwd: {name} has shape {tuple(t.shape)}, "
-                             f"r {tuple(r.shape)}")
+            raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, r {tuple(r.shape)}")
     if r.dim() != 4:
-        raise ValueError(f"rwkv6_wkv_fwd: r must be 4-D (B, T, H, D), got {tuple(r.shape)}")
+        raise ValueError(f"{who}: r must be 4-D (B, T, H, D), got {tuple(r.shape)}")
     if r.dtype not in _DTYPE_CODE:
-        raise TypeError(f"rwkv6_wkv_fwd: dtype {r.dtype} not supported "
-                        "(float32 or bfloat16)")
+        raise TypeError(f"{who}: dtype {r.dtype} not supported (float32 or bfloat16)")
     B, T, H, D = r.shape
     if min(B, T, H) < 1 or max(B, T, H) > _INT32_MAX:
-        raise ValueError(f"rwkv6_wkv_fwd: B, T and H must lie in [1, 2**31), "
-                         f"got {(B, T, H)}")
+        raise ValueError(f"{who}: B, T and H must lie in [1, 2**31), got {(B, T, H)}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"rwkv6_wkv_fwd: head dim {D} not supported; "
-                         f"supported: {sorted(HEAD_DIMS)}")
-    _check_tensor("u", u, r.device)
+        raise ValueError(f"{who}: head dim {D} not supported; supported: {sorted(HEAD_DIMS)}")
+    _check_tensor(who, "u", u, r.device)
     if u.dtype != torch.float32 or u.shape != (H, D):
-        raise ValueError(f"rwkv6_wkv_fwd: u must be float32 of shape {(H, D)}, "
+        raise ValueError(f"{who}: u must be float32 of shape {(H, D)}, "
                          f"got {u.dtype} {tuple(u.shape)}")
-    if s0 is not None:
-        _check_tensor("s0", s0, r.device)
-        if s0.dtype != torch.float32 or s0.shape != (B, H, D, D):
-            raise ValueError(f"rwkv6_wkv_fwd: s0 must be float32 of shape {(B, H, D, D)}, "
-                             f"got {s0.dtype} {tuple(s0.shape)}")
-    if route(r.dtype, D, T) == "chunk":
+    for name, t in states.items():
+        if t is None:
+            continue
+        _check_tensor(who, name, t, r.device)
+        if t.dtype != torch.float32 or t.shape != (B, H, D, D):
+            raise ValueError(f"{who}: {name} must be float32 of shape {(B, H, D, D)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+
+
+def _check(r, k, v, w, u, s0, grad=False):
+    _check_inputs("rwkv6_wkv_fwd", r, {"k": k, "v": v, "w": w}, {"s0": s0}, u)
+    D, T = r.shape[3], r.shape[1]
+    if route(r.dtype, D, T, grad) == "chunk":
         for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
             if t.data_ptr() % 16:
                 raise ValueError(f"rwkv6_wkv_fwd: {name} must start on a 16-byte boundary "
                                  "for the chunk route (TMA)")
 
 
-def rwkv6_wkv_fwd(r, k, v, w, u, s0=None):
+def rwkv6_wkv_fwd(r, k, v, w, u, s0=None, grad=False):
     """Launch the kernel that ``route()`` names.  r/k/v/w: (B, T, H, D), f32
-    or bf16; u: (H, D) f32; s0: (B, H, D, D) f32, or None for a zero state.
+    or bf16; u: (H, D) f32; s0: (B, H, D, D) f32, or None for a zero state;
+    grad: the launch is the forward of a gradient (``route()``).
 
     Returns (y (B, T, H, D) in r.dtype, s_last (B, H, D, D) f32).  Adds one to
     ``rwkv6_wkv_fwd.launches`` and to
     ``rwkv6_wkv_fwd.launches_by_route[route(...)]`` for each launch.  Raises
-    NotImplementedError when grad mode is on and an input requires grad: the
-    kernels have no backward yet, and their output would silently carry none.
+    NotImplementedError when grad mode is on and an input requires grad: its
+    output would silently carry no gradient; ``ops.rwkv6_wkv`` (``RWKV6WKV``)
+    gives one.
     """
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (r, k, v, w, u, s0)):
-        raise NotImplementedError("rwkv6_wkv_fwd: the WKV kernel has no backward yet "
-                                  "(ROADMAP.md B4); its output would carry no gradient")
-    _check(r, k, v, w, u, s0)
-    return launch(route(r.dtype, r.shape[3], r.shape[1]), r, k, v, w, u, s0)
+        raise NotImplementedError("rwkv6_wkv_fwd: called directly on inputs that require "
+                                  "grad, its output would carry no gradient; call "
+                                  "ops.rwkv6_wkv, whose RWKV6WKV runs the backward kernel")
+    _check(r, k, v, w, u, s0, grad)
+    return launch(route(r.dtype, r.shape[3], r.shape[1], grad), r, k, v, w, u, s0)
 
 
 def launch(rt, r, k, v, w, u, s0):
@@ -156,10 +212,53 @@ def launch(rt, r, k, v, w, u, s0):
     return y, s_last
 
 
+def rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds_last=None):
+    """Launch the backward kernels.  r, k, v, w, u, s0: as ``rwkv6_wkv_fwd``
+    was given them (s0 None for a zero state); dy: the gradient of y, in r's
+    shape and dtype; ds_last: the gradient of s_last, (B, H, D, D) f32, or
+    None for zero.
+
+    Returns (dr, dk, dv, dw) in r's dtype and shape, du (H, D) f32 and ds0
+    (B, H, D, D) f32 (see ``ref.rwkv6_wkv_bwd_reference``).  Allocates the
+    checkpoints of the state, B H ceil(T / CHECKPOINT_STEPS) D^2 f32, for the
+    call.  Adds one to ``rwkv6_wkv_bwd.launches`` and to
+    ``rwkv6_wkv_bwd.launches_by_route["recurrent"]`` for each launch.
+    """
+    who = "rwkv6_wkv_bwd"
+    _check_inputs(who, r, {"k": k, "v": v, "w": w, "dy": dy}, {"s0": s0, "ds_last": ds_last},
+                  u)
+    B, T, H, D = r.shape
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    f32 = dict(dtype=torch.float32, device=r.device)
+    du = torch.empty((H, D), **f32)
+    ds0 = torch.empty((B, H, D, D), **f32)
+    n_chunks = -(-T // CHECKPOINT_STEPS)
+    ck = torch.empty((B * H * n_chunks * D * D,), **f32)
+    vdy = torch.empty((B * H * T,), **f32)
+    du_part = torch.empty((B * H * D,), **f32)
+    lib = _bwd_library()
+    with torch.cuda.device(r.device):
+        err = lib.rwkv6_wkv_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            None if s0 is None else s0.data_ptr(), dy.data_ptr(),
+            None if ds_last is None else ds_last.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), ck.data_ptr(),
+            vdy.data_ptr(), du_part.data_ptr(), _DTYPE_CODE[r.dtype], B, T, H, D,
+            torch.cuda.current_stream(r.device).cuda_stream)
+    if err != 0:
+        msg = lib.rwkv6_wkv_bwd_error_string(err).decode()
+        raise RuntimeError(f"{who}: launch failed with CUDA error {err}: {msg}")
+    rwkv6_wkv_bwd.launches += 1
+    rwkv6_wkv_bwd.launches_by_route["recurrent"] += 1
+    return dr, dk, dv, dw, du, ds0
+
+
 def reset_launches():
     """Set the launch counters to 0."""
     rwkv6_wkv_fwd.launches = 0
     rwkv6_wkv_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+    rwkv6_wkv_bwd.launches = 0
+    rwkv6_wkv_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
 reset_launches()

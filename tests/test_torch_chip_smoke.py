@@ -1,6 +1,7 @@
 """The checks of chip_smoke.py that need no GPU: the build's ptxas check on the
 flash kernel's tensor-core route, device_ms's check that the card ran the
 timed calls back to back, and the profiler's per-launch average."""
+import inspect
 import math
 import re
 import sys
@@ -276,7 +277,7 @@ def test_hybrid_train_launches_at_full_depth():
     want = chip_smoke.want_train_launches(cfg, torch.bfloat16)
     assert {k: want[k] for k in chip_smoke.KERNELS} == {
         "flash_attention_fwd": 16, "flash_attention_bwd": 8, "rwkv6_wkv_fwd": 0,
-        "rglru_scan_fwd": 36, "rglru_scan_bwd": 18}
+        "rglru_scan_fwd": 36, "rglru_scan_bwd": 18, "rwkv6_wkv_bwd": 0}
     assert want["flash_attention_fwd by route"] == {"wgmma": 16, "simt": 0}
     assert want["flash_attention_bwd by route"] == {"wgmma": 8, "simt": 0}
     assert want["flash_attention_fwd with lse"] == 16
@@ -385,6 +386,21 @@ def test_wkv_cases_hold_every_route_and_the_new_edges():
     assert all(route(torch.float32, c[3], c[1]) == "recurrent" for c in chip_smoke.WKV_CASES)
     assert chip_smoke.WKV_DECODE_CASE[1] == 1 and chip_smoke.WKV_PREFILL_CASE[:4] == (
         8, 1024, 64, 64)
+
+
+def test_wkv_grad_cases_are_the_shapes_training_gives_the_recurrent_route():
+    """The forward of a gradient is held against the plain version at the
+    train slice's shape and the main train path's, on the recurrent route
+    in both dtypes."""
+    arch, cut, batch, seq, _ = next(s for s in chip_smoke.TRAIN_SLICES if s[0] == "rwkv6-7b")
+    cfg = chip_smoke.get_config(arch)
+    heads = (cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim)
+    want = {(batch, seq, *heads), (*chip_smoke.TRAIN_SHAPES[arch], *heads)}
+    assert {c[:4] for c in chip_smoke.WKV_GRAD_CASES} == want
+    assert all(c[4:] == (False, "model") for c in chip_smoke.WKV_GRAD_CASES)
+    route = chip_smoke.wkv_kernel.route
+    assert all(route(dtype, c[3], c[1], grad=True) == "recurrent"
+               for c in chip_smoke.WKV_GRAD_CASES for dtype in (torch.float32, torch.bfloat16))
 
 
 def test_wkv_edge_case_forces_zero_one_and_deep_decays_inside_its_steps():
@@ -578,3 +594,128 @@ def test_router_replay_hands_the_plain_path_the_kernel_paths_experts(norm):
     assert replay.differ == [1] and replay.replayed == 1 and 0 < replay.worst <= 1
     with pytest.raises(AssertionError, match="more often"):
         replay.replay(y_p, {"router": router}, moe_cfg)
+
+
+def test_kernels_line_lists_six_kernels_with_the_wkv_backward():
+    """KERNELS and BUILDS name the six kernels, and main's kernels line has
+    one entry for each, the WKV backward's from its own source."""
+    names = list(chip_smoke.KERNELS)
+    assert len(names) == 6 and names[-1] == "rwkv6_wkv_bwd"
+    assert list(chip_smoke.BUILDS) == names
+    assert chip_smoke.BUILDS["rwkv6_wkv_bwd"] == chip_smoke.wkv_kernel.build_bwd
+    src = inspect.getsource(chip_smoke.main)
+    assert sorted(re.findall(r'"name": "(\w+)"', src)) == sorted(names)
+    assert '"source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd.cu"' in src
+    assert (Path(chip_smoke.__file__).parent / "src/repro_torch/kernels/rwkv6_wkv/csrc/"
+            "rwkv6_wkv_bwd.cu").is_file()
+
+
+def test_rwkv6_train_slice_runs_bf16_at_two_layers():
+    """2 layers at full width, 2 x 200 tokens, bf16 only (ROADMAP C4), the
+    WKV entry point swapped for the plain version on the plain path; its
+    launches 5 forward, on the recurrent route as every forward of a
+    gradient, and 2 backward in each part."""
+    arch, cut, batch, seq, patches = next(s for s in chip_smoke.TRAIN_SLICES
+                                          if s[0] == "rwkv6-7b")
+    assert (cut, batch, seq) == ({"n_layers": 2}, 2, 200) and seq % 64
+    assert patches == [(chip_smoke.rwkv6, "rwkv6_wkv", chip_smoke.wkv_ref.rwkv6_reference)]
+    assert chip_smoke.TRAIN_SLICE_DTYPES["rwkv6-7b"] == ((torch.bfloat16, 2e-2),)
+    cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config(arch), **cut)
+    want = chip_smoke.want_train_launches(cfg, torch.bfloat16, seq)
+    assert {k: want[k] for k in chip_smoke.KERNELS} == {
+        **dict.fromkeys(chip_smoke.KERNELS, 0), "rwkv6_wkv_fwd": 5, "rwkv6_wkv_bwd": 2}
+    assert want["rwkv6_wkv_fwd by route"] == {"chunk": 0, "recurrent": 5}
+    assert want["rwkv6_wkv_bwd by route"] == {"recurrent": 2}
+    assert want["flash_attention_fwd with lse"] == 0
+
+
+def test_rwkv6_train_launches_at_the_cut_depth():
+    """At the cut depth, 14 layers in remat groups of 2, 3 n - n / 2 WKV
+    forward launches, all on the recurrent route (the forward of a
+    gradient), and n backward; no flash and no scan."""
+    cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config("rwkv6-7b"),
+                                         **chip_smoke.TRAIN_CUTS["rwkv6-7b"])
+    n = cfg.n_layers
+    k = next(g for g in (8, 4, 2, 1) if n % g == 0)
+    assert (n, k) == (14, 2)
+    assert chip_smoke.TRAIN_SHAPES["rwkv6-7b"] == (2, 4096)
+    want = chip_smoke.want_train_launches(cfg, torch.bfloat16, 4096)
+    assert {name: want[name] for name in chip_smoke.KERNELS} == {
+        **dict.fromkeys(chip_smoke.KERNELS, 0), "rwkv6_wkv_fwd": 3 * n - n // k,
+        "rwkv6_wkv_bwd": n}
+    assert want["rwkv6_wkv_fwd by route"] == {"chunk": 0, "recurrent": 3 * n - n // k}
+    assert want["rwkv6_wkv_bwd by route"] == {"recurrent": n}
+    assert chip_smoke.train_launches(n, kernels=chip_smoke.STACK_KERNELS["rwkv"]) == {
+        name: want[name] for name in chip_smoke.KERNELS}
+
+
+def test_train_launches_of_the_other_models_show_no_wkv():
+    """The other train paths' tables read both WKV kernels' launches by
+    route too, all 0; a run that launched nothing reads all 0."""
+    for arch in ("qwen3-1.7b", "recurrentgemma-2b", "yi-9b"):
+        want = chip_smoke.want_train_launches(chip_smoke.get_config(arch), torch.bfloat16, 64)
+        assert want["rwkv6_wkv_fwd by route"] == {"chunk": 0, "recurrent": 0}
+        assert want["rwkv6_wkv_bwd by route"] == {"recurrent": 0}
+        assert want["rwkv6_wkv_bwd"] == 0
+    none = chip_smoke.no_train_launches()
+    assert none.keys() == want.keys()
+    assert none["rwkv6_wkv_bwd by route"] == {"recurrent": 0}
+
+
+def test_wkv_backward_cases_cover_dims_raggedness_edges_and_the_train_shape():
+    cases = chip_smoke.WKV_BWD_CASES
+    C = chip_smoke.wkv_kernel.CHECKPOINT_STEPS
+    assert {c[3] for c in cases} == {8, 16, 32, 64}
+    assert any(c[1] % C and c[1] > C and c[3] == 64 for c in cases)
+    assert any(c[1] == 1 for c in cases)
+    assert {(c[4], c[5]) for c in cases if c[3] == 64} >= {(True, True), (False, False)}
+    edge = next(c for c in cases if c[6] == "edges")
+    assert all(any(t < edge[1] for t in ts) for ts in chip_smoke.WKV_EDGE_STEPS.values())
+    assert chip_smoke.WKV_BWD_TRAIN_CASE == (2, 4096, 64, 64, False, False, "model")
+    assert chip_smoke.WKV_BWD_REL_TOL[torch.float32] == dict.fromkeys(
+        chip_smoke.WKV_BWD_OUTPUTS, 1e-5)
+    assert chip_smoke.WKV_BWD_REL_TOL[torch.bfloat16] == {
+        "dr": 2**-7, "dk": 2**-7, "dv": 2**-7, "dw": 2**-7, "du": 1e-5, "ds0": 1e-5}
+
+
+def test_wkv_backward_bound_at_the_train_shape():
+    """r, k, v, w and dy read and dr, dk, dv, dw written in bf16 (9 x 67.1
+    MB), u and du, ds0 in f32: 606 MB, 0.181 ms at 3.35 TB/s; 14 D^2 + 8 D
+    FLOP a (b, h, t), 3.03e10, 0.4527 ms at 67 TFLOP/s, the larger."""
+    bound_ms, bound_by, flops, nbytes = chip_smoke.wkv_bwd_bound(
+        chip_smoke.WKV_BWD_TRAIN_CASE, torch.bfloat16)
+    B, T, H, D = 2, 4096, 64, 64
+    assert nbytes == 2 * 9 * B * T * H * D + 8 * H * D + 4 * B * H * D * D
+    assert flops == (14 * D * D + 8 * D) * B * T * H
+    assert bound_by == "operations" and abs(bound_ms - 0.4527) < 1e-4
+
+
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::wkv_bwd_fwd<__nv_bfloat16, 64>((anonymous namespace)::Params)",
+    "void (anonymous namespace)::wkv_bwd_rev<float, 64>((anonymous namespace)::Params)",
+    "void (anonymous namespace)::wkv_bwd_du<64>(float const*, float*, int, int)"])
+def test_profiler_names_of_the_wkv_backward_kernels_are_the_ports(name):
+    assert name.startswith(chip_smoke.PORT_KERNEL_SYMBOLS)
+
+
+def test_spill_check_finds_the_wkv_backward_kernels():
+    rev = "_ZN49_GLOBAL__N__5d1c3e2a_16_rwkv6_wkv_bwd_cu_1a2b3c4d11wkv_bwd_revI13__nv_bfloat16Li64EEEvNS_6ParamsE"
+    fwd = "_ZN49_GLOBAL__N__5d1c3e2a_16_rwkv6_wkv_bwd_cu_1a2b3c4d11wkv_bwd_fwdIfLi64EEEvNS_6ParamsE"
+    assert chip_smoke.spilling_entries(_log(_entry(rev), _entry(fwd)), "wkv_bwd") == (2, [])
+    seen, spills = chip_smoke.spilling_entries(_log(_entry(rev, 8, 8), _entry(fwd)), "wkv_bwd")
+    assert seen == 2 and len(spills) == 1 and spills[0].startswith(rev)
+
+
+def test_forward_of_a_gradient_takes_the_recurrent_route():
+    """A train step's WKV forward (route(..., grad=True)) is recurrent in
+    both dtypes at every length; without a gradient bf16 at head dim 64 and
+    T >= 2 stays on the chunk route, as the serve paths count it."""
+    route = chip_smoke.wkv_kernel.route
+    for dtype in (torch.float32, torch.bfloat16):
+        for T in (1, 2, 200, 4096):
+            assert route(dtype, 64, T, grad=True) == "recurrent"
+    assert route(torch.bfloat16, 64, 4096) == "chunk"
+    cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config("rwkv6-7b"), n_layers=2)
+    assert chip_smoke.wkv_routes(cfg, torch.bfloat16, 200, 5, 0, grad=True) == {
+        "chunk": 0, "recurrent": 5}
+    assert chip_smoke.wkv_routes(cfg, torch.bfloat16, 200, 5, 0) == {"chunk": 5, "recurrent": 0}

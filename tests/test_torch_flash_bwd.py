@@ -563,13 +563,13 @@ def _scan_args(requires_grad):
 
 
 @pytest.mark.parametrize("wrapper, make, match", [
-    (wkv_kernel.rwkv6_wkv_fwd, _wkv_args, "no backward yet .ROADMAP.md B4"),
+    (wkv_kernel.rwkv6_wkv_fwd, _wkv_args, "called directly .* call ops.rwkv6_wkv"),
     (scan_kernel.rglru_scan_fwd, _scan_args, "called directly .* call ops.rglru_scan")],
     ids=["wkv", "scan"])
 def test_recurrence_kernels_refuse_inputs_that_require_grad(wrapper, make, match, no_build):
-    """Never a silently detached output: WKV has no backward kernel yet, and
-    the scan's forward kernel called directly carries no gradient (its
-    autograd Function, RGLRUScan, calls it with grad mode off)."""
+    """Never a silently detached output: the WKV and scan forward kernels
+    called directly carry no gradient (their autograd Functions, RWKV6WKV
+    and RGLRUScan, call them with grad mode off)."""
     with pytest.raises(NotImplementedError, match=match):
         wrapper(*make(True))
     for args, grad_mode in ((make(True), False), (make(False), True)):
