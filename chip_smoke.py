@@ -24,14 +24,16 @@ With ``--tile-sweep`` it builds the kernels and runs tile_sweep and
 bwd_tile_sweep only: the per-tile (per-step) and fixed cost of the flash
 forward's and backward's tensor-core kernels.  With ``--wkv-grad-routes``
 it builds the kernels and runs wkv_grad_routes only: rwkv6-7b's train
-slice gradients by the route of the WKV forward, the evidence for
-``route(..., grad=True)``.
+slice gradients by the route of the WKV forward (the backward on the route
+``bwd_route()`` names), the evidence for ``route(..., grad=True)``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import inspect
+import itertools
 import json
 import math
 import re
@@ -169,13 +171,18 @@ WKV_CASES = [
     (1, 130, 4, 64, True, "edges"),
 ]
 WKV_DECODE_CASE, WKV_PREFILL_CASE = WKV_CASES[4], WKV_CASES[5]
-# The forward of a gradient (kernel.route(..., grad=True): the recurrent
-# route in both dtypes) at the shapes training gives it, the model's decay,
-# no s0: rwkv6-7b's train slice (2 x 200 tokens, TRAIN_SLICES) and its main
-# train path (2 x 4096, TRAIN_SHAPES), 64 heads of 64.
+# The forward of a gradient (kernel.route(..., grad=True): chunk_exact in
+# bf16, recurrent in f32) at the shapes training gives it, the model's
+# decay, no s0: rwkv6-7b's train slice (2 x 200 tokens, TRAIN_SLICES) and its
+# main train path (2 x 4096, TRAIN_SHAPES), 64 heads of 64; then WKV_CASES'
+# edge case (s0, T ragged against the 64-step chunk, w 0, 1 and exp(-100)
+# at chunk edges), which a gradient's forward takes as serving does.  Each
+# bf16 case also runs the recurrent route on its inputs, whose y error is
+# logged beside (phase_wkv_cases).
 WKV_GRAD_CASES = [
     (2, 200, 64, 64, False, "model"),
     (2, 4096, 64, 64, False, "model"),
+    (1, 130, 4, 64, True, "edges"),
 ]
 # The steps where the edge case forces w: exactly 0, exactly 1, exp(-100)
 # (0 in bf16, below f32's normal range in f32): at a chunk's first and last
@@ -270,11 +277,15 @@ SCAN_BWD_REL_TOL = {torch.float32: 0.0, torch.bfloat16: 2**-7}
 
 # (B, T, H, D, random s0, a cotangent on s_last, decay): the WKV backward's
 # cases, decays as WKV_CASES: WKV_CASES' head dims 8, 16 and 32; at 64 a
-# ragged T (37 and 130 are not multiples of the kernel's checkpoint
-# interval, wkv_kernel.CHECKPOINT_STEPS) with and without s0 and ds_last;
-# T = 1; the edge decays of WKV_EDGE_STEPS (w exactly 0, exactly 1 and
-# exp(-100)); and rwkv6-7b's train shape (2 x 4096 tokens, 64 heads of 64)
-# at the model's decay, s0 and ds_last absent as in a train step.
+# ragged T (37 and 130 are not multiples of the recurrent route's checkpoint
+# interval, wkv_kernel.CHECKPOINT_STEPS, nor of the chunk route's chunk,
+# wkv_kernel.CHUNK_STEPS) with and without s0 and ds_last; T = 1; T = 2, the
+# chunk route's least; the edge decays of WKV_EDGE_STEPS (w exactly 0,
+# exactly 1 and exp(-100), at chunk boundaries 63, 64, 127, 128 and 129
+# among others) over two chunks and over four, the last ragged; and
+# rwkv6-7b's train shape (2 x 4096 tokens, 64 heads of 64) at the model's
+# decay, s0 and ds_last absent as in a train step.  In bf16 each case at
+# head dim 64 with T >= 2 takes the chunk route (kernel.bwd_route()).
 WKV_BWD_CASES = [
     (1, 16, 2, 8, True, True, "sigmoid"),
     (2, 64, 3, 16, True, True, "sigmoid"),
@@ -282,7 +293,9 @@ WKV_BWD_CASES = [
     (2, 37, 4, 64, True, True, "sigmoid"),
     (2, 37, 4, 64, False, False, "sigmoid"),
     (3, 1, 4, 64, True, True, "sigmoid"),
+    (2, 2, 4, 64, True, True, "sigmoid"),
     (1, 130, 4, 64, True, True, "edges"),
+    (2, 200, 4, 64, True, True, "edges"),
     (2, 4096, 64, 64, False, False, "model"),
 ]
 WKV_BWD_TRAIN_CASE = WKV_BWD_CASES[-1]
@@ -319,7 +332,10 @@ PORT_KERNEL_SYMBOLS = ("void (anonymous namespace)::attn_fwd<",
                        "void (anonymous namespace)::rglru_bwd<",
                        "void (anonymous namespace)::wkv_bwd_fwd<",
                        "void (anonymous namespace)::wkv_bwd_rev<",
-                       "void (anonymous namespace)::wkv_bwd_du<")
+                       "void (anonymous namespace)::wkv_bwd_du<",
+                       "(anonymous namespace)::chain::wkv_chain(",
+                       "(anonymous namespace)::wkv_bwd_chunk(",
+                       "(anonymous namespace)::wkv_bwd_du_chunks(")
 
 
 def log(msg):
@@ -466,11 +482,13 @@ def phase_build():
             raise AssertionError(f"build: ptxas compiled {seen} {WGMMA_SYMBOL} kernels in "
                                  f"{name} (expected {want}); faults: {faults}")
         log(f"[build] {name}: {seen} {WGMMA_SYMBOL} kernels, no spill, no serialized wgmma")
-    # the scan's backward (both paths), the WKV chunk route, the SIMT
-    # backward at 256 (f32 only: bf16 takes the tensor cores there), and the
-    # WKV backward's kernels (each keeps a row or column of the state in
-    # registers)
+    # the scan's backward (both paths), the WKV chunk route, the chain of
+    # the WKV chunk_exact route (its source's name is in its symbol), the
+    # SIMT backward at 256 (f32 only: bf16 takes the tensor cores there),
+    # and the WKV backward's kernels on both routes (each keeps a row or
+    # column of the state in registers; the chunk route's job and its chain)
     for name, pattern in (("rglru_scan_bwd", "rglru_bwd"), ("rwkv6_wkv_fwd", "wkv_fwd_chunk"),
+                          ("rwkv6_wkv_fwd", "wkv_fwd_exact"),
                           ("flash_attention_bwd", r"attn_bwd_(dkdv|dq)I.*Li256ELi256E"),
                           ("rwkv6_wkv_bwd", "wkv_bwd")):
         seen, spills = spilling_entries(builds[name].log, pattern)
@@ -478,11 +496,13 @@ def phase_build():
             raise AssertionError(f"build: {name}: {seen} kernels match {pattern!r}; spills: "
                                  f"{spills}")
         log(f"[build] {name}: {seen} kernels match {pattern!r}, no spill")
-    # the WKV chunk route's products on wgmma, as the flash libraries'
-    serialized = [ln.strip() for ln in builds["rwkv6_wkv_fwd"].log.splitlines()
-                  if re.search(r"\(C751[23]\)|serialized", ln)]
-    if serialized:
-        raise AssertionError(f"build: rwkv6_wkv_fwd: ptxas serialized wgmma: {serialized}")
+    # the WKV products on wgmma (the chunk route's, and the chain's of both
+    # training routes, in either library), as the flash libraries'
+    for name in ("rwkv6_wkv_fwd", "rwkv6_wkv_bwd"):
+        serialized = [ln.strip() for ln in builds[name].log.splitlines()
+                      if re.search(r"\(C751[23]\)|serialized", ln)]
+        if serialized:
+            raise AssertionError(f"build: {name}: ptxas serialized wgmma: {serialized}")
 
 
 # Every tensor-core kernel of the flash libraries has this in its name.
@@ -609,7 +629,9 @@ def phase_wkv_cases():
     Each case's kernel call must add exactly one to launches_by_route, on the
     route kernel.route() names, and the plain call none.  WKV_CASES as a
     serve launches them, WKV_GRAD_CASES as the forward of a gradient
-    (grad=True), each held alike."""
+    (grad=True), each held alike; on a gradient's case that route() sends
+    elsewhere than the recurrent route (bf16: chunk_exact), the recurrent
+    route runs too, after the checks, and its errors are logged beside."""
     worst, by_route = {}, {}
     cases = ([(1000 + n, case, False) for n, case in enumerate(WKV_CASES)]
              + [(1100 + n, case, True) for n, case in enumerate(WKV_GRAD_CASES)])
@@ -650,10 +672,81 @@ def phase_wkv_cases():
                     raise AssertionError(f"wkv case {case} {name} {what}: rel_err {rel} > {tol}")
                 worst[dtype_name(dtype)] = max(worst.get(dtype_name(dtype), 0.0), err)
                 by_route[route, what] = max(by_route.get((route, what), 0.0), rel)
+            if grad and route != "recurrent":
+                beside = dict(zip(("y", "s_last"), wkv_kernel.launch("recurrent", *args)))
+                log(f"[wkv] {case} {name}: rel_err of y and s_last, route {route} "
+                    f"{rel_err(outs['y'], refs['y']):.3e} and "
+                    f"{rel_err(outs['s_last'], refs['s_last']):.3e}, beside the recurrent "
+                    f"route's {rel_err(beside['y'], refs['y']):.3e} and "
+                    f"{rel_err(beside['s_last'], refs['s_last']):.3e}")
     log(f"[wkv] largest error over {len(cases)} cases: "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + "; largest rel_err by route: "
         + ", ".join(f"{r} {w} {v:.3e}" for (r, w), v in by_route.items()))
     return worst
+
+
+# The seed pairs (weights, tokens) of rwkv6-7b's bf16 train slice that
+# wkv_grad_routes and phase_wkv_slice_cases take: the slice's own (0, 4)
+# and a second pair (1, 5).
+WKV_SLICE_SEEDS = ((0, 4), (1, 5))
+
+
+def slice_wkv_inputs(weights_seed, tokens_seed):
+    """The WKV inputs (r, k, v, w, u, s0) of each layer of rwkv6-7b's train
+    slice (TRAIN_SLICES: 2 layers at full width, 2 x 200 tokens, bf16) at a
+    seed pair, as the slice's train-mode forward hands them to rwkv6_wkv on
+    the plain path (rwkv6.rwkv6_wkv patched to a recorder that calls the
+    plain version), each contiguous."""
+    arch, cut, batch_size, seq, _ = next(s for s in TRAIN_SLICES if s[0] == "rwkv6-7b")
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    g = torch.Generator("cuda").manual_seed(tokens_seed)
+    toks = torch.randint(0, cfg.vocab, (batch_size, seq + 1), generator=g, device="cuda")
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(weights_seed),
+                            torch.bfloat16, "cuda")
+    seen = []
+
+    def record(*args):
+        seen.append([None if x is None else x.detach().contiguous().clone() for x in args])
+        return wkv_ref.rwkv6_reference(*args)
+    with torch.no_grad(), mock.patch.object(rwkv6, "rwkv6_wkv", record):
+        lm.forward(params, cfg, tokens=toks[:, :-1])
+    if len(seen) != cfg.n_layers:
+        raise AssertionError(f"slice wkv inputs: {len(seen)} WKV calls, expected one a layer")
+    return seen
+
+
+def phase_wkv_slice_cases():
+    """The serving chunk route's y (and the chunk_exact route's) on the WKV
+    inputs of each layer of rwkv6-7b's bf16 train slice at both seed pairs
+    (WKV_SLICE_SEEDS), against the plain version: y within WKV_REL_TOL's
+    2**-7 and s_last within its 1e-5, on activations rather than drawn
+    inputs.  Each kernel call is one launch on its route."""
+    readings = {}
+    for weights_seed, tokens_seed in WKV_SLICE_SEEDS:
+        for layer, args in enumerate(slice_wkv_inputs(weights_seed, tokens_seed)):
+            r = args[0]
+            ref_y, ref_s = wkv_ref.rwkv6_reference(*args)
+            for rt in ("chunk", "chunk_exact"):
+                wkv_kernel._check(*args, grad=rt == "chunk_exact")
+                before = read_wkv_routes()
+                y, s_last = wkv_kernel.launch(rt, *args)
+                after = read_wkv_routes()
+                if after != {k: before[k] + (k == rt) for k in before}:
+                    raise AssertionError(f"wkv slice case: launches by route {before} -> {after}, "
+                                         f"expected one {rt} launch")
+                got = {"y": rel_err(y, ref_y), "s_last": rel_err(s_last, ref_s)}
+                readings[f"seeds {weights_seed}/{tokens_seed} layer {layer} {rt}"] = got
+                log(f"[wkv-slice] rwkv6-7b train slice, seeds {weights_seed} (weights) and "
+                    f"{tokens_seed} (tokens), layer {layer}, WKV inputs {tuple(r.shape)} bf16, "
+                    f"route {rt}: rel_err y {got['y']:.4e} (tol "
+                    f"{WKV_REL_TOL[torch.bfloat16, 'y']:.4e}), s_last {got['s_last']:.4e} (tol "
+                    f"{WKV_REL_TOL[torch.bfloat16, 's_last']:.0e}), max |y| "
+                    f"{ref_y.float().abs().max().item():.3f}")
+                for what, rel in got.items():
+                    if not rel <= WKV_REL_TOL[torch.bfloat16, what]:
+                        raise AssertionError(f"wkv slice case seeds {weights_seed}/{tokens_seed} "
+                                             f"layer {layer} route {rt} {what}: rel_err {rel}")
+    return readings
 
 
 def scan_inputs(case, dtype, seed):
@@ -817,8 +910,9 @@ def phase_wkv_bwd_cases():
     """Each WKV backward case in f32 and bf16: the backward kernel's dr, dk,
     dv, dw, du and ds0 against its plain version on the same inputs, within
     WKV_BWD_REL_TOL.  Each case's kernel call must add exactly one to its
-    launch counter and to launches_by_route, and the plain call none; a
-    second kernel call must give the same gradients to the bit."""
+    launch counter and to launches_by_route on the route kernel.bwd_route()
+    names, and the plain call none; a second kernel call must give the same
+    gradients to the bit."""
     kernel = wkv_kernel.rwkv6_wkv_bwd
     worst = {}
     for n, case in enumerate(WKV_BWD_CASES):
@@ -832,12 +926,13 @@ def phase_wkv_bwd_cases():
             repeat = kernel(*args)
             torch.cuda.synchronize()
             name = dtype_name(dtype)
-            want = {r: routes_before[r] + (r == "recurrent") for r in routes_before}
+            route = wkv_kernel.bwd_route(dtype, case[3], case[1])
+            want = {r: routes_before[r] + (r == route) for r in routes_before}
             if (mid - before, after - mid, routes_mid) != (1, 0, want):
                 raise AssertionError(f"wkv bwd case {case} {name}: the kernel call launched "
                                      f"{mid - before} times ({routes_before} by route before "
                                      f"it, {routes_mid} after) and the plain call "
-                                     f"{after - mid}, expected one recurrent launch and none")
+                                     f"{after - mid}, expected one {route} launch and none")
             if any(not torch.equal(a, b) for a, b in zip(outs, repeat)):
                 raise AssertionError(f"wkv bwd case {case} {name}: a second call gave other "
                                      "values")
@@ -851,9 +946,10 @@ def phase_wkv_bwd_cases():
                 err = (out.float() - ref.float()).abs().max().item()
                 rel = rel_err(out, ref)
                 tol = WKV_BWD_REL_TOL[dtype][what]
-                log(f"[wkv-bwd] {case} {name} {what}: max_abs_err {err:.3e}, rel_err {rel:.3e} "
-                    f"(tol {tol:.3e}), max |ref| {ref.float().abs().max().item():.3f}; launches: "
-                    "kernel call 1, plain call 0; a second call equal to the bit")
+                log(f"[wkv-bwd] {case} {name}, route {route}, {what}: max_abs_err {err:.3e}, "
+                    f"rel_err {rel:.3e} (tol {tol:.3e}), max |ref| "
+                    f"{ref.float().abs().max().item():.3f}; launches: kernel call 1, plain call "
+                    "0; a second call equal to the bit")
                 if rel > tol:
                     raise AssertionError(f"wkv bwd case {case} {name} {what}: rel_err {rel} > "
                                          f"{tol}")
@@ -1209,9 +1305,11 @@ def phase_autograd_wiring():
     backward launch, and the gradients of a, b and h0 equal the backward
     kernel's own.  WKV as the scan, in f32 and bf16, with s0 and a cotangent
     on s_last: rwkv6_wkv's y and s_last have a grad_fn, one forward launch
-    on the route kernel.route(..., grad=True) names (recurrent) and one
-    backward launch, and the gradients of r, k, v, w, u and s0 equal the
-    backward kernel's own; under no_grad the same inputs take the serving
+    on the route kernel.route(..., grad=True) names (recurrent in f32,
+    chunk_exact in bf16) and one backward launch on the route
+    kernel.bwd_route() names (recurrent in f32, chunk in bf16), and the
+    gradients of r, k, v, w, u and s0 equal the backward kernel's own;
+    under no_grad the same inputs take the serving
     route (route(), chunk in bf16) once, with no backward and no grad_fn,
     and y equals the serving kernel's own.  The WKV forward kernel called
     directly refuses inputs that require grad."""
@@ -1272,11 +1370,12 @@ def phase_autograd_wiring():
         y_kernel, _ = wkv_kernel.rwkv6_wkv_fwd(r, k, v, w, u, s0, grad=True)
         want = wkv_kernel.rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds_last)
         route = wkv_kernel.route(dtype, case[3], case[1], grad=True)
+        bwd_route = wkv_kernel.bwd_route(dtype, case[3], case[1])
         if (counts["rwkv6_wkv_fwd"], routes[route], counts["rwkv6_wkv_bwd"],
-                bwd_routes["recurrent"]) != (1, 1, 1, 1):
+                bwd_routes[bwd_route]) != (1, 1, 1, 1):
             raise AssertionError(f"autograd wkv {dtype_name(dtype)}: launches {counts}, forward "
                                  f"by route {routes}, backward by route {bwd_routes}; expected "
-                                 f"one {route} forward and one backward")
+                                 f"one {route} forward and one {bwd_route} backward")
         if not torch.equal(y.detach(), y_kernel) or any(
                 not torch.equal(x, z) for x, z in zip(grads, want)):
             raise AssertionError(f"autograd wkv {dtype_name(dtype)}: the output or gradients "
@@ -1308,7 +1407,8 @@ def phase_autograd_wiring():
         "kernels' own; rglru_scan, f32 and bf16, h0 and a cotangent on h_last: grad_fn, 1 "
         "forward and 1 backward launch, gradients of a, b and h0 equal to the kernel's own; "
         "rwkv6_wkv likewise, s0 and a cotangent on s_last: grad_fn, 1 forward launch "
-        "(recurrent, as route(..., grad=True) names in both dtypes) and 1 backward launch, "
+        "(as route(..., grad=True) names: recurrent in f32, chunk_exact in bf16) and 1 "
+        "backward launch (as bwd_route() names: recurrent in f32, chunk in bf16), "
         "gradients of r, k, v, w, u "
         "and s0 equal to the kernel's own, and under no_grad one launch on the serving route "
         "(chunk in bf16) and no grad_fn; rwkv6_wkv_fwd called directly refuses inputs that "
@@ -1351,9 +1451,11 @@ def hybrid_train_launches(cfg):
 # differentiates.  recurrentgemma: layers rglru, rglru, attn_local, rglru at
 # a 128-token window under 256 tokens, so the windowed backward runs.
 # yi-9b and minitron-4b (32 padded heads over 8 kv heads) as qwen3.
-# rwkv6-7b at 2 layers, 2 x 200 tokens: the backward's chunks
-# (wkv_kernel.CHECKPOINT_STEPS steps) cross boundaries, its forward on the
-# recurrent route, as every forward of a gradient (wkv_kernel.route).
+# rwkv6-7b at 2 layers, 2 x 200 tokens: the chunks of both training routes
+# (wkv_kernel.CHUNK_STEPS steps) cross boundaries and the last is ragged; in
+# bf16 its forward on the chunk_exact route, as every forward of a gradient
+# there (wkv_kernel.route), and its backward on the chunk route
+# (wkv_kernel.bwd_route).
 TRAIN_SLICES = [
     ("qwen3-1.7b", {"n_layers": 2}, 2, 64,
      [(attention, "flash_attention", fa_ops.chunked_attention)]),
@@ -1400,9 +1502,11 @@ def want_train_launches(cfg, dtype, seq=None):
     all on its route, every forward launch writing the lse (its inputs
     require grad), every scan backward on the TMA route (the model's a, h
     and dh are whole allocations, and a row of the model's width fills
-    16-byte lines in either dtype), and every WKV forward on the route
+    16-byte lines in either dtype), every WKV forward on the route
     wkv_kernel.route() names for the forward of a gradient over ``seq``
-    steps (recurrent)."""
+    steps (chunk_exact in bf16, recurrent in f32) and every WKV backward on
+    the route wkv_kernel.bwd_route() names there (chunk in bf16, recurrent
+    in f32)."""
     if cfg.uniform_blocks:
         want = train_launches(cfg.n_layers, kernels=STACK_KERNELS[cfg.layer_kinds()[0]])
     else:
@@ -1416,7 +1520,9 @@ def want_train_launches(cfg, dtype, seq=None):
     n_wkv = want["rwkv6_wkv_fwd"]
     by_route["rwkv6_wkv_fwd by route"] = (wkv_routes(cfg, dtype, seq, n_wkv, 0, grad=True)
                                           if n_wkv else dict.fromkeys(wkv_kernel.ROUTES, 0))
-    by_route["rwkv6_wkv_bwd by route"] = {"recurrent": want["rwkv6_wkv_bwd"]}
+    bwd = wkv_kernel.bwd_route(dtype, cfg.rwkv_head_dim, seq) if seq else "recurrent"
+    by_route["rwkv6_wkv_bwd by route"] = {r: want["rwkv6_wkv_bwd"] * (r == bwd)
+                                          for r in wkv_kernel.BWD_ROUTES}
     return {**want, **by_route, "flash_attention_fwd with lse": want["flash_attention_fwd"]}
 
 
@@ -1546,8 +1652,8 @@ def phase_train_slice():
     forward, each writing the lse, and 2 backward, all on the dtype's route:
     SIMT in f32, tensor cores in bf16; recurrentgemma: 2 forward and 1
     backward, on the dtype's route, 6 scan forward and 3 scan backward;
-    rwkv6-7b: 5 WKV forward on the recurrent route and 2 WKV backward), the
-    plain path none.
+    rwkv6-7b: 5 WKV forward on the chunk_exact route and 2 WKV backward on
+    the chunk route), the plain path none.
     """
     none = no_train_launches()
     for arch, cut, batch_size, seq, patches in TRAIN_SLICES:
@@ -1659,7 +1765,8 @@ def phase_train(arch):
     writing the lse, 8 backward, all wgmma, 36 scan forward and 18 scan
     backward; minitron-4b at 26 layers 65 forward and 26 backward, yi-9b at
     16 layers 46 and 16, as qwen3's; rwkv6-7b at 14 layers, in remat groups
-    of 2, 35 WKV forward, all on the recurrent route, and 14 WKV backward);
+    of 2, 35 WKV forward, all on the chunk_exact route, and 14 WKV backward,
+    all on the chunk route);
     then one more step under the profiler."""
     cfg = dataclasses.replace(get_config(arch), **TRAIN_CUTS.get(arch, {}))
     batch_size, seq = TRAIN_SHAPES[arch]
@@ -1744,8 +1851,9 @@ SERVE_FLASH_ROUTES = {arch: {"wgmma": counts["flash_attention_fwd"], "simt": 0}
                       for arch, counts in SERVE_LAUNCHES.items()}
 # rwkv6-7b's WKV launches by route: the 32 prefill launches (bf16, head dim 64,
 # 1024 steps) in chunks, the 2016 decode steps (T = 1) recurrent.
-SERVE_WKV_ROUTES = {arch: {"chunk": 0, "recurrent": 0} for arch in SERVE_LAUNCHES}
-SERVE_WKV_ROUTES["rwkv6-7b"] = {"chunk": 32, "recurrent": 32 * (SERVE_NEW - 1)}
+SERVE_WKV_ROUTES = {arch: dict.fromkeys(wkv_kernel.ROUTES, 0) for arch in SERVE_LAUNCHES}
+SERVE_WKV_ROUTES["rwkv6-7b"] = {"chunk": 32, "chunk_exact": 0,
+                               "recurrent": 32 * (SERVE_NEW - 1)}
 
 
 def phase_serve(arch):
@@ -2237,51 +2345,121 @@ def phase_scan_bwd_timings():
 def wkv_bwd_bound(case, dtype):
     """Least time on the card for the WKV backward: r, k, v, w and dy read
     once (u, and s0 and ds_last when given), dr, dk, dv and dw written once,
-    du and ds0 (f32); 14 D^2 + 8 D FLOP a (b, h, t) at the f32 rate outside
-    the tensor cores, where the kernel does them (the state's walk and the
-    gradient's, 3 D^2 each: a product and an fma an element; dr, dk, dv and
-    dw, 2 D^2 each; v . dy, u r . k and du's term, 8 D).  The larger of the
-    two."""
+    du and ds0 (f32); 14 D^2 + 8 D FLOP a (b, h, t) (the state's recurrence
+    and the gradient's, 3 D^2 each; dr, dk, dv and dw, 2 D^2 each; v . dy, u
+    r . k and du's term, 8 D) at the peak rate of the tensor cores, which can
+    take them (the chunk route does its products there), as wkv_bound counts
+    the forward's.  The larger of the two, and the FLOPs' time at the f32
+    rate outside the tensor cores beside it."""
     B, T, H, D, with_s0, with_ds, _ = case
     item = torch.finfo(dtype).bits // 8
     state = 4 * B * H * D * D
     nbytes = (item * 9 * B * T * H * D + 2 * 4 * H * D
               + state * (1 + with_s0 + with_ds))
     flops = (14 * D * D + 8 * D) * B * T * H
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"),
+            flops, nbytes, flops / PEAK_F32_FLOPS * 1e3)
+
+
+# Each WKV route at rwkv6-7b's train shape by the profiler: the symbols of
+# its kernels (ms_a_launch), keyed by route.  The chain and the recurrent
+# kernel serve two routes each.
+WKV_ROUTE_SYMBOLS = {
+    ("bwd", "chunk"): {"wkv_chain": "chain::wkv_chain(", "wkv_bwd_chunk": "wkv_bwd_chunk(",
+                       "wkv_bwd_du_chunks": "wkv_bwd_du_chunks("},
+    ("fwd", "recurrent"): {"wkv_fwd": "wkv_fwd<"},
+    ("fwd", "chunk"): {"wkv_fwd_chunk": "wkv_fwd_chunk("},
+    ("fwd", "chunk_exact"): {"wkv_chain": "chain::wkv_chain(", "wkv_fwd": "wkv_fwd<"},
+    ("bwd", "recurrent"): {"wkv_bwd_fwd": "wkv_bwd_fwd<", "wkv_bwd_rev": "wkv_bwd_rev<",
+                           "wkv_bwd_du": "wkv_bwd_du<"},
+}
+
+
+def wkv_device_ms_by_kernel(args, calls=5):
+    """Device ms a launch of each kernel of each WKV route in
+    WKV_ROUTE_SYMBOLS on the backward's inputs ``args`` (r, k, v, w, u, s0,
+    dy, ds_last), by the profiler (the card's activity only): for each route
+    a warm-up call and a synchronize, then a first session of ``calls``
+    calls that is thrown away, for the profiler has delivered launches of
+    one session in the next one's events, then sessions of ``calls`` calls
+    (ms_a_launch).  A route whose kernels no session recorded fails the
+    phase (ms_a_launch raises)."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for (kind, rt), symbols in WKV_ROUTE_SYMBOLS.items():
+        def call():
+            if kind == "bwd":
+                return wkv_kernel.bwd_launch(rt, *args)
+            return wkv_kernel.launch(rt, *args[:6])
+
+        def profile_once():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    call()
+                torch.cuda.synchronize()
+            return [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        call()
+        torch.cuda.synchronize()
+        profile_once()  # thrown away: it may hold the last route's late launches
+        out[f"{kind} {rt}"] = ms_a_launch(profile_once, symbols, calls)
+    return out
 
 
 def phase_wkv_bwd_timings():
-    """The WKV backward kernel and its plain version at rwkv6-7b's train
-    shape (WKV_BWD_TRAIN_CASE: 2 x 4096 tokens, 64 heads of 64), bf16, s0
-    and ds_last None as in a train step, in turns by CUDA events around
-    back-to-back calls, beside the forward a train step runs there (the
-    recurrent route) and the chunk route; the plain version, about 2 s a
+    """The WKV backward at rwkv6-7b's train shape (WKV_BWD_TRAIN_CASE: 2 x
+    4096 tokens, 64 heads of 64), bf16, s0 and ds_last None as in a train
+    step, on the route bwd_route() names (chunk) and on the recurrent route
+    (bwd_launch), beside the forward on each of its three routes there (a
+    train step's, route(..., grad=True): chunk_exact; the recurrent route,
+    which a train step took before; the serving chunk route), in turns by
+    CUDA events around back-to-back calls; the plain version, about 2 s a
     call (a step at a time from the host), by one timed call after a
-    warm-up; then the backward's device time a call (device_ms).  No single
-    PyTorch call computes the recurrence's gradient, so there is no library
-    time."""
+    warm-up; then the backward's device time a call (device_ms), and each
+    route's device time by kernel from the profiler.  No single PyTorch
+    call computes the recurrence's gradient, so there is no library time.
+    The bound is wkv_bwd_bound's: the bytes', the FLOPs' at the tensor
+    cores' rate being less, with the FLOPs' time at the f32 rate beside
+    it."""
     args = wkv_bwd_inputs(WKV_BWD_TRAIN_CASE, torch.bfloat16, seed=656)
+    B, T, H, D = args[0].shape
+    route = wkv_kernel.bwd_route(torch.bfloat16, D, T)
+    fwd_route = wkv_kernel.route(torch.bfloat16, D, T, grad=True)
     ms, times = in_turns({
         "kernel": (lambda: wkv_kernel.rwkv6_wkv_bwd(*args), 10),
-        "forward, recurrent": (lambda: wkv_kernel.rwkv6_wkv_fwd(*args[:6], grad=True), 10),
-        "forward, chunk": (lambda: wkv_kernel.rwkv6_wkv_fwd(*args[:6]), 10),
+        "recurrent": (lambda: wkv_kernel.bwd_launch("recurrent", *args), 10),
+        "forward, chunk_exact": (lambda: wkv_kernel.launch("chunk_exact", *args[:6]), 10),
+        "forward, recurrent": (lambda: wkv_kernel.launch("recurrent", *args[:6]), 10),
+        "forward, chunk": (lambda: wkv_kernel.launch("chunk", *args[:6]), 10),
     })
     ms["plain"] = time_ms(lambda: wkv_ref.rwkv6_wkv_bwd_reference(*args), 1)
     dev, dev_times = in_turns({"kernel": (lambda: wkv_kernel.rwkv6_wkv_bwd(*args), 10)},
                               device_ms)
-    bound_ms, bound_by, flops, nbytes = wkv_bwd_bound(WKV_BWD_TRAIN_CASE, torch.bfloat16)
+    by_kernel = wkv_device_ms_by_kernel(args)
+    bound_ms, bound_by, flops, nbytes, f32_ms = wkv_bwd_bound(WKV_BWD_TRAIN_CASE,
+                                                              torch.bfloat16)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    fwd_bound_ms, fwd_bound_by, *_ = wkv_bound(WKV_BWD_TRAIN_CASE[:4] + (False, "model"),
+                                               torch.bfloat16)
     log(f"[timings] rwkv6_wkv_bwd at r, k, v, w, dy {tuple(args[0].shape)} bf16, s0 and ds_last "
-        f"None, median of 4, CUDA events: kernel {ms['kernel']:.4f} ms (device time a call "
-        f"{dev['kernel']:.4f}); plain {ms['plain']:.4f} ms (one call); bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({flops:.3e} FLOP, {nbytes} bytes); the forward a train step runs "
-        f"there (recurrent, route(..., grad=True)) {ms['forward, recurrent']:.4f} ms, the "
-        f"chunk route {ms['forward, chunk']:.4f} ms")
+        f"None, median of 4, CUDA events: kernel (route {route}) {ms['kernel']:.4f} ms (device "
+        f"time a call {dev['kernel']:.4f}), the recurrent route {ms['recurrent']:.4f} ms; plain "
+        f"{ms['plain']:.4f} ms (one call); bound {bound_ms:.4f} ms by {bound_by} ({nbytes} "
+        f"bytes, {bytes_ms:.4f} ms; {flops:.3e} FLOP, {f32_ms:.4f} ms at the f32 rate outside "
+        f"the tensor cores); the forward there: "
+        f"chunk_exact (a train step's, route(..., grad=True) = {fwd_route}) "
+        f"{ms['forward, chunk_exact']:.4f} ms, recurrent {ms['forward, recurrent']:.4f} ms, "
+        f"chunk {ms['forward, chunk']:.4f} ms, bound {fwd_bound_ms:.4f} ms by {fwd_bound_by}")
+    log(f"[timings] WKV device ms a launch by kernel (profiler), by route at the train shape: "
+        f"{json.dumps(by_kernel)}")
     log(f"[timings] all runs (ms): {json.dumps(times)}; device time: {json.dumps(dev_times)}")
-    return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
-                device_ms=dev["kernel"], train_forward_ms=ms["forward, recurrent"],
-                chunk_forward_ms=ms["forward, chunk"])
+    return dict(wkv_bwd_route=route, ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
+                bound_by=bound_by, bytes_bound_ms=bytes_ms, f32_bound_ms=f32_ms,
+                device_ms=dev["kernel"],
+                recurrent_ms=ms["recurrent"], device_ms_by_kernel=by_kernel,
+                train_forward_route=fwd_route, train_forward_ms=ms["forward, chunk_exact"],
+                recurrent_forward_ms=ms["forward, recurrent"],
+                chunk_forward_ms=ms["forward, chunk"], train_forward_bound_ms=fwd_bound_ms)
 
 
 # Kv tile rows of the flash kernel's tensor-core route at each head dim, and
@@ -2358,15 +2536,19 @@ def bwd_tile_sweep():
 
 
 def wkv_grad_routes():
-    """The evidence for a train step's WKV forward on the recurrent route
+    """The evidence for a train step's WKV forward route
     (wkv_kernel.route(..., grad=True)), reproducible by --wkv-grad-routes:
     rwkv6-7b's train slice (TRAIN_SLICES: 2 layers at full width, 2 x 200
     tokens), the gradients of loss_fn with the WKV forward launched on the
-    chunk route (bf16 only), on the recurrent route, or by the plain
-    version, each with the backward kernel, against the plain path's (torch
-    differentiating the plain version): each leaf's rel_err, the largest
-    named.  Twice: at the slice's own seeds (weights 0, tokens 4) and at a
-    second pair (1, 5)."""
+    chunk route or the chunk_exact route (bf16 only), on the recurrent
+    route, or by the plain version, each with the backward kernel on each
+    of its routes (chunk, bf16 only, and recurrent), against the plain
+    path's (torch differentiating the plain version): each leaf's rel_err,
+    the largest named, and in bf16 the largest |g| over its leaf's largest
+    where a gradient changes sign between the paths (sign_flips, which the
+    train slice holds to 2e-2).  At both seed pairs of WKV_SLICE_SEEDS; then
+    phase_wkv_slice_cases, the forward routes' y on the slice's own WKV
+    inputs."""
     arch, cut, batch_size, seq, patches = next(s for s in TRAIN_SLICES if s[0] == "rwkv6-7b")
     cfg = dataclasses.replace(get_config(arch), **cut)
 
@@ -2375,10 +2557,11 @@ def wkv_grad_routes():
             wkv_kernel._check(r, k, v, w, u, s0)
             return wkv_kernel.launch(rt, r, k, v, w, u, s0)
         return fwd
-    forwards = {"chunk": on_route("chunk"), "recurrent": on_route("recurrent"),
+    forwards = {"chunk": on_route("chunk"), "chunk_exact": on_route("chunk_exact"),
+                "recurrent": on_route("recurrent"),
                 "plain": lambda r, k, v, w, u, s0=None, grad=False: wkv_ref.rwkv6_reference(
                     r, k, v, w, u, s0)}
-    for weights_seed, tokens_seed in ((0, 4), (1, 5)):
+    for weights_seed, tokens_seed in WKV_SLICE_SEEDS:
         g = torch.Generator("cuda").manual_seed(tokens_seed)
         toks = torch.randint(0, cfg.vocab, (batch_size, seq + 1), generator=g, device="cuda")
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -2395,23 +2578,31 @@ def wkv_grad_routes():
                 for module, attr, plain in patches:
                     stack.enter_context(mock.patch.object(module, attr, plain))
                 want = grads()
-            for name, fwd in forwards.items():
-                if name == "chunk" and dtype != torch.bfloat16:
-                    continue  # the chunk route takes bf16 only
-                with mock.patch.object(wkv_ops, "rwkv6_wkv_fwd", fwd):
+            for (name, fwd), bwd_rt in itertools.product(forwards.items(), wkv_kernel.BWD_ROUTES):
+                if dtype != torch.bfloat16 and "chunk" in (name[:5], bwd_rt):
+                    continue  # the chunked routes take bf16 only
+                with mock.patch.object(wkv_ops, "rwkv6_wkv_fwd", fwd), mock.patch.object(
+                        wkv_ops, "rwkv6_wkv_bwd", functools.partial(wkv_kernel.bwd_launch, bwd_rt)):
                     got = grads()
                 rels = {p: rel_err(got[p], want[p]) for p in want}
                 worst, tol = max(rels, key=rels.get), dict(SLICE_DTYPES)[dtype]
+                flips = ""
+                if dtype == torch.bfloat16:
+                    ratios = {p: sign_flips(got[p], want[p], math.inf)[1] for p in want}
+                    top = max(ratios, key=ratios.get)
+                    flips = (f"; largest sign flip {ratios[top]:.4e} of its leaf's largest |g| "
+                             f"({top})")
                 log(f"[grad-routes] {arch} at {cut['n_layers']} layers, {batch_size}x{seq} "
                     f"tokens, seeds {weights_seed} (weights) and {tokens_seed} (tokens), "
-                    f"{dtype_name(dtype)}, WKV forward {name}, backward kernel: gradients "
+                    f"{dtype_name(dtype)}, WKV forward {name}, backward {bwd_rt}: gradients "
                     f"against the plain path's, largest rel_err {rels[worst]:.4e} ({worst}), "
                     f"{sum(r > tol for r in rels.values())} of {len(rels)} leaves above the "
-                    f"slice's {tol}; "
+                    f"slice's {tol}{flips}; "
                     f"every leaf: {json.dumps({p: round(r, 6) for p, r in rels.items()})}")
                 del got
             del want
             torch.cuda.empty_cache()
+    phase_wkv_slice_cases()
 
 
 def main() -> int:
@@ -2453,6 +2644,7 @@ def main() -> int:
     bwd_worst = run("bwd cases", phase_bwd_cases)
     run("autograd wiring", phase_autograd_wiring)
     wkv_worst = run("wkv cases", phase_wkv_cases)
+    wkv_slice = run("wkv cases", phase_wkv_slice_cases)
     scan_worst = run("scan cases", phase_scan_cases)
     scan_bwd_worst = run("scan bwd cases", phase_scan_bwd_cases)
     wkv_bwd_worst = run("wkv bwd cases", phase_wkv_bwd_cases)
@@ -2564,6 +2756,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_fwd_sm90.cu",
         "sources": {"chunk": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_fwd_sm90.cu",
+                    "chunk_exact": "src/repro_torch/kernels/rwkv6_wkv/csrc/"
+                                   "rwkv6_wkv_fwd_exact_sm90.cu (and rwkv6_wkv_chain_sm90.cuh)",
                     "recurrent": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_fwd.cu"},
         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:47",
         "launches": wkv_launches,
@@ -2575,6 +2769,10 @@ def main() -> int:
         **wkv_t["prefill"],
         "library_ms": None,
         "decode": wkv_t["decode"],
+        "train_shape": {k: wkv_bwd_t[k] for k in (
+            "train_forward_route", "train_forward_ms", "recurrent_forward_ms",
+            "chunk_forward_ms", "train_forward_bound_ms")},
+        "slice_cases_rel_err": wkv_slice,
     }, {
         "name": "rglru_scan_fwd",
         "route": "cuda",
@@ -2606,9 +2804,10 @@ def main() -> int:
     }, {
         "name": "rwkv6_wkv_bwd",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd.cu",
-        "sources": {r: "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd.cu"
-                    for r in wkv_kernel.BWD_ROUTES},
+        "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd_sm90.cu",
+        "sources": {"chunk": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd_sm90.cu "
+                             "(and rwkv6_wkv_chain_sm90.cuh)",
+                    "recurrent": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd.cu"},
         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:47 (forward only: the Pallas "
                     "kernel has no backward; jax.grad differentiates the plain recurrence, "
                     "src/repro/kernels/rwkv6_wkv/ref.py:14)",

@@ -3,7 +3,11 @@
 // The "recurrent" route of rwkv6_wkv_fwd: route() in kernel.py sends it f32
 // at every head dim, bf16 at head dims 8, 16 and 32, and T = 1, every decode
 // step; bf16 prefill at head dim 64 goes to wkv_fwd_chunk in
-// rwkv6_wkv_fwd_sm90.cu.  Replaces the Pallas TPU kernel
+// rwkv6_wkv_fwd_sm90.cu.  The same kernel also walks the chunks of the
+// "chunk_exact" route (rwkv6_wkv_fwd_exact_sm90.cu, the forward of a
+// gradient in bf16 at head dim 64): one block a (b, h, chunk of 64 steps),
+// each from the chunk's state that the chain there computed, with this
+// route's arithmetic step for step.  Replaces the Pallas TPU kernel
 //   src/repro/kernels/rwkv6_wkv/kernel.py :: rwkv6_wkv_kernel
 // (body _wkv_kernel).  It computes what that kernel computes: for each
 // (b, h), a D x D state S in f32, with S[i][j] indexed by i over k and j over
@@ -62,6 +66,11 @@ struct Params {
   void* y;
   float* s_last;
   int T, H;
+  // The chunk_exact route's walk: block (b h) n_chunks + n walks steps
+  // chunk n .. from states[b h][n] (D x D f32) and writes no s_last.  The
+  // recurrent route: states null, one chunk of T steps, from s0.
+  const float* states;
+  int chunk, n_chunks;
 };
 
 template <typename Elem, int D>
@@ -75,26 +84,31 @@ __global__ void __launch_bounds__(D) wkv_fwd(Params p) {
   __shared__ float4 s_rkwu[2][D];  // (r_i, k_i, w_i, u_i k_i) of one step
 
   const int j = threadIdx.x;
-  const int bh = blockIdx.x;  // b * H + h
+  const int bh = blockIdx.x / p.n_chunks;  // b * H + h
+  const int n = blockIdx.x - bh * p.n_chunks;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
+  const int t0 = n * p.chunk, t_end = min(p.T, t0 + p.chunk);
   const size_t step = (size_t)p.H * D;                     // stride of t
-  size_t off = ((size_t)b * p.T * p.H + h) * D + j;        // (b, 0, h, j)
+  size_t off = (((size_t)b * p.T + t0) * p.H + h) * D + j;  // (b, t0, h, j)
   const size_t s_off = (size_t)bh * D * D + j;             // (b, h, 0, j)
   const float uj = p.u[h * D + j];
 
   float S[D];  // S[i] is S[i][j]
+  const float* init = p.states ? p.states + (size_t)blockIdx.x * D * D + j
+                      : p.s0     ? p.s0 + s_off
+                                 : nullptr;
 #pragma unroll
-  for (int i = 0; i < D; ++i) S[i] = p.s0 ? p.s0[s_off + (size_t)i * D] : 0.f;
+  for (int i = 0; i < D; ++i) S[i] = init ? init[(size_t)i * D] : 0.f;
 
   float kj = load_f32(k, off);
   s_rkwu[0][j] = make_float4(load_f32(r, off), kj, load_f32(w, off), uj * kj);
   float vj = load_f32(v, off);
   __syncthreads();
 
-  for (int t = 0; t < p.T; ++t) {
-    const int cur = t & 1;
-    const bool more = t + 1 < p.T;
+  for (int t = t0; t < t_end; ++t) {
+    const int cur = (t - t0) & 1;
+    const bool more = t + 1 < t_end;
     const size_t off_next = off + step;
     float rn = 0.f, kn = 0.f, wn = 0.f, vn = 0.f;
     if (more) {
@@ -120,13 +134,14 @@ __global__ void __launch_bounds__(D) wkv_fwd(Params p) {
     __syncthreads();
   }
 
+  if (p.states) return;
 #pragma unroll
   for (int i = 0; i < D; ++i) p.s_last[s_off + (size_t)i * D] = S[i];
 }
 
 template <typename Elem, int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  wkv_fwd<Elem, D><<<B * p.H, D, 0, stream>>>(p);
+  wkv_fwd<Elem, D><<<B * p.H * p.n_chunks, D, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -152,9 +167,23 @@ extern "C" int rwkv6_wkv_fwd_recurrent(const void* r, const void* k, const void*
                                        void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || (long long)B * H > 2147483647LL)
     return cudaErrorInvalidValue;
-  const Params p{r, k, v, w, u, s0, y, s_last, T, H};
+  const Params p{r, k, v, w, u, s0, y, s_last, T, H, nullptr, T, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(p, B, D, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(p, B, D, s);
   return cudaErrorInvalidValue;
+}
+
+// The chunk_exact route's walk, which rwkv6_wkv_fwd_chunk_exact
+// (rwkv6_wkv_fwd_exact_sm90.cu) launches after its chain: bf16 at head dim
+// 64, one block a (b, h, chunk of `chunk` steps), each from states[b h][n]
+// (B H ceil(T / chunk) D^2 f32), y only.  Returns cudaGetLastError().
+extern "C" int rwkv6_wkv_fwd_walk_chunks(const void* r, const void* k, const void* v,
+                                         const void* w, const float* u, const float* states,
+                                         void* y, int chunk, int B, int T, int H,
+                                         void* stream) {
+  const int n_chunks = (T + chunk - 1) / chunk;
+  if ((long long)B * H * n_chunks > 2147483647LL) return cudaErrorInvalidValue;
+  const Params p{r, k, v, w, u, nullptr, y, nullptr, T, H, states, chunk, n_chunks};
+  return launch<__nv_bfloat16, 64>(p, B, static_cast<cudaStream_t>(stream));
 }

@@ -11,20 +11,28 @@ it:
 * ``"chunk"``: bf16 at head dim 64 (rwkv6-7b's) for T >= 2 with no gradient
   to take, the prefill, in chunks of 64 steps on the tensor cores
   (``csrc/rwkv6_wkv_fwd_sm90.cu``: wgmma, mma.sync, TMA);
+* ``"chunk_exact"``: the same shapes when the launch is the forward of a
+  gradient (training): the chunk-start states chained on the tensor cores
+  with three-piece splits (``csrc/rwkv6_wkv_chain_sm90.cuh``), then each
+  chunk walked from its state by the recurrent route's kernel, one block a
+  (b, h, chunk), so that y is the recurrent route's f32 recurrence rounded
+  once (``csrc/rwkv6_wkv_fwd_exact_sm90.cu``);
 * ``"recurrent"``: everything else, a step at a time in f32 on the CUDA
   cores (``csrc/rwkv6_wkv_fwd.cu``): T = 1 (every decode step), f32 at every
-  head dim (its callers hold it to 1e-5 of the plain version), bf16 at head
-  dims 8, 16 and 32, and the forward of a gradient (training), which rounds
-  y once from its f32 sums, as the plain version does.
+  head dim (its callers hold it to 1e-5 of the plain version), and bf16 at
+  head dims 8, 16 and 32.
 
-Neither route falls back to the other.  The backward (``csrc/rwkv6_wkv_bwd.cu``,
-a library of its own, one route: ``"recurrent"``) is the forward's gradient,
-which the Pallas kernel does not have (on the TPU ``jax.grad`` differentiates
-the plain recurrence).  The forward wrapper called directly refuses inputs
-that require grad; ``ops.rwkv6_wkv`` (``RWKV6WKV``) runs both kernels.  These
-wrappers take CUDA tensors only and raise on anything the kernels do not
-take; the CPU's plain versions are ``ref.rwkv6_reference`` and
-``ref.rwkv6_wkv_bwd_reference``.
+No route falls back to another.  The backward (a library of its own) is the
+forward's gradient, which the Pallas kernel does not have (on the TPU
+``jax.grad`` differentiates the plain recurrence); ``bwd_route()`` picks its
+entry point: ``"chunk"`` for bf16 at head dim 64 with T >= 2 (the chained
+chunk states and gradients, then one block a (b, h, chunk),
+``csrc/rwkv6_wkv_bwd_sm90.cu``), ``"recurrent"`` for the rest
+(``csrc/rwkv6_wkv_bwd.cu``).  The forward wrapper called directly refuses
+inputs that require grad; ``ops.rwkv6_wkv`` (``RWKV6WKV``) runs both
+kernels.  These wrappers take CUDA tensors only and raise on anything the
+kernels do not take; the CPU's plain versions are ``ref.rwkv6_reference``
+and ``ref.rwkv6_wkv_bwd_reference``.
 """
 from __future__ import annotations
 
@@ -37,15 +45,20 @@ import torch
 from ..build import Built, build_shared_library
 
 _CSRC = Path(__file__).parent / "csrc"
-SOURCES = [_CSRC / "rwkv6_wkv_fwd.cu", _CSRC / "rwkv6_wkv_fwd_sm90.cu"]
-BWD_SOURCES = [_CSRC / "rwkv6_wkv_bwd.cu"]
+SOURCES = [_CSRC / "rwkv6_wkv_fwd.cu", _CSRC / "rwkv6_wkv_fwd_sm90.cu",
+           _CSRC / "rwkv6_wkv_fwd_exact_sm90.cu"]
+BWD_SOURCES = [_CSRC / "rwkv6_wkv_bwd.cu", _CSRC / "rwkv6_wkv_bwd_sm90.cu"]
 # Head sizes the recurrent kernel is instantiated for; keep in step with the .cu.
 HEAD_DIMS = frozenset({8, 16, 32, 64})
 # The route rule: bf16 at these head dims runs in chunks when T >= CHUNK_MIN_T.
 CHUNK_HEAD_DIMS = frozenset({64})
 CHUNK_MIN_T = 2
-ROUTES = ("chunk", "recurrent")
-BWD_ROUTES = ("recurrent",)
+ROUTES = ("chunk", "chunk_exact", "recurrent")
+BWD_ROUTES = ("chunk", "recurrent")
+# Steps a chunk of the chained routes (kC in the chain header, which
+# rwkv6_wkv_fwd_chunk_steps() and rwkv6_wkv_bwd_chunk_steps() return; the
+# wrappers size the chunk states' scratch by it).
+CHUNK_STEPS = 64
 # Steps between the backward's checkpoints of the state (kC in the .cu, which
 # rwkv6_wkv_bwd_checkpoint_steps() returns; the wrapper sizes the scratch by it).
 CHECKPOINT_STEPS = 8
@@ -53,32 +66,44 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 
 
+def _chunked(dtype, D: int, T: int) -> bool:
+    return dtype == torch.bfloat16 and D in CHUNK_HEAD_DIMS and T >= CHUNK_MIN_T
+
+
 def route(dtype, D: int, T: int, grad: bool = False) -> str:
-    """The kernel a launch goes to: ``"chunk"`` for bf16 at CHUNK_HEAD_DIMS
-    with T >= CHUNK_MIN_T when ``grad`` is false, else ``"recurrent"``.
-    ``grad``: the launch is the forward of a gradient (``RWKV6WKV`` in grad
-    mode with an input that requires grad, ``ops.rwkv6_wkv_cuda``), which
-    the backward kernel differentiates as the exact f32 recurrence; the
-    recurrent route rounds y once from that recurrence's sums, where the
-    chunk route's further bf16 roundings (of r . P, of S_c, of the decayed
-    r and k, of A) moved the bf16 gradients of rwkv6-7b's 2-layer train
-    slice on the H100 by 2.2e-2 and, at a second seed, 1.2e-1 from the
-    plain path's, beyond the slice's 2e-2, and the recurrent route's by
-    1.0e-2 (PERF.md).  The wrapper calls the entry point it names; nothing
-    else decides."""
-    chunk = (dtype == torch.bfloat16 and D in CHUNK_HEAD_DIMS and T >= CHUNK_MIN_T
-             and not grad)
-    return "chunk" if chunk else "recurrent"
+    """The forward kernel a launch goes to: for bf16 at CHUNK_HEAD_DIMS with
+    T >= CHUNK_MIN_T, ``"chunk_exact"`` when ``grad`` is true and
+    ``"chunk"`` when it is false; else ``"recurrent"``.  ``grad``: the
+    launch is the forward of a gradient (``RWKV6WKV`` in grad mode with an
+    input that requires grad, ``ops.rwkv6_wkv_cuda``), which the backward
+    kernel differentiates as the exact f32 recurrence; the chunk_exact route
+    gives y as the recurrent route computes it from each chunk's state,
+    rounded once, where the chunk route's further bf16 roundings (of r . P,
+    of S_c, of the decayed r and k, of A) moved the bf16 gradients of
+    rwkv6-7b's 2-layer train slice on the H100 by 2.2e-2 and, at a second
+    seed, 1.2e-1 from the plain path's, beyond the slice's 2e-2 (PERF.md).
+    The wrapper calls the entry point it names; nothing else decides."""
+    if not _chunked(dtype, D, T):
+        return "recurrent"
+    return "chunk_exact" if grad else "chunk"
+
+
+def bwd_route(dtype, D: int, T: int) -> str:
+    """The backward kernel a launch goes to: ``"chunk"`` for bf16 at
+    CHUNK_HEAD_DIMS with T >= CHUNK_MIN_T (rwkv6-7b's training), else
+    ``"recurrent"`` (f32, the smaller head dims, T = 1).  The wrapper calls
+    the entry point it names; nothing else decides."""
+    return "chunk" if _chunked(dtype, D, T) else "recurrent"
 
 
 def build() -> Built:
-    """Compile both routes, one library, from the sources in this checkout
-    (cached by hash)."""
+    """Compile the forward's three routes, one library, from the sources in
+    this checkout (cached by hash)."""
     return build_shared_library("rwkv6_wkv_fwd", SOURCES)
 
 
 def build_bwd() -> Built:
-    """Compile the backward kernels, a library of their own, from the
+    """Compile the backward's two routes, a library of their own, from the
     sources in this checkout (cached by hash)."""
     return build_shared_library("rwkv6_wkv_bwd", BWD_SOURCES)
 
@@ -91,11 +116,22 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p]
     lib.rwkv6_wkv_fwd_chunk.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
-    for entry in (lib.rwkv6_wkv_fwd_recurrent, lib.rwkv6_wkv_fwd_chunk):
+    # the same, and the chunk states' scratch after s_last
+    lib.rwkv6_wkv_fwd_chunk_exact.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    for entry in (lib.rwkv6_wkv_fwd_recurrent, lib.rwkv6_wkv_fwd_chunk,
+                  lib.rwkv6_wkv_fwd_chunk_exact, lib.rwkv6_wkv_fwd_chunk_steps):
         entry.restype = ctypes.c_int
     lib.rwkv6_wkv_fwd_error_string.argtypes = [ctypes.c_int]
     lib.rwkv6_wkv_fwd_error_string.restype = ctypes.c_char_p
+    _check_chunk_steps("rwkv6_wkv_fwd", lib.rwkv6_wkv_fwd_chunk_steps())
     return lib
+
+
+def _check_chunk_steps(who, steps):
+    if steps != CHUNK_STEPS:
+        raise RuntimeError(f"{who}: the library's chunks are {steps} steps, the wrapper sizes "
+                           f"its scratch for {CHUNK_STEPS}")
 
 
 @functools.cache
@@ -106,8 +142,17 @@ def _bwd_library() -> ctypes.CDLL:
                                    # null), dr, dk, dv, dw, du, ds0, ck, vdy, du_part
         + [ctypes.c_int] * 5       # dtype, B, T, H, D
         + [ctypes.c_void_p])       # stream
-    lib.rwkv6_wkv_bwd.restype = ctypes.c_int
-    lib.rwkv6_wkv_bwd_checkpoint_steps.restype = ctypes.c_int
+    lib.rwkv6_wkv_bwd_chunk.argtypes = (
+        [ctypes.c_void_p] * 17     # r, k, v, w, u, s0 (may be null), dy, ds_last (may be
+                                   # null), dr, dk, dv, dw, du, ds0, states, grads, du_part
+        + [ctypes.c_int] * 4       # B, T, H, D
+        + [ctypes.c_void_p])       # stream
+    for entry in (lib.rwkv6_wkv_bwd, lib.rwkv6_wkv_bwd_chunk,
+                  lib.rwkv6_wkv_bwd_checkpoint_steps, lib.rwkv6_wkv_bwd_chunk_steps):
+        entry.restype = ctypes.c_int
+    lib.rwkv6_wkv_bwd_chunk_error_string.argtypes = [ctypes.c_int]
+    lib.rwkv6_wkv_bwd_chunk_error_string.restype = ctypes.c_char_p
+    _check_chunk_steps("rwkv6_wkv_bwd", lib.rwkv6_wkv_bwd_chunk_steps())
     lib.rwkv6_wkv_bwd_error_string.argtypes = [ctypes.c_int]
     lib.rwkv6_wkv_bwd_error_string.restype = ctypes.c_char_p
     steps = lib.rwkv6_wkv_bwd_checkpoint_steps()
@@ -158,14 +203,25 @@ def _check_inputs(who, r, like_r, states, u):
                              f"got {t.dtype} {tuple(t.shape)}")
 
 
+def _check_aligned(who, rt, tensors):
+    """The chunked routes read whole 16-byte lines (TMA, vector loads)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must start on a 16-byte boundary for the "
+                             f"{rt} route")
+
+
 def _check(r, k, v, w, u, s0, grad=False):
     _check_inputs("rwkv6_wkv_fwd", r, {"k": k, "v": v, "w": w}, {"s0": s0}, u)
-    D, T = r.shape[3], r.shape[1]
-    if route(r.dtype, D, T, grad) == "chunk":
-        for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"rwkv6_wkv_fwd: {name} must start on a 16-byte boundary "
-                                 "for the chunk route (TMA)")
+    rt = route(r.dtype, r.shape[3], r.shape[1], grad)
+    if rt != "recurrent":
+        _check_aligned("rwkv6_wkv_fwd", rt, {"r": r, "k": k, "v": v, "w": w})
+
+
+def _chunk_states(B, T, H, D, device):
+    """Scratch of f32 D x D matrices, one a (b, h, chunk of CHUNK_STEPS)."""
+    return torch.empty((B * H * -(-T // CHUNK_STEPS) * D * D,), dtype=torch.float32,
+                       device=device)
 
 
 def rwkv6_wkv_fwd(r, k, v, w, u, s0=None, grad=False):
@@ -198,12 +254,17 @@ def launch(rt, r, k, v, w, u, s0):
     y = torch.empty_like(r)
     s_last = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
     lib = _library()
-    dtype = [] if rt == "chunk" else [_DTYPE_CODE[r.dtype]]
+    extra = []  # the recurrent entry takes the dtype; the chunk_exact one its scratch
+    if rt == "recurrent":
+        extra = [_DTYPE_CODE[r.dtype]]
+    elif rt == "chunk_exact":
+        states = _chunk_states(B, T, H, D, r.device)
+        extra = [states.data_ptr()]
     with torch.cuda.device(r.device):
         err = getattr(lib, f"rwkv6_wkv_fwd_{rt}")(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             None if s0 is None else s0.data_ptr(), y.data_ptr(), s_last.data_ptr(),
-            *dtype, B, T, H, D, torch.cuda.current_stream(r.device).cuda_stream)
+            *extra, B, T, H, D, torch.cuda.current_stream(r.device).cuda_stream)
     if err != 0:
         msg = lib.rwkv6_wkv_fwd_error_string(err).decode()
         raise RuntimeError(f"rwkv6_wkv_fwd: launch failed with CUDA error {err}: {msg}")
@@ -213,43 +274,62 @@ def launch(rt, r, k, v, w, u, s0):
 
 
 def rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds_last=None):
-    """Launch the backward kernels.  r, k, v, w, u, s0: as ``rwkv6_wkv_fwd``
-    was given them (s0 None for a zero state); dy: the gradient of y, in r's
-    shape and dtype; ds_last: the gradient of s_last, (B, H, D, D) f32, or
-    None for zero.
+    """Launch the backward kernels on the route ``bwd_route()`` names.  r,
+    k, v, w, u, s0: as ``rwkv6_wkv_fwd`` was given them (s0 None for a zero
+    state); dy: the gradient of y, in r's shape and dtype; ds_last: the
+    gradient of s_last, (B, H, D, D) f32, or None for zero.
 
     Returns (dr, dk, dv, dw) in r's dtype and shape, du (H, D) f32 and ds0
     (B, H, D, D) f32 (see ``ref.rwkv6_wkv_bwd_reference``).  Allocates the
-    checkpoints of the state, B H ceil(T / CHECKPOINT_STEPS) D^2 f32, for the
-    call.  Adds one to ``rwkv6_wkv_bwd.launches`` and to
-    ``rwkv6_wkv_bwd.launches_by_route["recurrent"]`` for each launch.
+    route's scratch for the call: the recurrent route's checkpoints of the
+    state, B H ceil(T / CHECKPOINT_STEPS) D^2 f32; the chunk route's states
+    and gradients at the chunks' edges, 2 B H ceil(T / CHUNK_STEPS) D^2 f32.
+    Adds one to ``rwkv6_wkv_bwd.launches`` and to
+    ``rwkv6_wkv_bwd.launches_by_route[bwd_route(...)]`` for each launch.
     """
+    _check_inputs("rwkv6_wkv_bwd", r, {"k": k, "v": v, "w": w, "dy": dy},
+                  {"s0": s0, "ds_last": ds_last}, u)
+    return bwd_launch(bwd_route(r.dtype, r.shape[3], r.shape[1]), r, k, v, w, u, s0, dy,
+                      ds_last)
+
+
+def bwd_launch(rt, r, k, v, w, u, s0, dy, ds_last=None):
+    """One launch of backward route ``rt`` on inputs that ``_check_inputs``
+    passed, counted as ``rwkv6_wkv_bwd`` describes.  ``rwkv6_wkv_bwd`` calls
+    it on the route ``bwd_route()`` names; chip_smoke.py also times the
+    recurrent route through it at rwkv6-7b's train shape, beside the chunk
+    route."""
     who = "rwkv6_wkv_bwd"
-    _check_inputs(who, r, {"k": k, "v": v, "w": w, "dy": dy}, {"s0": s0, "ds_last": ds_last},
-                  u)
     B, T, H, D = r.shape
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     f32 = dict(dtype=torch.float32, device=r.device)
     du = torch.empty((H, D), **f32)
     ds0 = torch.empty((B, H, D, D), **f32)
-    n_chunks = -(-T // CHECKPOINT_STEPS)
-    ck = torch.empty((B * H * n_chunks * D * D,), **f32)
-    vdy = torch.empty((B * H * T,), **f32)
-    du_part = torch.empty((B * H * D,), **f32)
     lib = _bwd_library()
+    if rt == "chunk":  # states, grads, du_part
+        _check_aligned(who, rt, {"r": r, "k": k, "v": v, "w": w, "dy": dy})
+        scratch = (_chunk_states(B, T, H, D, r.device), _chunk_states(B, T, H, D, r.device),
+                   torch.empty((B * H * -(-T // CHUNK_STEPS) * D,), **f32))
+        entry, error_string, dtype = (lib.rwkv6_wkv_bwd_chunk,
+                                      lib.rwkv6_wkv_bwd_chunk_error_string, [])
+    else:  # ck, vdy, du_part
+        scratch = (torch.empty((B * H * -(-T // CHECKPOINT_STEPS) * D * D,), **f32),
+                   torch.empty((B * H * T,), **f32), torch.empty((B * H * D,), **f32))
+        entry, error_string, dtype = (lib.rwkv6_wkv_bwd, lib.rwkv6_wkv_bwd_error_string,
+                                      [_DTYPE_CODE[r.dtype]])
     with torch.cuda.device(r.device):
-        err = lib.rwkv6_wkv_bwd(
+        err = entry(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             None if s0 is None else s0.data_ptr(), dy.data_ptr(),
             None if ds_last is None else ds_last.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), ck.data_ptr(),
-            vdy.data_ptr(), du_part.data_ptr(), _DTYPE_CODE[r.dtype], B, T, H, D,
+            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
+            *(x.data_ptr() for x in scratch), *dtype, B, T, H, D,
             torch.cuda.current_stream(r.device).cuda_stream)
     if err != 0:
-        msg = lib.rwkv6_wkv_bwd_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"{who}: launch failed with CUDA error {err}: {msg}")
     rwkv6_wkv_bwd.launches += 1
-    rwkv6_wkv_bwd.launches_by_route["recurrent"] += 1
+    rwkv6_wkv_bwd.launches_by_route[rt] += 1
     return dr, dk, dv, dw, du, ds0
 
 

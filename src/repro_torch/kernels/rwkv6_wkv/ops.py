@@ -2,9 +2,10 @@
 
 A CUDA tensor goes through ``RWKV6WKV`` (``rwkv6_wkv_cuda``): forward by the
 hand-written kernels (``kernel.rwkv6_wkv_fwd``) for every T >= 1, which
-launch the route ``kernel.route()`` names (in chunks on the tensor cores for
-bf16 prefill at head dim 64, a step at a time otherwise and for the forward
-of a gradient); gradient by the backward kernel (``kernel.rwkv6_wkv_bwd``).
+launch the route ``kernel.route()`` names (in bf16 at head dim 64 in chunks:
+on the tensor cores for prefill, with y the f32 recurrence's for the forward
+of a gradient; a step at a time otherwise); gradient by the backward kernels
+(``kernel.rwkv6_wkv_bwd``, on the route ``kernel.bwd_route()`` names).
 A CPU tensor goes to the plain version (``rwkv6_reference``), which torch
 differentiates.  There is no other switch.
 """

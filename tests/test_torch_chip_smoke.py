@@ -390,17 +390,23 @@ def test_wkv_cases_hold_every_route_and_the_new_edges():
 
 def test_wkv_grad_cases_are_the_shapes_training_gives_the_recurrent_route():
     """The forward of a gradient is held against the plain version at the
-    train slice's shape and the main train path's, on the recurrent route
-    in both dtypes."""
+    train slice's shape and the main train path's (model decay, no s0), and
+    at WKV_CASES' edge case, on the route training gives it: chunk_exact in
+    bf16, recurrent in f32."""
     arch, cut, batch, seq, _ = next(s for s in chip_smoke.TRAIN_SLICES if s[0] == "rwkv6-7b")
     cfg = chip_smoke.get_config(arch)
     heads = (cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim)
     want = {(batch, seq, *heads), (*chip_smoke.TRAIN_SHAPES[arch], *heads)}
-    assert {c[:4] for c in chip_smoke.WKV_GRAD_CASES} == want
-    assert all(c[4:] == (False, "model") for c in chip_smoke.WKV_GRAD_CASES)
+    train = [c for c in chip_smoke.WKV_GRAD_CASES if c[5] == "model"]
+    assert {c[:4] for c in train} == want
+    assert all(c[4:] == (False, "model") for c in train)
+    edge = next(c for c in chip_smoke.WKV_CASES if c[5] == "edges")
+    assert chip_smoke.WKV_GRAD_CASES == train + [edge]
     route = chip_smoke.wkv_kernel.route
-    assert all(route(dtype, c[3], c[1], grad=True) == "recurrent"
-               for c in chip_smoke.WKV_GRAD_CASES for dtype in (torch.float32, torch.bfloat16))
+    assert all(route(torch.float32, c[3], c[1], grad=True) == "recurrent"
+               for c in chip_smoke.WKV_GRAD_CASES)
+    assert all(route(torch.bfloat16, c[3], c[1], grad=True) == "chunk_exact"
+               for c in chip_smoke.WKV_GRAD_CASES)
 
 
 def test_wkv_edge_case_forces_zero_one_and_deep_decays_inside_its_steps():
@@ -418,15 +424,18 @@ def test_rwkv6_serve_launches_by_route():
     """32 prefill launches (bf16, 1024 steps) in chunks, 63 decode steps of
     32 layers recurrent; the other served models launch no WKV."""
     routes = chip_smoke.SERVE_WKV_ROUTES
-    assert routes["rwkv6-7b"] == {"chunk": 32, "recurrent": 2016}
+    assert routes["rwkv6-7b"] == {"chunk": 32, "chunk_exact": 0, "recurrent": 2016}
     assert sum(routes["rwkv6-7b"].values()) == chip_smoke.SERVE_LAUNCHES["rwkv6-7b"][
         "rwkv6_wkv_fwd"]
-    assert all(r == {"chunk": 0, "recurrent": 0} for a, r in routes.items() if a != "rwkv6-7b")
+    assert all(r == {"chunk": 0, "chunk_exact": 0, "recurrent": 0}
+               for a, r in routes.items() if a != "rwkv6-7b")
 
 
 @pytest.mark.parametrize("dtype, want_fwd, want", [
-    (torch.bfloat16, {"chunk": 2, "recurrent": 0}, {"chunk": 2, "recurrent": 8}),
-    (torch.float32, {"chunk": 0, "recurrent": 2}, {"chunk": 0, "recurrent": 10})])
+    (torch.bfloat16, {"chunk": 2, "chunk_exact": 0, "recurrent": 0},
+     {"chunk": 2, "chunk_exact": 0, "recurrent": 8}),
+    (torch.float32, {"chunk": 0, "chunk_exact": 0, "recurrent": 2},
+     {"chunk": 0, "chunk_exact": 0, "recurrent": 10})])
 def test_rwkv6_slice_launches_by_route(dtype, want_fwd, want):
     """The 64-token slice at 2 layers: the train-mode forward and prefill in
     chunks in bf16, each of the 4 decode steps recurrent; f32 all recurrent."""
@@ -494,7 +503,8 @@ def test_serve_launches_of_the_dense_siblings_and_moe_models():
                                                    "flash_attention_fwd": n}
         assert chip_smoke.get_config(arch).n_layers == n
         assert chip_smoke.SERVE_FLASH_ROUTES[arch] == {"wgmma": n, "simt": 0}
-        assert chip_smoke.SERVE_WKV_ROUTES[arch] == {"chunk": 0, "recurrent": 0}
+        assert chip_smoke.SERVE_WKV_ROUTES[arch] == {"chunk": 0, "chunk_exact": 0,
+                                                     "recurrent": 0}
         assert chip_smoke.SERVE_PROMPT[arch] == 1024
 
 
@@ -598,23 +608,28 @@ def test_router_replay_hands_the_plain_path_the_kernel_paths_experts(norm):
 
 def test_kernels_line_lists_six_kernels_with_the_wkv_backward():
     """KERNELS and BUILDS name the six kernels, and main's kernels line has
-    one entry for each, the WKV backward's from its own source."""
+    one entry for each, the WKV backward's from its own sources: the chunk
+    route's, which the main path takes, as its source, and the recurrent
+    route's beside it."""
     names = list(chip_smoke.KERNELS)
     assert len(names) == 6 and names[-1] == "rwkv6_wkv_bwd"
     assert list(chip_smoke.BUILDS) == names
     assert chip_smoke.BUILDS["rwkv6_wkv_bwd"] == chip_smoke.wkv_kernel.build_bwd
     src = inspect.getsource(chip_smoke.main)
     assert sorted(re.findall(r'"name": "(\w+)"', src)) == sorted(names)
-    assert '"source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd.cu"' in src
-    assert (Path(chip_smoke.__file__).parent / "src/repro_torch/kernels/rwkv6_wkv/csrc/"
-            "rwkv6_wkv_bwd.cu").is_file()
+    assert '"source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd_sm90.cu"' in src
+    assert '"recurrent": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_bwd.cu"' in src
+    for name in ("rwkv6_wkv_bwd_sm90.cu", "rwkv6_wkv_bwd.cu", "rwkv6_wkv_chain_sm90.cuh"):
+        assert (Path(chip_smoke.__file__).parent / "src/repro_torch/kernels/rwkv6_wkv/csrc"
+                / name).is_file()
 
 
 def test_rwkv6_train_slice_runs_bf16_at_two_layers():
     """2 layers at full width, 2 x 200 tokens, bf16 only (ROADMAP C4), the
     WKV entry point swapped for the plain version on the plain path; its
-    launches 5 forward, on the recurrent route as every forward of a
-    gradient, and 2 backward in each part."""
+    launches 5 forward, on the chunk_exact route as every bf16 forward of a
+    gradient at head dim 64, and 2 backward, on the chunk route, in each
+    part."""
     arch, cut, batch, seq, patches = next(s for s in chip_smoke.TRAIN_SLICES
                                           if s[0] == "rwkv6-7b")
     assert (cut, batch, seq) == ({"n_layers": 2}, 2, 200) and seq % 64
@@ -624,15 +639,16 @@ def test_rwkv6_train_slice_runs_bf16_at_two_layers():
     want = chip_smoke.want_train_launches(cfg, torch.bfloat16, seq)
     assert {k: want[k] for k in chip_smoke.KERNELS} == {
         **dict.fromkeys(chip_smoke.KERNELS, 0), "rwkv6_wkv_fwd": 5, "rwkv6_wkv_bwd": 2}
-    assert want["rwkv6_wkv_fwd by route"] == {"chunk": 0, "recurrent": 5}
-    assert want["rwkv6_wkv_bwd by route"] == {"recurrent": 2}
+    assert want["rwkv6_wkv_fwd by route"] == {"chunk": 0, "chunk_exact": 5, "recurrent": 0}
+    assert want["rwkv6_wkv_bwd by route"] == {"chunk": 2, "recurrent": 0}
     assert want["flash_attention_fwd with lse"] == 0
 
 
 def test_rwkv6_train_launches_at_the_cut_depth():
     """At the cut depth, 14 layers in remat groups of 2, 3 n - n / 2 WKV
-    forward launches, all on the recurrent route (the forward of a
-    gradient), and n backward; no flash and no scan."""
+    forward launches, all on the chunk_exact route (the forward of a
+    gradient in bf16), and n backward, all on the chunk route; no flash and
+    no scan."""
     cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config("rwkv6-7b"),
                                          **chip_smoke.TRAIN_CUTS["rwkv6-7b"])
     n = cfg.n_layers
@@ -643,8 +659,9 @@ def test_rwkv6_train_launches_at_the_cut_depth():
     assert {name: want[name] for name in chip_smoke.KERNELS} == {
         **dict.fromkeys(chip_smoke.KERNELS, 0), "rwkv6_wkv_fwd": 3 * n - n // k,
         "rwkv6_wkv_bwd": n}
-    assert want["rwkv6_wkv_fwd by route"] == {"chunk": 0, "recurrent": 3 * n - n // k}
-    assert want["rwkv6_wkv_bwd by route"] == {"recurrent": n}
+    assert want["rwkv6_wkv_fwd by route"] == {"chunk": 0, "chunk_exact": 3 * n - n // k,
+                                              "recurrent": 0}
+    assert want["rwkv6_wkv_bwd by route"] == {"chunk": n, "recurrent": 0}
     assert chip_smoke.train_launches(n, kernels=chip_smoke.STACK_KERNELS["rwkv"]) == {
         name: want[name] for name in chip_smoke.KERNELS}
 
@@ -654,12 +671,12 @@ def test_train_launches_of_the_other_models_show_no_wkv():
     route too, all 0; a run that launched nothing reads all 0."""
     for arch in ("qwen3-1.7b", "recurrentgemma-2b", "yi-9b"):
         want = chip_smoke.want_train_launches(chip_smoke.get_config(arch), torch.bfloat16, 64)
-        assert want["rwkv6_wkv_fwd by route"] == {"chunk": 0, "recurrent": 0}
-        assert want["rwkv6_wkv_bwd by route"] == {"recurrent": 0}
+        assert want["rwkv6_wkv_fwd by route"] == {"chunk": 0, "chunk_exact": 0, "recurrent": 0}
+        assert want["rwkv6_wkv_bwd by route"] == {"chunk": 0, "recurrent": 0}
         assert want["rwkv6_wkv_bwd"] == 0
     none = chip_smoke.no_train_launches()
     assert none.keys() == want.keys()
-    assert none["rwkv6_wkv_bwd by route"] == {"recurrent": 0}
+    assert none["rwkv6_wkv_bwd by route"] == {"chunk": 0, "recurrent": 0}
 
 
 def test_wkv_backward_cases_cover_dims_raggedness_edges_and_the_train_shape():
@@ -680,14 +697,16 @@ def test_wkv_backward_cases_cover_dims_raggedness_edges_and_the_train_shape():
 
 def test_wkv_backward_bound_at_the_train_shape():
     """r, k, v, w and dy read and dr, dk, dv, dw written in bf16 (9 x 67.1
-    MB), u and du, ds0 in f32: 606 MB, 0.181 ms at 3.35 TB/s; 14 D^2 + 8 D
-    FLOP a (b, h, t), 3.03e10, 0.4527 ms at 67 TFLOP/s, the larger."""
-    bound_ms, bound_by, flops, nbytes = chip_smoke.wkv_bwd_bound(
+    MB), u and du, ds0 in f32: 606 MB, 0.1809 ms at 3.35 TB/s; 14 D^2 + 8 D
+    FLOP a (b, h, t), 3.03e10, 0.0306 ms on the tensor cores: the bytes
+    bound it; 0.4527 ms at the f32 rate beside it."""
+    bound_ms, bound_by, flops, nbytes, f32_ms = chip_smoke.wkv_bwd_bound(
         chip_smoke.WKV_BWD_TRAIN_CASE, torch.bfloat16)
     B, T, H, D = 2, 4096, 64, 64
     assert nbytes == 2 * 9 * B * T * H * D + 8 * H * D + 4 * B * H * D * D
     assert flops == (14 * D * D + 8 * D) * B * T * H
-    assert bound_by == "operations" and abs(bound_ms - 0.4527) < 1e-4
+    assert bound_by == "bytes" and abs(bound_ms - 0.1809) < 1e-4
+    assert abs(f32_ms - 0.4527) < 1e-4
 
 
 @pytest.mark.parametrize("name", [
@@ -708,14 +727,19 @@ def test_spill_check_finds_the_wkv_backward_kernels():
 
 def test_forward_of_a_gradient_takes_the_recurrent_route():
     """A train step's WKV forward (route(..., grad=True)) is recurrent in
-    both dtypes at every length; without a gradient bf16 at head dim 64 and
-    T >= 2 stays on the chunk route, as the serve paths count it."""
+    f32 at every length and in bf16 at T = 1, and chunk_exact in bf16 at
+    head dim 64 for T >= 2; without a gradient bf16 at head dim 64 and T >=
+    2 stays on the chunk route, as the serve paths count it."""
     route = chip_smoke.wkv_kernel.route
-    for dtype in (torch.float32, torch.bfloat16):
-        for T in (1, 2, 200, 4096):
-            assert route(dtype, 64, T, grad=True) == "recurrent"
+    for T in (1, 2, 200, 4096):
+        assert route(torch.float32, 64, T, grad=True) == "recurrent"
+        assert route(torch.bfloat16, 64, T, grad=True) == ("chunk_exact" if T >= 2
+                                                           else "recurrent")
     assert route(torch.bfloat16, 64, 4096) == "chunk"
     cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config("rwkv6-7b"), n_layers=2)
     assert chip_smoke.wkv_routes(cfg, torch.bfloat16, 200, 5, 0, grad=True) == {
-        "chunk": 0, "recurrent": 5}
-    assert chip_smoke.wkv_routes(cfg, torch.bfloat16, 200, 5, 0) == {"chunk": 5, "recurrent": 0}
+        "chunk": 0, "chunk_exact": 5, "recurrent": 0}
+    assert chip_smoke.wkv_routes(cfg, torch.float32, 200, 5, 0, grad=True) == {
+        "chunk": 0, "chunk_exact": 0, "recurrent": 5}
+    assert chip_smoke.wkv_routes(cfg, torch.bfloat16, 200, 5, 0) == {
+        "chunk": 5, "chunk_exact": 0, "recurrent": 0}

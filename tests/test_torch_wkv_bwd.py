@@ -380,7 +380,7 @@ def test_backward_wrapper_refuses_cpu_tensors(no_build):
     with pytest.raises(ValueError, match="rwkv6_wkv_bwd: r is on cpu, not a CUDA device"):
         rwkv6_wkv_bwd(*args)
     assert rwkv6_wkv_bwd.launches == 0
-    assert rwkv6_wkv_bwd.launches_by_route == {"recurrent": 0}
+    assert rwkv6_wkv_bwd.launches_by_route == {"chunk": 0, "recurrent": 0}
 
 
 def _bwd_args(**change):
@@ -421,11 +421,17 @@ class _Library:
         self.calls, self.err = [], err
 
     def rwkv6_wkv_bwd(self, *args):
-        self.calls.append(args)
+        self.calls.append(("recurrent", args))
+        return self.err
+
+    def rwkv6_wkv_bwd_chunk(self, *args):
+        self.calls.append(("chunk", args))
         return self.err
 
     def rwkv6_wkv_bwd_error_string(self, err):
         return b"an error the stand-in names"
+
+    rwkv6_wkv_bwd_chunk_error_string = rwkv6_wkv_bwd_error_string
 
 
 @pytest.fixture
@@ -442,23 +448,29 @@ def library(monkeypatch):
 
 @pytest.mark.parametrize("dtype, code", [(torch.float32, 0), (torch.bfloat16, 1)])
 def test_backward_wrapper_calls_the_entry_point_and_counts_it(library, dtype, code):
-    """One call of the entry point a launch: 17 pointers (s0 and ds_last None
-    where absent), then dtype, B, T, H, D and the stream; one added to
-    launches and to launches_by_route["recurrent"]; outputs in r's dtype,
-    du and ds0 in f32."""
+    """One call of the entry point bwd_route() names a launch: 17 pointers
+    (s0 and ds_last None where absent), then the recurrent entry's dtype
+    (``code``; the chunk entry, bf16 at head dim 64, takes none), B, T, H, D
+    and the stream; one added to launches and to launches_by_route on that
+    route; outputs in r's dtype, du and ds0 in f32."""
     r, k, v, w, u, s0, dy, ds_last = _torch(_inputs(CASES["d64-bare"], seed=4))
     r, k, v, w, dy = (t.to(dtype) for t in (r, k, v, w, dy))
     outs = rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds_last)
-    assert len(library.calls) == 1
-    args = library.calls[0]
-    assert len(args) == 17 + 5 + 1
+    rt = wkv_kernel.bwd_route(dtype, 64, r.shape[1])
+    assert rt == ("chunk" if dtype == torch.bfloat16 else "recurrent")
+    assert len(library.calls) == 1 and library.calls[0][0] == rt
+    args = library.calls[0][1]
+    dtype_arg = () if rt == "chunk" else (code,)
+    assert len(args) == 17 + len(dtype_arg) + 4 + 1
     assert args[5] is None and args[7] is None
-    assert args[17:22] == (code, *r.shape)
+    assert args[17:17 + len(dtype_arg) + 4] == (*dtype_arg, *r.shape)
     assert [o.dtype for o in outs] == [dtype] * 4 + [torch.float32] * 2
     assert [tuple(o.shape) for o in outs] == [tuple(r.shape)] * 4 + [(2, 64), (2, 2, 64, 64)]
-    assert rwkv6_wkv_bwd.launches == 1 and rwkv6_wkv_bwd.launches_by_route == {"recurrent": 1}
+    assert rwkv6_wkv_bwd.launches == 1
+    assert rwkv6_wkv_bwd.launches_by_route == {r_: int(r_ == rt) for r_ in ("chunk", "recurrent")}
     wkv_kernel.reset_launches()
-    assert rwkv6_wkv_bwd.launches == 0 and rwkv6_wkv_bwd.launches_by_route == {"recurrent": 0}
+    assert rwkv6_wkv_bwd.launches == 0
+    assert rwkv6_wkv_bwd.launches_by_route == {"chunk": 0, "recurrent": 0}
 
 
 def test_backward_wrapper_raises_on_a_failed_launch_and_counts_nothing(library):
@@ -550,16 +562,22 @@ def test_remat_launch_counts(counting, n_layers, remat, want):
 
 
 def test_forward_of_a_gradient_takes_the_recurrent_route(monkeypatch):
-    """route(..., grad=True) is "recurrent" wherever the chunk route would
-    serve, and the wrapper launches it there: the entry point it calls
-    follows ``grad`` alone."""
+    """route(..., grad=True) is "chunk_exact" wherever the chunk route would
+    serve (bf16 at head dim 64, T >= 2), and stays "recurrent" in f32 and
+    wherever serving is recurrent; the wrapper launches it there: the entry
+    point it calls follows ``grad`` and the dtype alone."""
     for T in (2, 37, 4096):
         assert wkv_kernel.route(torch.bfloat16, 64, T) == "chunk"
-        assert wkv_kernel.route(torch.bfloat16, 64, T, grad=True) == "recurrent"
+        assert wkv_kernel.route(torch.bfloat16, 64, T, grad=True) == "chunk_exact"
+        assert wkv_kernel.route(torch.float32, 64, T, grad=True) == "recurrent"
+    assert wkv_kernel.route(torch.bfloat16, 64, 1, grad=True) == "recurrent"
+    assert wkv_kernel.route(torch.bfloat16, 32, 37, grad=True) == "recurrent"
     launched = []
     monkeypatch.setattr(wkv_kernel, "_check", lambda *a: None)
     monkeypatch.setattr(wkv_kernel, "launch", lambda rt, *a: launched.append(rt))
-    args = _torch(_inputs((1, 37, 2, 64, False, False, "model"), seed=6)[:6], torch.bfloat16)
+    case = (1, 37, 2, 64, False, False, "model")
+    args = _torch(_inputs(case, seed=6)[:6], torch.bfloat16)
     wkv_kernel.rwkv6_wkv_fwd(*args)
     wkv_kernel.rwkv6_wkv_fwd(*args, grad=True)
-    assert launched == ["chunk", "recurrent"]
+    wkv_kernel.rwkv6_wkv_fwd(*_torch(_inputs(case, seed=6)[:6]), grad=True)
+    assert launched == ["chunk", "chunk_exact", "recurrent"]

@@ -265,7 +265,8 @@ def test_route_table_on_every_case_chip_smoke_launches():
     assert route(torch.bfloat16, 64, 1) == "recurrent"      # a decode step
     assert route(torch.float32, 64, 1024) == "recurrent"
     assert route(torch.bfloat16, 32, 48) == "recurrent"
-    assert {route(torch.bfloat16, 64, T) for T in (1, 2)} == set(wkv_kernel.ROUTES)
+    assert {route(torch.bfloat16, 64, T, grad) for T in (1, 2)
+            for grad in (False, True)} == set(wkv_kernel.ROUTES)
 
 
 @pytest.mark.parametrize("dtype, T", [(torch.bfloat16, 37), (torch.float32, 37),
@@ -317,6 +318,8 @@ def test_wrapper_calls_the_entry_point_route_names_and_counts_it(monkeypatch):
     assert [name for name, _ in lib.calls] == want
     assert all(n_int == (4 if name == "chunk" else 5) for name, n_int in lib.calls)
     assert wkv_kernel.rwkv6_wkv_fwd.launches == len(calls)
-    assert wkv_kernel.rwkv6_wkv_fwd.launches_by_route == {"chunk": 3, "recurrent": 2}
+    assert wkv_kernel.rwkv6_wkv_fwd.launches_by_route == {"chunk": 3, "chunk_exact": 0,
+                                                          "recurrent": 2}
     wkv_kernel.reset_launches()
-    assert wkv_kernel.rwkv6_wkv_fwd.launches_by_route == {"chunk": 0, "recurrent": 0}
+    assert wkv_kernel.rwkv6_wkv_fwd.launches_by_route == {"chunk": 0, "chunk_exact": 0,
+                                                          "recurrent": 0}
