@@ -7,13 +7,15 @@
 Builds every CUDA kernel of the port from this checkout's sources, holds
 each against its plain PyTorch version on the card, serves qwen3-1.7b (28
 layers), rwkv6-7b (32 layers), recurrentgemma-2b (26 layers), yi-9b (48),
-minitron-4b (32), qwen2-moe-a2.7b (24) and qwen3-moe-30b-a3b (48) at their
-full published widths (bf16, random weights from a seed) through the
-port's entry point, trains qwen3-1.7b and recurrentgemma-2b at full width
-and depth, and minitron-4b, yi-9b and rwkv6-7b at full width with fewer
-layers, for a few steps (AdamW, chunked cross-entropy, remat), checks that
-each serve and each train step went through its kernels, and times each
-kernel beside its bound.  Any failure raises, so the exit code is
+minitron-4b (32), qwen2-moe-a2.7b (24), qwen3-moe-30b-a3b (48) and
+minicpm3-4b (62, multi-head latent attention) at their full published
+widths (bf16, random weights from a seed) through the port's entry point,
+trains qwen3-1.7b and recurrentgemma-2b at full width and depth, and
+minitron-4b, yi-9b, rwkv6-7b, qwen2-moe-a2.7b, qwen3-moe-30b-a3b and
+minicpm3-4b at full width with the layers one card holds (TRAIN_CUTS), for
+a few steps (AdamW, chunked cross-entropy, remat), checks that each serve
+and each train step went through its kernels, and times each kernel beside
+its bound.  Any failure raises, so the exit code is
 not 0.  With no CUDA device, or away from the checkout, it exits non-zero
 and prints no result.  It imports nothing of JAX and nothing of ``repro``.
 
@@ -95,19 +97,26 @@ REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2**-7}
 QWEN3_PREFILL = (8, 1024, 1024, 16, 8, 128, 128, True, None, 0, None)
 # yi-9b's prefill shape, and qwen3-moe-30b-a3b's (32 heads over 4 kv heads:
 # groups of 8); minitron-4b's (its 24 heads padded to 32, over 8 kv heads:
-# groups of 4); qwen2-moe-a2.7b's (16 over 16); yi-9b's and minitron-4b's
-# train shapes (the reference's train_4k sequence, batch 2).
+# groups of 4); qwen2-moe-a2.7b's (16 over 16); yi-9b's (and qwen3-moe's),
+# minitron-4b's and qwen2-moe's train shapes (the reference's train_4k
+# sequence, batch 2).
 YI_PREFILL = (8, 1024, 1024, 32, 4, 128, 128, True, None, 0, None)
 MINITRON_PREFILL = (8, 1024, 1024, 32, 8, 128, 128, True, None, 0, None)
 QWEN2_MOE_PREFILL = (8, 1024, 1024, 16, 16, 128, 128, True, None, 0, None)
 YI_TRAIN = (2, 4096, 4096, 32, 4, 128, 128, True, None, 0, None)
 MINITRON_TRAIN = (2, 4096, 4096, 32, 8, 128, 128, True, None, 0, None)
+QWEN2_MOE_TRAIN = (2, 4096, 4096, 16, 16, 128, 128, True, None, 0, None)
 RECURRENTGEMMA_PREFILL = (8, 4096, 4096, 16, 1, 256, 256, True, 2048, 0, None)
 RECURRENTGEMMA_PREFILL_10H = (8, 4096, 4096, 10, 1, 256, 256, True, 2048, 0, None)
 RECURRENTGEMMA_TRAIN = (2, 4096, 4096, 16, 1, 256, 256, True, 2048, 0, None)
 RECURRENTGEMMA_TRAIN_10H = (2, 4096, 4096, 10, 1, 256, 256, True, 2048, 0, None)
+# minicpm3-4b's prefill and train shapes: multi-head latent attention at its
+# 40 heads padded to 48, one kv head a query head, q and k of 96 (64 + 32
+# rotary) and v of 64, on the SIMT route in either dtype.
+MINICPM3_PREFILL = (8, 1024, 1024, 48, 48, 96, 64, True, None, 0, None)
+MINICPM3_TRAIN = (2, 4096, 4096, 48, 48, 96, 64, True, None, 0, None)
 FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_PREFILL_10H,
-               "yi-9b": YI_PREFILL}
+               "yi-9b": YI_PREFILL, "minicpm3-4b": MINICPM3_PREFILL}
 # (B, Sq, Sk, H, KH, Dk, Dv, causal, window, q_offset, kv_len): the six CASES
 # of tests/test_kernels_attention.py, Dk 96 / Dv 64, kv_len < Sk, head dim
 # 256, hubert-xlarge's head dim 80 (bidirectional, 16 heads over 16); on the
@@ -118,8 +127,10 @@ FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_
 # shapes, recurrentgemma's at the 10 heads its serve launches and at 16, and
 # recurrentgemma's train shape at the 10 heads its step launches (with the
 # lse, as training calls it); the served prefill shapes of yi-9b (and
-# qwen3-moe), minitron-4b and qwen2-moe, and yi-9b's and minitron-4b's
-# train shapes.
+# qwen3-moe), minitron-4b and qwen2-moe, yi-9b's (and qwen3-moe's) and
+# minitron-4b's train shapes, minicpm3-4b's prefill and train shapes at
+# (96, 64), and qwen2-moe's train shape (last, as in BWD_CASES, so that no
+# earlier case's inputs, drawn from its index, move).
 KERNEL_CASES = [
     (2, 64, 64, 4, 2, 16, 16, True, None, 0, None),
     (1, 128, 128, 8, 8, 32, 32, True, None, 0, None),
@@ -144,11 +155,14 @@ KERNEL_CASES = [
     QWEN2_MOE_PREFILL,
     YI_TRAIN,
     MINITRON_TRAIN,
+    MINICPM3_PREFILL,
+    MINICPM3_TRAIN,
+    QWEN2_MOE_TRAIN,
 ]
 SERVE_BATCH, SERVE_NEW = 8, 64
 SERVE_PROMPT = {"qwen3-1.7b": 1024, "rwkv6-7b": 1024, "recurrentgemma-2b": 4096,
                 "yi-9b": 1024, "minitron-4b": 1024, "qwen2-moe-a2.7b": 1024,
-                "qwen3-moe-30b-a3b": 1024}
+                "qwen3-moe-30b-a3b": 1024, "minicpm3-4b": 1024}
 
 # (B, T, H, D, random s0, decay): the three shapes of
 # tests/test_kernels_recurrence.py::test_rwkv6_kernel, a ragged T at D 64, the
@@ -222,18 +236,21 @@ SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
 # (B, Sq, Sk, H, KH, Dk, Dv, causal, window, q_offset, kv_len): the backward
 # kernel's cases, every case of KERNEL_CASES at a head-dim pair it takes
 # (causal, a window, q_offset with GQA, kv_len 0, ragged lengths), among them
-# qwen3-1.7b's train shape, which is its prefill shape, yi-9b's and
-# minitron-4b's train shapes and the new models' prefill shapes (GQA groups
-# of 8, 4 and 1), but recurrentgemma's prefill shapes (batch 8) and its
-# train shape, which comes below with the other shapes at 256; in bf16 the
-# cases at head dim 128 take the tensor-core route.  Then head dim 256 (in
-# bf16 on the tensor cores too, f32 SIMT): GQA 16:1 with a window across
-# the tiles' edges (32 and 64 rows) past q_offset, ragged; a window,
-# q_offset and kv_len < Sk with GQA; kv_len 0;
+# qwen3-1.7b's train shape, which is its prefill shape, yi-9b's (and
+# qwen3-moe's) and minitron-4b's train shapes and the new models' prefill
+# shapes (GQA groups of 8, 4 and 1), but recurrentgemma's prefill shapes
+# (batch 8) and its train shape, which comes below with the other shapes
+# at 256; in bf16 the cases at head dim 128 take the tensor-core route.
+# Then head dim 256 (in bf16 on the tensor cores too, f32 SIMT): GQA 16:1
+# with a window across the tiles' edges (32 and 64 rows) past q_offset,
+# ragged; a window, q_offset and kv_len < Sk with GQA; kv_len 0;
 # recurrentgemma-2b's train shape (2 x 4096 tokens, 1 kv head of 256, a
 # 2048-token window) at the 10 heads its train step launches, and at 10
-# heads padded to 16 as earlier runs timed it.  Where the heads hold fewer
-# real ones (BWD_REAL_HEADS: those 16 hold 10; minitron-4b's 32 hold 24),
+# heads padded to 16 as earlier runs timed it.  Last qwen2-moe-a2.7b's
+# train shape (16 heads over 16 at 128), after the cases whose inputs its
+# index would otherwise move.  Where the heads hold fewer
+# real ones (BWD_REAL_HEADS: those 16 hold 10; minitron-4b's 32 hold 24;
+# minicpm3-4b's 48 hold 40, at (96, 64) on the SIMT route),
 # dout is 0 on the padded heads, as the reference's masked output gives
 # them: their dq must come back exactly 0.
 # Tolerance on ||out - ref|| / ||ref|| of each of dq, dk and dv: both sides
@@ -242,14 +259,17 @@ SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
 # rounds P and dS to bf16 for its products, at most 2**-9 of each element).
 RECURRENTGEMMA_EDGES = (2, 77, 130, 16, 1, 256, 256, True, 33, 20, None)
 BWD_CASES = [c for c in KERNEL_CASES if (c[5], c[6]) in fa_kernel.BWD_HEAD_DIMS and c not in (
-    RECURRENTGEMMA_PREFILL_10H, RECURRENTGEMMA_PREFILL, RECURRENTGEMMA_TRAIN_10H)] + [
+    RECURRENTGEMMA_PREFILL_10H, RECURRENTGEMMA_PREFILL, RECURRENTGEMMA_TRAIN_10H,
+    QWEN2_MOE_TRAIN)] + [
     RECURRENTGEMMA_EDGES,
     (2, 250, 333, 8, 2, 256, 256, True, 150, 83, 300),
     (1, 64, 64, 4, 2, 256, 256, False, None, 0, 0),
     RECURRENTGEMMA_TRAIN_10H,
     RECURRENTGEMMA_TRAIN,
+    QWEN2_MOE_TRAIN,
 ]
-BWD_REAL_HEADS = {RECURRENTGEMMA_EDGES: 10, RECURRENTGEMMA_TRAIN: 10, MINITRON_TRAIN: 24}
+BWD_REAL_HEADS = {RECURRENTGEMMA_EDGES: 10, RECURRENTGEMMA_TRAIN: 10, MINITRON_TRAIN: 24,
+                  MINICPM3_TRAIN: 40}
 QWEN3_TRAIN = QWEN3_PREFILL
 BWD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2**-7}
 # Tolerance on max |lse - lse_reference| of the forward's lse, by route.  The
@@ -484,12 +504,14 @@ def phase_build():
         log(f"[build] {name}: {seen} {WGMMA_SYMBOL} kernels, no spill, no serialized wgmma")
     # the scan's backward (both paths), the WKV chunk route, the chain of
     # the WKV chunk_exact route (its source's name is in its symbol), the
-    # SIMT backward at 256 (f32 only: bf16 takes the tensor cores there),
-    # and the WKV backward's kernels on both routes (each keeps a row or
-    # column of the state in registers; the chunk route's job and its chain)
+    # SIMT backward at 256 (f32 only: bf16 takes the tensor cores there) and
+    # at (96, 64) (both dtypes: minicpm3-4b trains on it), and the WKV
+    # backward's kernels on both routes (each keeps a row or column of the
+    # state in registers; the chunk route's job and its chain)
     for name, pattern in (("rglru_scan_bwd", "rglru_bwd"), ("rwkv6_wkv_fwd", "wkv_fwd_chunk"),
                           ("rwkv6_wkv_fwd", "wkv_fwd_exact"),
                           ("flash_attention_bwd", r"attn_bwd_(dkdv|dq)I.*Li256ELi256E"),
+                          ("flash_attention_bwd", MLA_BWD_SYMBOLS),
                           ("rwkv6_wkv_bwd", "wkv_bwd")):
         seen, spills = spilling_entries(builds[name].log, pattern)
         if not seen or spills:
@@ -505,8 +527,10 @@ def phase_build():
             raise AssertionError(f"build: {name}: ptxas serialized wgmma: {serialized}")
 
 
-# Every tensor-core kernel of the flash libraries has this in its name.
+# Every tensor-core kernel of the flash libraries has this in its name; the
+# SIMT backward's kernels at (96, 64) have this pattern.
 WGMMA_SYMBOL = "_wgmma"
+MLA_BWD_SYMBOLS = r"attn_bwd_(dkdv|dq)I.*Li96ELi64E"
 
 
 def wgmma_ptxas_faults(log_text):
@@ -1002,9 +1026,10 @@ def wkv_routes(cfg, dtype, tokens, n_multi, n_single, grad=False):
 # layer reads the attention kernel's output, and a 128-token window under 256
 # prompt tokens, so the ring cache runs; the scan once a recurrent layer and
 # flash once in prefill, decode runs neither.  yi-9b, minitron-4b (its 32
-# padded heads over 8 kv heads), qwen2-moe-a2.7b and qwen3-moe-30b-a3b: flash
-# once a layer, as qwen3; the MoE models' plain path replays the kernel
-# path's expert choice (RouterReplay).
+# padded heads over 8 kv heads), qwen2-moe-a2.7b, qwen3-moe-30b-a3b and
+# minicpm3-4b (MLA: flash at (96, 64) in train mode and prefill, its decode
+# plain on the compressed cache): flash once a layer, as qwen3; the MoE
+# models' plain path replays the kernel path's expert choice (RouterReplay).
 SLICE_DECODE_STEPS = 4
 # The dtypes the slices run in, each with its tolerance (phase_slice).
 SLICE_DTYPES = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
@@ -1022,7 +1047,8 @@ SLICES = [
      {"flash_attention_fwd": 1, "rglru_scan_fwd": 3}),
 ] + [(arch, {"n_layers": 2}, 64, [(attention, "flash_attention", fa_ops.chunked_attention)],
       {"flash_attention_fwd": 2}, {"flash_attention_fwd": 2})
-     for arch in ("yi-9b", "minitron-4b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b")]
+     for arch in ("yi-9b", "minitron-4b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
+                  "minicpm3-4b")]
 # The router the MoE block calls, as the port defines it (RouterReplay wraps it).
 ROUTER = moe._router
 
@@ -1079,7 +1105,7 @@ class RouterReplay:
 
     def record(self, y, p, moe_cfg):
         gates, idx, probs = ROUTER(y, p, moe_cfg)
-        self.calls.append((probs, idx))
+        self.calls.append((probs.detach(), idx))
         return gates, idx, probs
 
     def replay(self, y, p, moe_cfg):
@@ -1450,12 +1476,15 @@ def hybrid_train_launches(cfg):
 # entry points the plain path swaps for their plain versions, which torch
 # differentiates.  recurrentgemma: layers rglru, rglru, attn_local, rglru at
 # a 128-token window under 256 tokens, so the windowed backward runs.
-# yi-9b and minitron-4b (32 padded heads over 8 kv heads) as qwen3.
-# rwkv6-7b at 2 layers, 2 x 200 tokens: the chunks of both training routes
-# (wkv_kernel.CHUNK_STEPS steps) cross boundaries and the last is ragged; in
-# bf16 its forward on the chunk_exact route, as every forward of a gradient
-# there (wkv_kernel.route), and its backward on the chunk route
-# (wkv_kernel.bwd_route).
+# yi-9b and minitron-4b (32 padded heads over 8 kv heads) as qwen3, and the
+# MoE models (the plain path replaying the kernel path's expert choice,
+# RouterReplay, call by call over the gradient's and the step's forwards
+# and remat recomputations) and minicpm3-4b (flash at (96, 64), SIMT in
+# either dtype) likewise.  rwkv6-7b at 2 layers, 2 x 200 tokens: the chunks
+# of both training routes (wkv_kernel.CHUNK_STEPS steps) cross boundaries
+# and the last is ragged; in bf16 its forward on the chunk_exact route, as
+# every forward of a gradient there (wkv_kernel.route), and its backward on
+# the chunk route (wkv_kernel.bwd_route).
 TRAIN_SLICES = [
     ("qwen3-1.7b", {"n_layers": 2}, 2, 64,
      [(attention, "flash_attention", fa_ops.chunked_attention)]),
@@ -1463,7 +1492,8 @@ TRAIN_SLICES = [
      [(attention, "flash_attention", fa_ops.chunked_attention),
       (rglru, "rglru_scan", scan_ref.rglru_reference)]),
 ] + [(arch, {"n_layers": 2}, 2, 64, [(attention, "flash_attention", fa_ops.chunked_attention)])
-     for arch in ("yi-9b", "minitron-4b")] + [
+     for arch in ("yi-9b", "minitron-4b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
+                  "minicpm3-4b")] + [
     ("rwkv6-7b", {"n_layers": 2}, 2, 200, [(rwkv6, "rwkv6_wkv", wkv_ref.rwkv6_reference)]),
 ]
 # The dtypes each train slice runs in, with the tolerance of each: f32 and
@@ -1477,8 +1507,14 @@ TRAIN_SLICES = [
 # rwkv6-7b in bf16 only too: its block holds seven zero-initialised leaves
 # (ln1, tm_mu_x, tm_mus, ln_x, ln2, cm_mu_k, cm_mu_r;
 # src/repro_torch/models/schema.py:109-126), each exposed to that f32 master
-# hold as minitron's ln2 was (ROADMAP C4, open).
-TRAIN_SLICE_DTYPES = {"minitron-4b": SLICE_DTYPES[1:], "rwkv6-7b": SLICE_DTYPES[1:]}
+# hold as minitron's ln2 was (ROADMAP C4, open).  minicpm3-4b in bf16 only
+# as well: its f32 slice failed the same hold on its zero-initialised ln2
+# (rel_err 1.098e-4 against 1e-4) while every f32 gradient leaf agreed
+# within 1.06e-6 and first_step_excess held every element of the leaves it
+# reached (PERF.md §6).  The MoE models' f32 slices held (qwen3-moe's
+# zero-initialised q_norm and k_norm among them).
+TRAIN_SLICE_DTYPES = {"minitron-4b": SLICE_DTYPES[1:], "rwkv6-7b": SLICE_DTYPES[1:],
+                      "minicpm3-4b": SLICE_DTYPES[1:]}
 TRAIN_CE_CHUNK = 512
 # adamw_update's eps, which make_train_step leaves at its default.
 ADAM_EPS = inspect.signature(adamw_update).parameters["eps"].default
@@ -1495,14 +1531,23 @@ def read_train_launches() -> dict:
             "rwkv6_wkv_bwd by route": read_wkv_bwd_routes()}
 
 
+def attn_head_dims(cfg):
+    """(Dk, Dv) of the flash calls of cfg's attention layers: MLA's nope +
+    rope and v dims, else the head dim twice."""
+    if cfg.attn_kind == "mla":
+        return cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim, cfg.mla.v_head_dim
+    return cfg.head_dim, cfg.head_dim
+
+
 def want_train_launches(cfg, dtype, seq=None):
     """read_train_launches() of a train step (or a gradient) of cfg in dtype
     over sequences of ``seq`` tokens, remat "full": a uniform stack's
     kernels by its layer kind (STACK_KERNELS), each flash kernel's launches
-    all on its route, every forward launch writing the lse (its inputs
-    require grad), every scan backward on the TMA route (the model's a, h
-    and dh are whole allocations, and a row of the model's width fills
-    16-byte lines in either dtype), every WKV forward on the route
+    all on the route of its head dims (attn_head_dims: (96, 64) for MLA,
+    the SIMT route in either dtype), every forward launch writing the lse
+    (its inputs require grad), every scan backward on the TMA route (the
+    model's a, h and dh are whole allocations, and a row of the model's
+    width fills 16-byte lines in either dtype), every WKV forward on the route
     wkv_kernel.route() names for the forward of a gradient over ``seq``
     steps (chunk_exact in bf16, recurrent in f32) and every WKV backward on
     the route wkv_kernel.bwd_route() names there (chunk in bf16, recurrent
@@ -1513,7 +1558,7 @@ def want_train_launches(cfg, dtype, seq=None):
         want = hybrid_train_launches(cfg)
     by_route = {}
     for name, backward in (("flash_attention_fwd", False), ("flash_attention_bwd", True)):
-        route = fa_kernel.route(dtype, cfg.head_dim, cfg.head_dim, backward=backward)
+        route = fa_kernel.route(dtype, *attn_head_dims(cfg), backward=backward)
         by_route[f"{name} by route"] = {r: want[name] * (r == route) for r in fa_kernel.ROUTES}
     by_route["rglru_scan_bwd by route"] = {r: want["rglru_scan_bwd"] * (r == "tma")
                                            for r in scan_kernel.BWD_ROUTES}
@@ -1569,6 +1614,20 @@ def _train_slice_run(cfg, params, batch):
     launches = read_train_launches()
     state = {"names": paths(state["params"]), "master": state["master"]}
     return to_host((grads, grad_launches, metrics, state, launches, seen))
+
+
+def twice_equal(label, first, second):
+    """Log whether two kernel-path runs of a train slice from the same state
+    (_train_slice_run's results) gave the same gradients and masters to the
+    bit, and which leaves differ where they do not."""
+    names = first[3]["names"]
+    differ = [n for n, a, b in zip(names, first[0], second[0]) if not torch.equal(a, b)]
+    differ += [f"master {n}" for n, a, b in zip(names, leaves(first[3]["master"]),
+                                                leaves(second[3]["master"]))
+               if not torch.equal(a, b)]
+    log(f"[train-slice] {label}: two kernel-path runs from the same state, gradients and "
+        f"masters after the step equal to the bit: {not differ}"
+        + (f"; leaves that differ: {differ}" if differ else ""))
 
 
 def first_step_seen(seen):
@@ -1653,7 +1712,15 @@ def phase_train_slice():
     SIMT in f32, tensor cores in bf16; recurrentgemma: 2 forward and 1
     backward, on the dtype's route, 6 scan forward and 3 scan backward;
     rwkv6-7b: 5 WKV forward on the chunk_exact route and 2 WKV backward on
-    the chunk route), the plain path none.
+    the chunk route), the plain path none.  An MoE model's plain path takes
+    the kernel path's expert choice call by call (RouterReplay, as
+    phase_slice): the router runs in every forward of a layer, the step's
+    and each remat recomputation's, as flash does, so each path makes 2
+    want_train_launches(...)["flash_attention_fwd"] router calls (the
+    gradient's and the step's); the counts must agree.  In bf16 its kernel
+    path runs twice from the same state, and whether the two runs'
+    gradients and masters agree to the bit is logged (twice_equal: the MoE
+    backward adds through index_put with accumulate).
     """
     none = no_train_launches()
     for arch, cut, batch_size, seq, patches in TRAIN_SLICES:
@@ -1669,11 +1736,30 @@ def phase_train_slice():
 
             def params():
                 return lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype, "cuda")
-            kernel = _train_slice_run(cfg, params(), batch)
+            replay = RouterReplay() if cfg.moe is not None else None
+            with contextlib.ExitStack() as stack:
+                if replay:
+                    stack.enter_context(mock.patch.object(moe, "_router", replay.record))
+                kernel = _train_slice_run(cfg, params(), batch)
+            if replay and dtype == torch.bfloat16:
+                twice_equal(label, kernel, _train_slice_run(cfg, params(), batch))
             with contextlib.ExitStack() as stack:
                 for module, attr, plain in patches:
                     stack.enter_context(mock.patch.object(module, attr, plain))
+                if replay:
+                    stack.enter_context(mock.patch.object(moe, "_router", replay.replay))
                 plain = _train_slice_run(cfg, params(), batch)
+            if replay:
+                calls = 2 * want["flash_attention_fwd"]
+                if (len(replay.calls), replay.replayed) != (calls, calls):
+                    raise AssertionError(f"train slice {label}: the kernel path called the router "
+                                         f"{len(replay.calls)} times and the plain path "
+                                         f"{replay.replayed}, expected {calls} each")
+                log(f"[train-slice] {label}: the plain path replayed the kernel path's expert "
+                    f"choice in {replay.replayed} router calls, call by call (the gradient's and "
+                    "the step's forwards and remat recomputations); its own choice differs at "
+                    f"{sum(replay.differ)} (token, layer) pairs (by call {replay.differ}), each a "
+                    f"near-tie (the largest gap over its bound {replay.worst:.3e}, held <= 1)")
             log(f"[train-slice] {label}: launches {kernel[1]} in the gradient and {kernel[4]} in "
                 f"the step on the kernel path (expected {want} each), {plain[1]} and {plain[4]} "
                 "on the plain path (expected all 0)")
@@ -1736,15 +1822,24 @@ def phase_train_slice():
 # Each main train path at full width: batch x tokens a step.  qwen3-1.7b
 # takes 8 x 1024; recurrentgemma-2b, minitron-4b and yi-9b the reference's
 # train_4k sequence of 4096 tokens with its global batch of 256 cut to 2 for
-# one card, and rwkv6-7b likewise.  TRAIN_CUTS: the layers a model trains
-# at where its full depth does not fit one card (at 16 bytes a parameter,
-# bf16 weight and gradient and f32 master, mu and nu, minitron-4b's 4.39e9
-# parameters take 70 GB before the CE head's f32 copy and activations;
-# yi-9b's 8.83e9, 141 GB; rwkv6-7b's 7.58e9, 121 GB).
+# one card, and rwkv6-7b, the MoE models and minicpm3-4b likewise.
+# TRAIN_CUTS: the layers a model trains at where its full depth does not
+# fit one card (at 16 bytes a parameter, bf16 weight and gradient and f32
+# master, mu and nu, minitron-4b's 4.39e9 parameters take 70 GB before the
+# CE head's f32 copy and activations; yi-9b's 8.83e9, 141 GB; rwkv6-7b's
+# 7.58e9, 121 GB; qwen2-moe-a2.7b's 15.1e9, 242 GB, and qwen3-moe-30b-a3b's
+# 30.5e9, 489 GB, about 10 GB a layer beside 10 GB of embedding and head;
+# minicpm3-4b's 4.40e9, 70 GB, 1.04 GB a layer).  A depth probe of single
+# steps found the MoE models at 4 layers (5 ran out of memory in AdamW,
+# whose f32 temporaries of a leaf scale with the stacked experts: 3.44 GiB
+# a temporary at 5 layers) and minicpm3-4b at 50 (54 ran out of memory).
 TRAIN_SHAPES = {"qwen3-1.7b": (8, 1024), "recurrentgemma-2b": (2, 4096),
-                "minitron-4b": (2, 4096), "yi-9b": (2, 4096), "rwkv6-7b": (2, 4096)}
+                "minitron-4b": (2, 4096), "yi-9b": (2, 4096), "rwkv6-7b": (2, 4096),
+                "qwen2-moe-a2.7b": (2, 4096), "qwen3-moe-30b-a3b": (2, 4096),
+                "minicpm3-4b": (2, 4096)}
 TRAIN_CUTS = {"minitron-4b": {"n_layers": 26}, "yi-9b": {"n_layers": 16},
-              "rwkv6-7b": {"n_layers": 14}}
+              "rwkv6-7b": {"n_layers": 14}, "qwen2-moe-a2.7b": {"n_layers": 4},
+              "qwen3-moe-30b-a3b": {"n_layers": 4}, "minicpm3-4b": {"n_layers": 50}}
 TRAIN_STEPS = 3
 
 
@@ -1766,7 +1861,8 @@ def phase_train(arch):
     backward; minitron-4b at 26 layers 65 forward and 26 backward, yi-9b at
     16 layers 46 and 16, as qwen3's; rwkv6-7b at 14 layers, in remat groups
     of 2, 35 WKV forward, all on the chunk_exact route, and 14 WKV backward,
-    all on the chunk route);
+    all on the chunk route; the MoE models and minicpm3-4b at their cut
+    depths likewise, minicpm3-4b's flash launches all SIMT at (96, 64));
     then one more step under the profiler."""
     cfg = dataclasses.replace(get_config(arch), **TRAIN_CUTS.get(arch, {}))
     batch_size, seq = TRAIN_SHAPES[arch]
@@ -1834,8 +1930,9 @@ def phase_train(arch):
 # SERVE_NEW - 1 decode steps; recurrentgemma-2b runs flash (window 2048) once
 # in each of its 8 attn_local layers and the scan once in each of its 18
 # rglru layers, in prefill only (decode is plain, as in the JAX package);
-# yi-9b, minitron-4b, qwen2-moe-a2.7b and qwen3-moe-30b-a3b run flash once a
-# layer in prefill, as qwen3-1.7b.
+# yi-9b, minitron-4b, qwen2-moe-a2.7b, qwen3-moe-30b-a3b and minicpm3-4b run
+# flash once a layer in prefill, as qwen3-1.7b (minicpm3-4b's decode attends
+# over its compressed cache in plain PyTorch, as the JAX package does).
 SERVE_LAUNCHES = {
     "qwen3-1.7b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 28},
     "rwkv6-7b": {**dict.fromkeys(KERNELS, 0), "rwkv6_wkv_fwd": 32 * SERVE_NEW},
@@ -1845,10 +1942,15 @@ SERVE_LAUNCHES = {
     "minitron-4b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 32},
     "qwen2-moe-a2.7b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 24},
     "qwen3-moe-30b-a3b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 48},
+    "minicpm3-4b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 62},
 }
-# Every served flash launch is bf16 at head dim 128 or 256: the tensor-core route.
-SERVE_FLASH_ROUTES = {arch: {"wgmma": counts["flash_attention_fwd"], "simt": 0}
-                      for arch, counts in SERVE_LAUNCHES.items()}
+# Each served flash launch on the route of its model's head dims in bf16:
+# at 128 and 256 the tensor cores; minicpm3-4b's (96, 64) the SIMT route.
+SERVE_FLASH_ROUTES = {
+    arch: {r: counts["flash_attention_fwd"] * (
+        r == fa_kernel.route(torch.bfloat16, *attn_head_dims(get_config(arch))))
+        for r in fa_kernel.ROUTES}
+    for arch, counts in SERVE_LAUNCHES.items()}
 # rwkv6-7b's WKV launches by route: the 32 prefill launches (bf16, head dim 64,
 # 1024 steps) in chunks, the 2016 decode steps (T = 1) recurrent.
 SERVE_WKV_ROUTES = {arch: dict.fromkeys(wkv_kernel.ROUTES, 0) for arch in SERVE_LAUNCHES}
@@ -1856,10 +1958,82 @@ SERVE_WKV_ROUTES["rwkv6-7b"] = {"chunk": 32, "chunk_exact": 0,
                                "recurrent": 32 * (SERVE_NEW - 1)}
 
 
+# minicpm3-4b's serve, whose flash launches take the SIMT route at (96, 64),
+# is also held against its plain path at full depth (serve_against_plain).
+# In bf16 at 62 layers the plain versions disagree among themselves by
+# 2.9e-2 to 3.0e-2 of the prefill logits (chunked_attention at chunks of
+# 512 and 256, and the naive attention_reference: rounding's own spread,
+# PERF.md §6), more than a bf16 slice's 2e-2, so there each logit's
+# difference is held within SERVE_SPREAD_FACTOR of the larger of the two
+# plain versions' own in this run; in f32 at the f32 slices' 1e-4.
+SERVE_AGAINST_PLAIN = "minicpm3-4b"
+SERVE_SPREAD_FACTOR = 1.25
+
+
+def serve_against_plain(params, cfg, prompts, tokens):
+    """The served model's kernel path against its plain path (flash swapped
+    for chunked_attention), each on a cache of its own: the prefill logits
+    and those of SLICE_DECODE_STEPS decode steps fed the served tokens.
+    First on the served bf16 weights: each logit's ||a - b|| / ||b|| within
+    SERVE_SPREAD_FACTOR of the larger of two other plain versions' against
+    the same plain path (chunked_attention at chunks of 256, and the naive
+    attention_reference); then on f32 weights drawn from the same seed,
+    each within the f32 slices' tolerance.  The kernel path makes one flash
+    launch a layer in prefill, the plain paths none."""
+    def run(p, dtype, attn=None):
+        cache = lm.init_cache(cfg, prompts.shape[0], prompts.shape[1] + SLICE_DECODE_STEPS,
+                              dtype, "cuda")
+        with mock.patch.object(attention, "flash_attention", attn or attention.flash_attention):
+            reset_launches()
+            logits, cache = lm.prefill(p, cfg, cache, tokens=prompts)
+            out = [logits]
+            for t in range(SLICE_DECODE_STEPS):
+                logits, cache = lm.decode_step(p, cfg, cache, tokens[:, t:t + 1])
+                out.append(logits)
+        n = read_launches()["flash_attention_fwd"]
+        if n != (0 if attn else cfg.n_layers):
+            raise AssertionError(f"serve {cfg.name} against the plain path: {n} flash launches "
+                                 f"on the {'plain' if attn else 'kernel'} path")
+        if not all(torch.isfinite(x).all() for x in out):
+            raise AssertionError(f"serve {cfg.name} {dtype_name(dtype)}: non-finite logits")
+        return out
+
+    def rels(a, b):
+        return [rel_err(x, y) for x, y in zip(a, b)]
+
+    def fmt(rs):
+        return [float(f"{r:.3e}") for r in rs]
+    plain = run(params, torch.bfloat16, fa_ops.chunked_attention)
+    kernel = rels(run(params, torch.bfloat16), plain)
+    at_256 = rels(run(params, torch.bfloat16, functools.partial(
+        fa_ops.chunked_attention, q_chunk=256, k_chunk=256)), plain)
+    naive = rels(run(params, torch.bfloat16, fa_ref.attention_reference), plain)
+    spread = [max(a, b) for a, b in zip(at_256, naive)]
+    log(f"[serve] {cfg.name}, {cfg.n_layers} layers, bf16, against the plain path: prefill and "
+        f"{SLICE_DECODE_STEPS} decode steps fed the served tokens, logits rel_err {fmt(kernel)} "
+        f"(tol {SERVE_SPREAD_FACTOR} x the plain versions' spread); the plain path at chunks of "
+        f"256 against it {fmt(at_256)}, the naive reference {fmt(naive)}")
+    if any(k > SERVE_SPREAD_FACTOR * w for k, w in zip(kernel, spread)):
+        raise AssertionError(f"serve {cfg.name} bf16 against the plain path: logits rel_err "
+                             f"{fmt(kernel)} beyond {SERVE_SPREAD_FACTOR} x the plain "
+                             f"versions' own {fmt(spread)}")
+    dtype, tol = SLICE_DTYPES[0]
+    p = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype, "cuda")
+    held = rels(run(p, dtype), run(p, dtype, fa_ops.chunked_attention))
+    log(f"[serve] {cfg.name}, {cfg.n_layers} layers, {dtype_name(dtype)}, against the plain "
+        f"path: logits rel_err {fmt(held)} (tol {tol}); flash launches {cfg.n_layers} "
+        "in prefill on the kernel path, 0 on the plain paths")
+    if max(held) > tol:
+        raise AssertionError(f"serve {cfg.name} {dtype_name(dtype)} against the plain path: "
+                             f"logits rel_err {max(held)} > {tol}")
+
+
 def phase_serve(arch):
     """The main path: serve one model at full width through the entry point.
     An MoE model's prefill must give the same logits to the bit in the
-    warm-up and in the timed serve: its combine adds in a fixed order."""
+    warm-up and in the timed serve: its combine adds in a fixed order.
+    SERVE_AGAINST_PLAIN is then held against its plain path
+    (serve_against_plain)."""
     cfg = get_config(arch)
     params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda")
     n_params = numel(params)
@@ -1918,6 +2092,8 @@ def phase_serve(arch):
                                  "logits that differ")
         log(f"[serve] {cfg.name}: two bf16 prefills of the same prompts (the warm-up's and "
             "the timed serve's) gave the same logits to the bit")
+    if arch == SERVE_AGAINST_PLAIN:
+        serve_against_plain(params, cfg, prompts, gen.tokens)
     return params, cfg, prompts, launches, routes, wkv_routes_
 
 
@@ -2029,9 +2205,43 @@ def sdpa_call(q, k, v, case):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+# PyTorch's fused attention backends, in the order fused_sdpa tries them.
+FUSED_SDPA = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def fused_sdpa(fn):
+    """(fn run under the first of PyTorch's fused attention backends that
+    takes its inputs, that backend's name), or (None, {backend: why not})
+    where none does.  Where Dv differs from Dk (MLA's 96 and 64) the
+    default choice may fall back to the unfused math backend, which would
+    be no yardstick; this names the fused backend that ran."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    refused = {}
+    for name in FUSED_SDPA:
+        def call(backend=getattr(SDPBackend, name)):
+            with sdpa_kernel([backend]):
+                return fn()
+        try:
+            call()
+        except RuntimeError as err:
+            refused[name] = " ".join(str(err).split())[:300]
+            continue
+        return call, name
+    return None, refused
+
+
+def library_attention(fn, case):
+    """The library yardstick for a case: fn (an SDPA call) as it is where
+    Dk equals Dv, else fused_sdpa(fn); with the backend's name (None for
+    the default choice) or the refusals."""
+    if case[5] == case[6]:
+        return fn, None
+    return fused_sdpa(fn)
+
+
 # Calls a timed run of (kernel, plain version, library) at each flash path's shape.
 FLASH_ITERS = {"qwen3-1.7b": (100, 10, 100), "recurrentgemma-2b": (20, 2, 10),
-               "yi-9b": (50, 5, 50)}
+               "yi-9b": (50, 5, 50), "minicpm3-4b": (20, 2, 20)}
 
 
 def phase_timings():
@@ -2040,37 +2250,47 @@ def phase_timings():
     calls; then kernel and library again by device time a call (device_ms),
     which leaves out the host's time between launches (the kernel wrapper's
     checks, three tensor maps and a ctypes call), so that the two are
-    compared on the card's time alone."""
+    compared on the card's time alone.  At minicpm3-4b's (96, 64) the
+    library is the first fused backend that takes Dv != Dk
+    (library_attention), or none."""
     out = {}
     for arch, case in FLASH_PATHS.items():
         q, k, v = case_inputs(case, torch.bfloat16, seed=123)
         kw = case_kwargs(case)
-        library = sdpa_call(q, k, v, case)  # yardstick only: the port never calls it
-        lib_err = (library().transpose(1, 2).float()
-                   - fa_kernel.flash_attention_fwd(q, k, v, **kw).float()).abs().max().item()
+        # yardstick only: the port never calls it
+        library, backend = library_attention(sdpa_call(q, k, v, case), case)
         it_kernel, it_plain, it_library = FLASH_ITERS[arch]
-        ms, times = in_turns({
-            "kernel": (lambda: fa_kernel.flash_attention_fwd(q, k, v, **kw), it_kernel),
-            "plain": (lambda: fa_ops.chunked_attention(q, k, v, **kw), it_plain),
-            "library": (library, it_library),
-        })
+        fns = {"kernel": (lambda: fa_kernel.flash_attention_fwd(q, k, v, **kw), it_kernel),
+               "plain": (lambda: fa_ops.chunked_attention(q, k, v, **kw), it_plain)}
+        if library is None:
+            lib_note = f"no fused backend takes it: {json.dumps(backend)}"
+        else:
+            lib_err = (library().transpose(1, 2).float()
+                       - fa_kernel.flash_attention_fwd(q, k, v, **kw).float()).abs().max().item()
+            lib_note = (f"max_abs_err against the kernel {lib_err:.3e}"
+                        + (f", backend {backend}" if backend else ""))
+            fns["library"] = (library, it_library)
+        ms, times = in_turns(fns)
         bound_ms, bound_by, flops, nbytes = attention_bound(case, torch.bfloat16)
+        lib_ms = f"{ms['library']:.4f} ms" if library else "none"
         log(f"[timings] flash_attention_fwd, {arch} prefill: q {tuple(q.shape)} k,v "
-            f"{tuple(k.shape)} bf16 causal, window {case[8]}, median of 4: kernel "
+            f"{tuple(k.shape)}, {tuple(v.shape)} bf16 causal, window {case[8]}, route "
+            f"{fa_kernel.route(torch.bfloat16, case[5], case[6])}, median of 4: kernel "
             f"{ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; "
-            f"scaled_dot_product_attention {ms['library']:.4f} ms (max_abs_err against the "
-            f"kernel {lib_err:.3e}); bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} "
-            f"FLOP, {nbytes} bytes)")
+            f"scaled_dot_product_attention {lib_ms} ({lib_note}); bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
         log(f"[timings] all runs (ms): {json.dumps(times)}")
-        dev, dev_times = in_turns({"kernel": (lambda: fa_kernel.flash_attention_fwd(q, k, v, **kw),
-                                              it_kernel),
-                                   "library": (library, it_library)}, device_ms)
+        dev_fns = {name: fns[name] for name in ("kernel", "library") if name in fns}
+        dev, dev_times = in_turns(dev_fns, device_ms)
         log(f"[timings] flash_attention_fwd, {arch} prefill, device time a call, median of 4: "
             f"kernel {dev['kernel']:.4f} ms; scaled_dot_product_attention "
-            f"{dev['library']:.4f} ms; all runs (ms): {json.dumps(dev_times)}")
+            + (f"{dev['library']:.4f} ms" if library else "none")
+            + f"; all runs (ms): {json.dumps(dev_times)}")
         out[arch] = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=ms["library"],
-                         device_ms=dev["kernel"], library_device_ms=dev["library"])
+                         bound_by=bound_by, library_ms=ms.get("library"),
+                         device_ms=dev["kernel"], library_device_ms=dev.get("library"))
+        if case[5] != case[6]:
+            out[arch]["library"] = backend if library else f"none: {json.dumps(backend)}"
     return out
 
 
@@ -2145,14 +2365,16 @@ def bwd_device_ms(case, calls=5):
 
 # Each train path's backward shape, bf16 (recurrentgemma's at the 10 heads
 # its step launches; minitron-4b's, 32 heads over 8 kv heads at yi-9b's
-# tokens, is held in phase_bwd_cases but not timed), and the calls a timed
-# run makes of (kernel, plain version, library forward + backward, library
-# forward), and the calls of
-# each profiler session (bwd_device_ms).  Then recurrentgemma's at 16 heads,
-# as earlier runs launched it, timed beside its path to compare with them.
+# tokens, qwen3-moe's, which is yi-9b's, and qwen2-moe's, 16 heads over 16,
+# are held in phase_bwd_cases but not timed; minicpm3-4b's at (96, 64) on the SIMT
+# route), and the calls a timed run makes of (kernel, plain version,
+# library forward + backward, library forward), and the calls of each
+# profiler session (bwd_device_ms).  Then recurrentgemma's at 16 heads, as
+# earlier runs launched it, timed beside its path to compare with them.
 BWD_PATHS = {"qwen3-1.7b": (QWEN3_TRAIN, (20, 3, 20, 20), 5),
              "recurrentgemma-2b": (RECURRENTGEMMA_TRAIN_10H, (10, 1, 5, 5), 5),
-             "yi-9b": (YI_TRAIN, (10, 1, 10, 10), 5)}
+             "yi-9b": (YI_TRAIN, (10, 1, 10, 10), 5),
+             "minicpm3-4b": (MINICPM3_TRAIN, (3, 1, 5, 5), 3)}
 BWD_AT_16_HEADS = (RECURRENTGEMMA_TRAIN, (10, 1, 5, 5), 5)
 
 
@@ -2196,46 +2418,53 @@ def _bwd_timings(arch, case, iters, calls):
 
     def sdpa_fwd():
         return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **mask)
+    sdpa_fwd, backend = library_attention(sdpa_fwd, case)
 
     def sdpa_fwd_bwd():
         return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
 
     def kernel():
         return fa_kernel.flash_attention_bwd(q, k, v, o, dout, lse, **kw)
-    lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
-                  for a, b in zip(sdpa_fwd_bwd(), kernel()))
     it_kernel, it_plain, it_fwd_bwd, it_fwd = iters
-    ms, times = in_turns({
-        "kernel": (kernel, it_kernel),
-        "plain": (lambda: fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, lse=lse, **kw),
-                  it_plain),
-        "sdpa_fwd_bwd": (sdpa_fwd_bwd, it_fwd_bwd),
-        "sdpa_fwd": (sdpa_fwd, it_fwd),
-    })
-    library = ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"]
+    fns = {"kernel": (kernel, it_kernel),
+           "plain": (lambda: fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, lse=lse, **kw),
+                     it_plain)}
+    if sdpa_fwd is None:
+        lib_note = f"no fused backend takes it: {json.dumps(backend)}"
+    else:
+        lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
+                      for a, b in zip(sdpa_fwd_bwd(), kernel()))
+        lib_note = (f"its gradients against the kernel's: max_abs_err {lib_err:.3e}"
+                    + (f"; backend {backend}" if backend else ""))
+        fns.update(sdpa_fwd_bwd=(sdpa_fwd_bwd, it_fwd_bwd), sdpa_fwd=(sdpa_fwd, it_fwd))
+    ms, times = in_turns(fns)
+    library = ms["sdpa_fwd_bwd"] - ms["sdpa_fwd"] if sdpa_fwd else None
     bound_ms, bound_by, flops, nbytes = bwd_bound(case, torch.bfloat16)
+    lib_ms = (f"{library:.4f} ms (forward + backward {ms['sdpa_fwd_bwd']:.4f} less forward "
+              f"{ms['sdpa_fwd']:.4f}; {lib_note})" if sdpa_fwd else f"none ({lib_note})")
     log(f"[timings] flash_attention_bwd, {arch} train, route {route}: q {tuple(q.shape)} "
-        f"k,v {tuple(k.shape)} bf16 causal, window {window}, median of 4: kernel "
-        f"{ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; scaled_dot_product_attention "
-        f"backward {library:.4f} ms (forward + backward {ms['sdpa_fwd_bwd']:.4f} less forward "
-        f"{ms['sdpa_fwd']:.4f}; its gradients against the kernel's: max_abs_err {lib_err:.3e}); "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
+        f"k,v {tuple(k.shape)}, {tuple(v.shape)} bf16 causal, window {window}, median of 4: "
+        f"kernel {ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; "
+        f"scaled_dot_product_attention backward {lib_ms}; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
     log(f"[timings] all runs (ms): {json.dumps(times)}")
-    dev, dev_times = in_turns({"kernel": (kernel, it_kernel),
-                               "sdpa_fwd_bwd": (sdpa_fwd_bwd, it_fwd_bwd),
-                               "sdpa_fwd": (sdpa_fwd, it_fwd)}, device_ms)
+    dev, dev_times = in_turns({name: fns[name] for name in ("kernel", "sdpa_fwd_bwd", "sdpa_fwd")
+                               if name in fns}, device_ms)
+    lib_dev = dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"] if sdpa_fwd else None
     log(f"[timings] flash_attention_bwd, {arch} train, device time a call, median of 4: "
         f"kernel {dev['kernel']:.4f} ms; scaled_dot_product_attention backward "
-        f"{dev['sdpa_fwd_bwd'] - dev['sdpa_fwd']:.4f} ms (forward + backward "
-        f"{dev['sdpa_fwd_bwd']:.4f} less forward {dev['sdpa_fwd']:.4f}); all runs (ms): "
-        f"{json.dumps(dev_times)}")
+        + (f"{lib_dev:.4f} ms (forward + backward {dev['sdpa_fwd_bwd']:.4f} less forward "
+           f"{dev['sdpa_fwd']:.4f})" if sdpa_fwd else "none")
+        + f"; all runs (ms): {json.dumps(dev_times)}")
     stages = bwd_device_ms(case, calls)
     log(f"[timings] flash_attention_bwd, {arch} train, device ms a launch by kernel "
         f"(profiler): {json.dumps(stages)}")
-    return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library, device_ms=dev["kernel"],
-                library_device_ms=dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"],
-                stage_device_ms=stages)
+    out = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library, device_ms=dev["kernel"], library_device_ms=lib_dev,
+               stage_device_ms=stages)
+    if case[5] != case[6]:
+        out["library"] = backend if sdpa_fwd else f"none: {json.dumps(backend)}"
+    return out
 
 
 def phase_wkv_timings():
@@ -2243,8 +2472,10 @@ def phase_wkv_timings():
     shapes, bf16, in turns, each on the route kernel.route() names (chunk,
     recurrent); at the prefill shape also the recurrent kernel, which that
     shape no longer takes, as a yardstick (through kernel.launch; the
-    launches the kernels line reports were read before, on the main paths).  No single PyTorch call computes the recurrence, so there is no
-    library time.  At the prefill shape, CUDA events around
+    launches the kernels line reports are read on the main paths, each
+    from counters set to 0 just before it).  No single PyTorch call
+    computes the recurrence, so there is no library time.  At the prefill
+    shape, CUDA events around
     back-to-back calls.  At the decode shape a launch takes microseconds and
     back-to-back calls are bound by the wrapper's host cost, so ms and
     plain_ms are device time a call (device_ms), and host_ms is the kernel's
@@ -2650,6 +2881,19 @@ def main() -> int:
     wkv_bwd_worst = run("wkv bwd cases", phase_wkv_bwd_cases)
     run("slices", phase_slice)
     run("train slices", phase_train_slice)
+    # The timings come before the serve and train phases: after a profiled
+    # step of some 20,000 kernels the profiler's later sessions of a few
+    # launches come back partial or empty, and ms_a_launch gives up after
+    # PROFILE_TRIES empty sessions.
+    fa_t = run("timings", phase_timings)
+    bwd_t = run("timings", phase_bwd_timings)
+    wkv_t = run("timings", phase_wkv_timings)
+    scan_t = run("timings", phase_scan_timings)
+    scan_bwd_t = run("timings", phase_scan_bwd_timings)
+    wkv_bwd_t = run("timings", phase_wkv_bwd_timings)
+    log(f"[timings] device_ms: {DEVICE_MS_TALLY['measurements']} measurements in "
+        f"{DEVICE_MS_TALLY['runs']} timed runs")
+    torch.cuda.empty_cache()
     by_path, routes_by_path, wkv_routes_by_path = {}, {}, {}
     for arch in SERVE_LAUNCHES:
         (params, cfg, prompts, by_path[arch], routes_by_path[arch],
@@ -2661,14 +2905,6 @@ def main() -> int:
     for arch in TRAIN_SHAPES:  # one model's weights and state at a time
         train[arch] = run(f"train {arch}", phase_train, arch)
         torch.cuda.empty_cache()
-    fa_t = run("timings", phase_timings)
-    bwd_t = run("timings", phase_bwd_timings)
-    wkv_t = run("timings", phase_wkv_timings)
-    scan_t = run("timings", phase_scan_timings)
-    scan_bwd_t = run("timings", phase_scan_bwd_timings)
-    wkv_bwd_t = run("timings", phase_wkv_bwd_timings)
-    log(f"[timings] device_ms: {DEVICE_MS_TALLY['measurements']} measurements in "
-        f"{DEVICE_MS_TALLY['runs']} timed runs")
     log(f"[done] {time.perf_counter() - t_start:.1f} s; by phase (s): {json.dumps(seconds)}")
 
     def launches(kernel, timed=None):

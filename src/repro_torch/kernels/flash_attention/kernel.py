@@ -43,9 +43,9 @@ BWD_SOURCES = [_CSRC / "flash_attention_bwd.cu", _CSRC / "flash_attention_bwd_sm
 # compiles it for every pair not on the tensor cores (route_condition).
 HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (80, 80), (96, 64), (128, 128),
                        (256, 256)})
-# (Dk, Dv) pairs the backward takes.  The others ((80, 80), (96, 64)) wait
-# for their backward: ROADMAP.md B4.
-BWD_HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (128, 128), (256, 256)})
+# (Dk, Dv) pairs the backward takes.  The other, (80, 80), waits for its
+# backward: ROADMAP.md B4.
+BWD_HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (96, 64), (128, 128), (256, 256)})
 # The route rule: bf16 at these pairs runs on the tensor cores.
 WGMMA_HEAD_DIMS = frozenset({(128, 128), (256, 256)})
 BWD_WGMMA_HEAD_DIMS = frozenset({(128, 128), (256, 256)})

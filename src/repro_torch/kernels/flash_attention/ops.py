@@ -1,9 +1,9 @@
 """Attention entry points (``repro.kernels.flash_attention.ops`` twin).
 
 * ``flash_attention`` — the entry point the models call.  A CUDA tensor goes
-  through ``FlashAttention``: forward by the hand-written kernel
-  (``kernel.flash_attention_fwd``, which also writes each row's lse when an
-  input requires grad), gradient by the backward kernel
+  through ``FlashAttention`` (``flash_attention_cuda``): forward by the
+  hand-written kernel (``kernel.flash_attention_fwd``, which also writes
+  each row's lse when the call makes a gradient), gradient by the backward kernel
   (``kernel.flash_attention_bwd``, which reads it).  A CPU tensor
   goes to ``chunked_attention``, which torch differentiates.  There is no
   other switch.
@@ -105,15 +105,19 @@ def decode_attention(q, k_cache, v_cache, length: int):
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention with a kernel each way.  When an input requires grad, the
-    forward kernel also writes each row's lse, and the forward saves q, k,
-    v, its output and the lse for the backward kernel; otherwise (serving)
-    it writes and saves nothing.  The masks take no gradient."""
+    """Attention with a kernel each way.  ``grad``: the call makes a
+    gradient (grad mode on and an input that requires grad, which
+    ``flash_attention_cuda`` decides: inside ``forward`` grad mode is off and
+    ``ctx.needs_input_grad`` follows requires_grad alone).  Then the forward
+    kernel also writes each row's lse, and the forward saves q, k, v, its
+    output and the lse for the backward kernel; otherwise (serving, or a
+    no_grad call on a trainer's parameters) it writes and saves nothing.
+    The masks take no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_len, grad):
         ctx.masks = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
-        if not any(ctx.needs_input_grad[:3]):
+        if not grad:
             return flash_attention_fwd(q, k, v, **ctx.masks)
         o, lse = flash_attention_fwd(q, k, v, with_lse=True, **ctx.masks)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -124,7 +128,16 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, dout.contiguous(), lse, **ctx.masks)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_cuda(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None):
+    """``flash_attention`` on the card: ``FlashAttention``, making a gradient
+    when grad mode is on and an input requires grad (a no_grad or
+    inference_mode call on a trainer's parameters serves: no lse)."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal, window, q_offset, kv_len, grad)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None):
@@ -133,11 +146,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=Non
     q: (B, Sq, H, Dk); k: (B, Sk, KH, Dk); v: (B, Sk, KH, Dv).  The kernels
     mask the ragged edge of the last q and kv tiles themselves, so nothing is
     padded.  ``kv_len`` masks trailing (padded) keys.  On the card the result
-    has a ``grad_fn`` whenever an input requires grad.
+    has a ``grad_fn`` whenever grad mode is on and an input requires grad.
     """
     if q.device.type == "cuda":
-        return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                    causal, window, q_offset, kv_len)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                    kv_len=kv_len)
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, kv_len=kv_len)

@@ -1,5 +1,5 @@
-"""LM assembly (``repro.models.lm`` twin) for the dense GQA decoder (with an
-MLP or a MoE branch), RWKV6 and the RG-LRU hybrid.
+"""LM assembly (``repro.models.lm`` twin) for the dense decoder with GQA or MLA
+attention (with an MLP or a MoE branch), RWKV6 and the RG-LRU hybrid.
 
 Modes:
   train   — full-sequence forward + chunked CE loss (no cache)
@@ -24,7 +24,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import resolve_device
 from repro_torch.types import ArchConfig
 
-from .attention import gqa_block
+from .attention import gqa_block, mla_block
 from .layers import chunked_ce_loss, mlp_apply, rms_norm
 from .moe import moe_block
 from .rglru import rglru_block
@@ -65,7 +65,9 @@ def _maybe_remat(fn, remat):
 def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int):
     """One layer's cache as Params: the GQA KV cache {"k", "v"} of (B, S, KH,
     hd), an ``attn_local`` layer holding min(local_window, max_len) slots; the
-    RWKV6 state {"s", "x_tm", "x_cm"} or the RG-LRU state {"h", "conv"}, f32."""
+    MLA cache {"ckv", "krope"}, the normed latent (B, S, kv_lora_rank) and the
+    rotated shared key (B, S, qk_rope_dim); the RWKV6 state {"s", "x_tm",
+    "x_cm"} or the RG-LRU state {"h", "conv"}, f32."""
     if kind == "rwkv":
         hd = cfg.rwkv_head_dim
         emb = Param((batch, cfg.d_model), ("batch", "embed"), "zeros", dtype="float32")
@@ -77,10 +79,15 @@ def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int):
         return {"h": Param((batch, W), ("batch", "lru_blocks"), "zeros", dtype="float32"),
                 "conv": Param((batch, 3, W), ("batch", None, "lru_blocks"), "zeros",
                               dtype="float32")}
-    if kind not in ("attn", "attn_local") or cfg.attn_kind != "gqa":
+    if kind not in ("attn", "attn_local") or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.name}: block kind {kind!r} with attn_kind "
                                   f"{cfg.attn_kind!r} has no ported cache yet")
     S = min(cfg.local_window, max_len) if kind == "attn_local" else max_len
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return {"ckv": Param((batch, S, m.kv_lora_rank), ("batch", "kv_seq", "lora"), "zeros"),
+                "krope": Param((batch, S, m.qk_rope_dim), ("batch", "kv_seq", "qk_dim"),
+                               "zeros")}
     kv = Param((batch, S, cfg.n_kv_heads, cfg.head_dim),
                ("batch", "kv_seq", "kv_heads", "head_dim"), "zeros")
     return {"k": kv, "v": kv}
@@ -121,10 +128,11 @@ def _block_apply(kind, p, x, *, cfg, positions, mode, cache, pos):
     if kind == "rglru":
         x, new_cache = rglru_block(p, x, cfg=cfg, mode=mode, cache=cache)
         _store(cache, new_cache)
-    elif kind in ("attn", "attn_local") and cfg.attn_kind == "gqa":
+    elif kind in ("attn", "attn_local") and cfg.attn_kind in ("gqa", "mla"):
         window = cfg.local_window if kind == "attn_local" else None
-        x, new_cache = gqa_block(p, x, cfg=cfg, positions=positions, mode=mode,
-                                 cache=cache, pos=pos, window=window)
+        fn = mla_block if cfg.attn_kind == "mla" else gqa_block
+        x, new_cache = fn(p, x, cfg=cfg, positions=positions, mode=mode, cache=cache, pos=pos,
+                          window=window)
     else:
         raise NotImplementedError(f"{cfg.name}: block kind {kind!r} is not ported yet")
     if cfg.moe is not None:

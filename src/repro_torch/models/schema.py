@@ -7,8 +7,9 @@ made by either package feeds the other.  Initialization follows the same
 distributions (``fan_in``, ``normal``, ``zeros``, ``lru_lambda``), drawn from
 a ``torch.Generator``; it does not give the JAX package's bits.
 
-The port covers the dense GQA decoder (gated or ungated MLP, or MoE), the
-RWKV6 block and the RG-LRU hybrid; MLA and encoder-only models raise.
+The port covers the dense decoder with GQA or MLA attention (gated or
+ungated MLP, or MoE), the RWKV6 block and the RG-LRU hybrid; encoder-only
+models raise.
 """
 from __future__ import annotations
 
@@ -49,6 +50,26 @@ def _attn_schema(cfg: ArchConfig):
         s["q_norm"] = Param((hd,), ("head_dim",), "zeros")
         s["k_norm"] = Param((hd,), ("head_dim",), "zeros")
     return s
+
+
+def _mla_schema(cfg: ArchConfig):
+    """Multi-head latent attention: the query's low-rank path (wq_a, its
+    norm, wq_b to nope + rope dims a head), the joint kv compression (wkv_a
+    to the latent and the shared rotary key, the latent's norm, wkv_b to
+    nope + v dims a head) and wo from the v dims."""
+    d, h, m = cfg.d_model, cfg.padded_heads, cfg.mla
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "ln1": Param((d,), ("embed",), "zeros"),
+        "wq_a": Param((d, m.q_lora_rank), ("embed", "lora")),
+        "q_a_norm": Param((m.q_lora_rank,), ("lora",), "zeros"),
+        "wq_b": Param((m.q_lora_rank, h, qk), ("lora", "heads", "qk_dim")),
+        "wkv_a": Param((d, m.kv_lora_rank + m.qk_rope_dim), ("embed", "lora")),
+        "kv_a_norm": Param((m.kv_lora_rank,), ("lora",), "zeros"),
+        "wkv_b": Param((m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim),
+                       ("lora", "heads", "qk_dim")),
+        "wo": Param((h, m.v_head_dim, d), ("heads", "v_dim", "embed")),
+    }
 
 
 def _mlp_schema(cfg: ArchConfig, d_ff=None, prefix="mlp_", ffn_axis="ffn"):
@@ -135,8 +156,8 @@ def block_schema(cfg: ArchConfig, kind: str):
         return _rwkv_schema(cfg)
     if kind == "rglru":
         s = _rglru_schema(cfg)
-    elif kind in ("attn", "attn_local") and cfg.attn_kind == "gqa":
-        s = _attn_schema(cfg)
+    elif kind in ("attn", "attn_local") and cfg.attn_kind in ("gqa", "mla"):
+        s = _attn_schema(cfg) if cfg.attn_kind == "gqa" else _mla_schema(cfg)
     else:
         raise NotImplementedError(
             f"{cfg.name}: block kind {kind!r} with attn_kind {cfg.attn_kind!r} "

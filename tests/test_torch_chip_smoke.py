@@ -743,3 +743,172 @@ def test_forward_of_a_gradient_takes_the_recurrent_route():
         "chunk": 0, "chunk_exact": 0, "recurrent": 5}
     assert chip_smoke.wkv_routes(cfg, torch.bfloat16, 200, 5, 0) == {
         "chunk": 5, "chunk_exact": 0, "recurrent": 0}
+
+
+def test_minicpm3_shapes_join_the_kernel_and_backward_cases():
+    """minicpm3-4b's prefill and train shapes at (96, 64), 48 heads over 48,
+    forward and backward, on the SIMT route in either dtype; the train
+    shape with dout 0 on its 8 padded heads; each timed on its path."""
+    for case in (chip_smoke.MINICPM3_PREFILL, chip_smoke.MINICPM3_TRAIN):
+        assert case[3:7] == (48, 48, 96, 64) and case[7] and case[8] is None
+        assert case in chip_smoke.KERNEL_CASES and case in chip_smoke.BWD_CASES
+        for dtype in (torch.float32, torch.bfloat16):
+            assert chip_smoke.fa_kernel.route(dtype, 96, 64) == "simt"
+            assert chip_smoke.fa_kernel.route(dtype, 96, 64, backward=True) == "simt"
+    assert chip_smoke.MINICPM3_PREFILL[:3] == (8, 1024, 1024)
+    assert chip_smoke.MINICPM3_TRAIN[:3] == (2, 4096, 4096)
+    assert chip_smoke.BWD_REAL_HEADS[chip_smoke.MINICPM3_TRAIN] == 40
+    assert (2, 32, 32, 4, 4, 96, 64, True, None, 0, None) in chip_smoke.BWD_CASES
+    assert chip_smoke.FLASH_PATHS["minicpm3-4b"] == chip_smoke.MINICPM3_PREFILL
+    assert chip_smoke.BWD_PATHS["minicpm3-4b"][0] == chip_smoke.MINICPM3_TRAIN
+    assert len(set(chip_smoke.BWD_CASES)) == len(chip_smoke.BWD_CASES)
+
+
+def test_backward_bound_at_minicpm3_train_shape():
+    """48 heads over 2 x 4096 causal queries: 805,502,976 pairs, three
+    products of 2 x 96 and two of 2 x 64 FLOP a pair, 6.70e11 FLOP, 0.678 ms
+    at 989 TFLOP/s.  The forward at the prefill shape is bound by its bytes:
+    251 MB, 0.075 ms at 3.35 TB/s, beside 6.45e10 FLOP, 0.065 ms."""
+    case = chip_smoke.MINICPM3_TRAIN
+    bound_ms, bound_by, flops, nbytes = chip_smoke.bwd_bound(case, torch.bfloat16)
+    pairs = 2 * 48 * 4096 * 4097 // 2
+    assert chip_smoke.visible_pairs(case) == pairs == 805_502_976
+    assert flops == 2 * pairs * (3 * 96 + 2 * 64)
+    assert nbytes == 2 * (2 * 2 * 4096 * 48 * 160 + 2 * 2 * 4096 * 48 * 160) + 4 * 2 * 48 * 4096
+    assert bound_by == "operations" and abs(bound_ms - 0.6776) < 1e-4
+    fwd_ms, fwd_by, fwd_flops, _ = chip_smoke.attention_bound(chip_smoke.MINICPM3_PREFILL,
+                                                              torch.bfloat16)
+    assert fwd_flops == 2 * (8 * 48 * 1024 * 1025 // 2) * 160 and fwd_by == "bytes"
+    assert abs(fwd_ms - 2 * 8 * 1024 * 48 * (96 + 96 + 64 + 64) / 3.35e9) < 1e-9
+
+
+def test_spill_check_finds_the_mla_backward_kernels():
+    """The SIMT backward's kernels at (96, 64), in either dtype, and none of
+    the other head dims'."""
+    dkdv = ("_ZN55_GLOBAL__N__77aa_13attn_bwd_dkdvI13__nv_bfloat16Li96ELi64ELi32ELi64EEEv"
+            "NS_6ParamsE")
+    dq = "_ZN55_GLOBAL__N__77aa_11attn_bwd_dqIfLi96ELi64ELi64ELi64EEEvNS_6ParamsE"
+    text = _log(_entry(dkdv), _entry(dq), _entry(SIMT_BWD, 8, 8))
+    assert chip_smoke.spilling_entries(text, chip_smoke.MLA_BWD_SYMBOLS) == (2, [])
+    seen, spills = chip_smoke.spilling_entries(_log(_entry(dkdv), _entry(dq, 4, 4)),
+                                               chip_smoke.MLA_BWD_SYMBOLS)
+    assert seen == 2 and len(spills) == 1 and spills[0].startswith(dq)
+
+
+def test_serve_launches_of_minicpm3():
+    """62 flash launches in prefill, each on the SIMT route at (96, 64), no
+    lse; the others' routes unchanged; its full-depth serve held against
+    the plain path, in f32 at the f32 slices' tolerance and in bf16 within
+    1.25 x the plain versions' own spread (at 62 layers that spread exceeds
+    a bf16 slice's 2e-2)."""
+    assert chip_smoke.SERVE_LAUNCHES["minicpm3-4b"] == {**dict.fromkeys(chip_smoke.KERNELS, 0),
+                                                        "flash_attention_fwd": 62}
+    assert chip_smoke.SERVE_FLASH_ROUTES["minicpm3-4b"] == {"wgmma": 0, "simt": 62}
+    assert chip_smoke.SERVE_FLASH_ROUTES["qwen3-1.7b"] == {"wgmma": 28, "simt": 0}
+    assert chip_smoke.SERVE_PROMPT["minicpm3-4b"] == 1024
+    assert chip_smoke.SERVE_AGAINST_PLAIN == "minicpm3-4b"
+    assert chip_smoke.SERVE_SPREAD_FACTOR == 1.25
+    assert chip_smoke.SLICE_DTYPES[0] == (torch.float32, 1e-4)
+    assert chip_smoke.attn_head_dims(chip_smoke.get_config("minicpm3-4b")) == (96, 64)
+    assert chip_smoke.attn_head_dims(chip_smoke.get_config("yi-9b")) == (128, 128)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "minitron-4b", "yi-9b", "qwen2-moe-a2.7b",
+                                  "qwen3-moe-30b-a3b", "minicpm3-4b"])
+def test_train_path_flash_shapes_are_kernel_and_backward_cases(arch):
+    """Each train path whose layers all attend globally gives the flash
+    forward (with the lse) and the backward one shape, its padded heads
+    over its kv heads (MLA: one a query head) at its train batch and
+    sequence: a case of KERNEL_CASES and of BWD_CASES, so both kernels are
+    held against their plain versions at it in f32 and bf16.  qwen2-moe's
+    (16 over 16) is a case of its own, last in both lists, so no earlier
+    case's seed moves; qwen3-moe's is yi-9b's."""
+    cfg = chip_smoke.get_config(arch)
+    batch, seq = chip_smoke.TRAIN_SHAPES[arch]
+    kv = cfg.padded_heads if cfg.attn_kind == "mla" else cfg.n_kv_heads
+    case = (batch, seq, seq, cfg.padded_heads, kv, *chip_smoke.attn_head_dims(cfg), True, None,
+            0, None)
+    assert case in chip_smoke.KERNEL_CASES and case in chip_smoke.BWD_CASES
+    assert chip_smoke.KERNEL_CASES[-1] == chip_smoke.BWD_CASES[-1] == chip_smoke.QWEN2_MOE_TRAIN
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "minicpm3-4b"])
+def test_train_launches_of_the_new_models(arch):
+    """At the cut depth, 3 L - L / k flash forward launches (k the remat
+    group), each writing the lse, and L backward: the MoE models' on the
+    tensor cores at 128, minicpm3-4b's on the SIMT route at (96, 64); in
+    f32 all SIMT.  Their train slices: 2 layers, 2 x 64 tokens, flash
+    swapped for chunked_attention on the plain path."""
+    cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config(arch),
+                                         **chip_smoke.TRAIN_CUTS[arch])
+    assert chip_smoke.TRAIN_SHAPES[arch] == (2, 4096)
+    n = cfg.n_layers
+    k = next(g for g in (8, 4, 2, 1) if n % g == 0)
+    want = chip_smoke.want_train_launches(cfg, torch.bfloat16, 4096)
+    route = "simt" if arch == "minicpm3-4b" else "wgmma"
+    assert {name: want[name] for name in chip_smoke.KERNELS} == chip_smoke.train_launches(n)
+    assert want["flash_attention_fwd"] == 3 * n - n // k
+    assert want["flash_attention_fwd by route"][route] == 3 * n - n // k
+    assert want["flash_attention_bwd by route"][route] == n
+    assert want["flash_attention_fwd with lse"] == 3 * n - n // k
+    f32 = chip_smoke.want_train_launches(cfg, torch.float32, 4096)
+    assert f32["flash_attention_bwd by route"] == {"wgmma": 0, "simt": n}
+    arch_, cut, batch, seq, patches = next(s for s in chip_smoke.TRAIN_SLICES if s[0] == arch)
+    assert (cut, batch, seq) == ({"n_layers": 2}, 2, 64)
+    assert patches == [(chip_smoke.attention, "flash_attention",
+                        chip_smoke.fa_ops.chunked_attention)]
+    assert arch in [s[0] for s in chip_smoke.SLICES]
+    dtypes = [d for d, _ in chip_smoke.TRAIN_SLICE_DTYPES.get(arch, chip_smoke.SLICE_DTYPES)]
+    # minicpm3-4b's f32 slice met C4 on its zero-initialised ln2: bf16 only
+    assert dtypes == ([torch.bfloat16] if arch == "minicpm3-4b"
+                      else [torch.float32, torch.bfloat16])
+
+
+def test_fused_sdpa_names_the_first_backend_that_runs(monkeypatch):
+    """The first fused backend that takes the call, in FUSED_SDPA's order,
+    with each refusal before it; none where every one refuses; a case at
+    Dk == Dv keeps the default choice."""
+    seen = []
+
+    def fake(allowed):
+        def run():
+            name = seen[-1]
+            if name not in allowed:
+                raise RuntimeError(f"No available kernel.\n{name} refused")
+            return name
+        return run
+
+    import torch.nn.attention as tna
+    monkeypatch.setattr(tna, "sdpa_kernel", lambda backends: _Record(seen, backends[0].name))
+    call, name = chip_smoke.fused_sdpa(fake({"EFFICIENT_ATTENTION"}))
+    assert name == "EFFICIENT_ATTENTION" and call() == "EFFICIENT_ATTENTION"
+    call, refused = chip_smoke.fused_sdpa(fake(set()))
+    assert call is None and set(refused) == set(chip_smoke.FUSED_SDPA)
+    assert refused["FLASH_ATTENTION"] == "No available kernel. FLASH_ATTENTION refused"
+    fn = object()
+    assert chip_smoke.library_attention(fn, chip_smoke.QWEN3_PREFILL) == (fn, None)
+
+
+class _Record:
+    """A stand-in for sdpa_kernel([backend]) that notes the backend."""
+
+    def __init__(self, seen, name):
+        self.seen, self.name = seen, name
+
+    def __enter__(self):
+        self.seen.append(self.name)
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_twice_equal_names_the_leaves_that_differ(capsys):
+    grads = [torch.zeros(2), torch.ones(2)]
+    run = (grads, None, None, {"names": ["a", "b"], "master": {"a": torch.zeros(2),
+                                                                "b": torch.ones(2)}})
+    chip_smoke.twice_equal("x", run, run)
+    assert "equal to the bit: True" in capsys.readouterr().out
+    other = ([torch.zeros(2), torch.full((2,), 2.0)], None, None,
+             {"names": ["a", "b"], "master": {"a": torch.zeros(2), "b": torch.ones(2)}})
+    chip_smoke.twice_equal("x", run, other)
+    assert "equal to the bit: False; leaves that differ: ['b']" in capsys.readouterr().out

@@ -400,13 +400,48 @@ def test_function_gradcheck_with_plain_stand_ins(case, monkeypatch):
     q, k, v, _ = _inputs(200, case)
     args = [torch.from_numpy(a).double().requires_grad_(True) for a in (q, k, v)]
     causal, window, q_offset, kv_len = case[6:]
-    out = FlashAttention.apply(*args, causal, window, q_offset, kv_len)
+    out = FlashAttention.apply(*args, causal, window, q_offset, kv_len, True)
     assert out.grad_fn is not None and calls == {"fwd": 1, "bwd": 0}
     out.sum().backward()
     assert calls == {"fwd": 1, "bwd": 1}
     assert torch.autograd.gradcheck(
-        lambda q, k, v: FlashAttention.apply(q, k, v, causal, window, q_offset, kv_len),
+        lambda q, k, v: FlashAttention.apply(q, k, v, causal, window, q_offset, kv_len, True),
         args, eps=1e-6, atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.parametrize("grad_mode", ["no_grad", "inference_mode", "enable_grad"])
+def test_entry_writes_the_lse_only_for_a_gradient(grad_mode, monkeypatch):
+    """flash_attention on the card (flash_attention_cuda, kernels stood in by
+    their plain versions) asks for the lse and saves q, k, v, o and lse only
+    when the call makes a gradient: grad mode on and an input that requires
+    grad.  Under no_grad or inference_mode on inputs that require grad (a
+    trainer's parameters in an eval or a prefill), ctx.needs_input_grad is
+    still true, but no lse is written and nothing is saved."""
+    calls = {"fwd": 0, "lse": 0, "saved": 0}
+
+    def fwd(q, k, v, with_lse=False, **kw):
+        calls["fwd"] += 1
+        calls["lse"] += with_lse
+        o = attention_reference(q, k, v, **kw)
+        return (o, lse_reference(q, k, v, **kw)) if with_lse else o
+
+    save = torch.autograd.function.FunctionCtx.save_for_backward
+
+    def counted_save(ctx, *tensors):
+        calls["saved"] += len(tensors)
+        return save(ctx, *tensors)
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(torch.autograd.function.FunctionCtx, "save_for_backward", counted_save)
+    q, k, v, _ = _inputs(201, (1, 8, 8, 4, 2, 16, True, None, 0, None))
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    context = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode,
+               "enable_grad": torch.enable_grad}[grad_mode]
+    with context():
+        out = fa_ops.flash_attention_cuda(*args, causal=True)
+    grad = grad_mode == "enable_grad"
+    assert calls == {"fwd": 1, "lse": int(grad), "saved": 5 * grad}
+    assert (out.grad_fn is not None) == grad
+    torch.testing.assert_close(out, attention_reference(*args, causal=True).detach())
 
 
 class _OnCuda:
@@ -451,7 +486,7 @@ def test_backward_wrapper_refuses_cpu_tensors(no_build):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dk, dv", [(80, 80), (96, 64), (256, 128), (48, 48)])
+@pytest.mark.parametrize("dk, dv", [(80, 80), (64, 96), (256, 128), (48, 48)])
 def test_backward_wrapper_refuses_unsupported_head_dims(dk, dv, dtype, no_build):
     q = _OnCuda(torch.zeros(1, 8, 2, dk, dtype=dtype))
     v = _OnCuda(torch.zeros(1, 8, 2, dv, dtype=dtype))

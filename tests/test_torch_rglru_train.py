@@ -174,12 +174,12 @@ def test_function_gradcheck_with_plain_stand_ins(case, plain_kernels):
     args = [torch.from_numpy(x).double().requires_grad_(True) for x in (a, b)]
     if h0 is not None:
         args.append(torch.from_numpy(h0).double().requires_grad_(True))
-    h, h_last = RGLRUScan.apply(*args, *([None] if h0 is None else []))
+    h, h_last = RGLRUScan.apply(*args, *([None] if h0 is None else []), True)
     assert h.grad_fn is not None and plain_kernels == {"fwd": 1, "bwd": 0}
     (h.sum() + h_last.sum()).backward()
     assert plain_kernels == {"fwd": 1, "bwd": 1}
     assert torch.autograd.gradcheck(
-        lambda *x: RGLRUScan.apply(*x, *([None] if h0 is None else [])), args,
+        lambda *x: RGLRUScan.apply(*x, *([None] if h0 is None else []), True), args,
         eps=1e-6, atol=1e-7, rtol=1e-6)
 
 
@@ -190,7 +190,7 @@ def test_function_takes_an_unused_output_as_zero(used, plain_kernels):
     a, b, h0, _, _ = _scan_inputs(SCAN_CASES[3], seed=12)
     mine = [torch.from_numpy(x).requires_grad_(True) for x in (a, b, h0)]
     theirs = [x.detach().clone().requires_grad_(True) for x in mine]
-    out = dict(zip(("h", "h_last"), RGLRUScan.apply(*mine)))
+    out = dict(zip(("h", "h_last"), RGLRUScan.apply(*mine, True)))
     ref = dict(zip(("h", "h_last"), rglru_reference(*theirs)))
     got = torch.autograd.grad(out[used].square().sum(), mine)
     want = torch.autograd.grad(ref[used].square().sum(), theirs)
@@ -200,8 +200,32 @@ def test_function_takes_an_unused_output_as_zero(used, plain_kernels):
 
 def test_function_saves_nothing_without_grad(plain_kernels):
     a, b, h0, _, _ = _scan_inputs(SCAN_CASES[3], seed=13)
-    h, h_last = RGLRUScan.apply(_t(a), _t(b), _t(h0))
+    h, h_last = scan_ops.rglru_scan_cuda(_t(a), _t(b), _t(h0))
     assert h.grad_fn is None and h_last.grad_fn is None and plain_kernels["fwd"] == 1
+
+
+@pytest.mark.parametrize("grad_mode", ["no_grad", "inference_mode", "enable_grad"])
+def test_entry_saves_only_for_a_gradient(grad_mode, plain_kernels, monkeypatch):
+    """rglru_scan on the card (rglru_scan_cuda) saves a, h and h0 only when
+    the call makes a gradient: grad mode on and an input that requires
+    grad.  Under no_grad or inference_mode on inputs that require grad,
+    ctx.needs_input_grad is still true, but nothing is saved."""
+    saved = []
+    save = torch.autograd.function.FunctionCtx.save_for_backward
+
+    def counted_save(ctx, *tensors):
+        saved.extend(tensors)
+        return save(ctx, *tensors)
+    monkeypatch.setattr(torch.autograd.function.FunctionCtx, "save_for_backward", counted_save)
+    a, b, h0, _, _ = _scan_inputs(SCAN_CASES[3], seed=14)
+    args = [_t(x).requires_grad_(True) for x in (a, b, h0)]
+    context = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode,
+               "enable_grad": torch.enable_grad}[grad_mode]
+    with context():
+        h, h_last = scan_ops.rglru_scan_cuda(*args)
+    grad = grad_mode == "enable_grad"
+    assert len(saved) == 3 * grad and plain_kernels == {"fwd": 1, "bwd": 0}
+    assert (h.grad_fn is not None) == (h_last.grad_fn is not None) == grad
 
 
 # --- the wrappers' checks ----------------------------------------------------
@@ -279,9 +303,10 @@ def test_function_refuses_cpu_tensors_and_wrong_dtypes(no_build):
     refuses them, and on a wrong h0 it names the fault."""
     a, b = torch.rand(1, 4, 8, requires_grad=True), torch.rand(1, 4, 8)
     with pytest.raises(ValueError, match="rglru_scan_fwd: a is on cpu, not a CUDA device"):
-        RGLRUScan.apply(a, b, None)
+        RGLRUScan.apply(a, b, None, True)
     with pytest.raises(ValueError, match="rglru_scan_fwd: h0 must be float32"):
-        RGLRUScan.apply(_OnCuda(a.detach()), _OnCuda(b), _OnCuda(torch.zeros(1, 8).double()))
+        RGLRUScan.apply(_OnCuda(a.detach()), _OnCuda(b), _OnCuda(torch.zeros(1, 8).double()),
+                        False)
 
 
 def _offset(shape, dtype, elems):

@@ -290,7 +290,8 @@ def counting(monkeypatch):
         return fa_ref.flash_attention_bwd_reference(q, k, v, o, dout, lse=lse, **kw)
 
     def entry(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None):
-        return fa_ops.FlashAttention.apply(q, k, v, causal, window, q_offset, kv_len)
+        return fa_ops.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                           q_offset=q_offset, kv_len=kv_len)
 
     def scan_fwd(a, b, h0):
         n["scan_fwd"] += 1
@@ -306,7 +307,7 @@ def counting(monkeypatch):
     monkeypatch.setattr(scan_ops, "rglru_scan_fwd", scan_fwd)
     monkeypatch.setattr(scan_ops, "rglru_scan_bwd", scan_bwd)
     monkeypatch.setattr(rglru, "rglru_scan",
-                        lambda a, b, h0=None: scan_ops.RGLRUScan.apply(a, b, h0))
+                        scan_ops.rglru_scan_cuda)
     return n
 
 
