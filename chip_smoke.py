@@ -81,7 +81,8 @@ L2_BYTES = 50 * 2**20
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # Tolerance on ||out - ref|| / ||ref||.  In f32 and on the SIMT route in bf16,
 # kernel and plain version both compute in f32 and round once to the output
-# dtype.  The tensor-core route (bf16 at head dims 128 and 256) also rounds P
+# dtype.  The tensor-core route (bf16 at head dims 128, 256 and (96, 64))
+# also rounds P
 # to bf16 before P V, a relative error of at most 2**-9 on each weight, which
 # the normalisation by the same rounded weights' sum largely cancels; with the
 # output's own rounding that stays under 2**-7.
@@ -112,7 +113,7 @@ RECURRENTGEMMA_TRAIN = (2, 4096, 4096, 16, 1, 256, 256, True, 2048, 0, None)
 RECURRENTGEMMA_TRAIN_10H = (2, 4096, 4096, 10, 1, 256, 256, True, 2048, 0, None)
 # minicpm3-4b's prefill and train shapes: multi-head latent attention at its
 # 40 heads padded to 48, one kv head a query head, q and k of 96 (64 + 32
-# rotary) and v of 64, on the SIMT route in either dtype.
+# rotary) and v of 64: bf16 on the tensor cores, f32 on the SIMT route.
 MINICPM3_PREFILL = (8, 1024, 1024, 48, 48, 96, 64, True, None, 0, None)
 MINICPM3_TRAIN = (2, 4096, 4096, 48, 48, 96, 64, True, None, 0, None)
 FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_PREFILL_10H,
@@ -250,7 +251,7 @@ SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
 # train shape (16 heads over 16 at 128), after the cases whose inputs its
 # index would otherwise move.  Where the heads hold fewer
 # real ones (BWD_REAL_HEADS: those 16 hold 10; minitron-4b's 32 hold 24;
-# minicpm3-4b's 48 hold 40, at (96, 64) on the SIMT route),
+# minicpm3-4b's 48 hold 40, at (96, 64), bf16 on the tensor cores),
 # dout is 0 on the padded heads, as the reference's masked output gives
 # them: their dq must come back exactly 0.
 # Tolerance on ||out - ref|| / ||ref|| of each of dq, dk and dv: both sides
@@ -504,8 +505,8 @@ def phase_build():
         log(f"[build] {name}: {seen} {WGMMA_SYMBOL} kernels, no spill, no serialized wgmma")
     # the scan's backward (both paths), the WKV chunk route, the chain of
     # the WKV chunk_exact route (its source's name is in its symbol), the
-    # SIMT backward at 256 (f32 only: bf16 takes the tensor cores there) and
-    # at (96, 64) (both dtypes: minicpm3-4b trains on it), and the WKV
+    # SIMT backward at 256 and at (96, 64) (f32 only: bf16 takes the tensor
+    # cores there), and the WKV
     # backward's kernels on both routes (each keeps a row or column of the
     # state in registers; the chunk route's job and its chain)
     for name, pattern in (("rglru_scan_bwd", "rglru_bwd"), ("rwkv6_wkv_fwd", "wkv_fwd_chunk"),
@@ -528,7 +529,8 @@ def phase_build():
 
 
 # Every tensor-core kernel of the flash libraries has this in its name; the
-# SIMT backward's kernels at (96, 64) have this pattern.
+# SIMT backward's kernels at (96, 64) (f32 only) have this pattern, which the
+# tensor-core kernels' names ("_wgmma" before the template) do not match.
 WGMMA_SYMBOL = "_wgmma"
 MLA_BWD_SYMBOLS = r"attn_bwd_(dkdv|dq)I.*Li96ELi64E"
 
@@ -1479,10 +1481,10 @@ def hybrid_train_launches(cfg):
 # yi-9b and minitron-4b (32 padded heads over 8 kv heads) as qwen3, and the
 # MoE models (the plain path replaying the kernel path's expert choice,
 # RouterReplay, call by call over the gradient's and the step's forwards
-# and remat recomputations) and minicpm3-4b (flash at (96, 64), SIMT in
-# either dtype) likewise.  rwkv6-7b at 2 layers, 2 x 200 tokens: the chunks
-# of both training routes (wkv_kernel.CHUNK_STEPS steps) cross boundaries
-# and the last is ragged; in bf16 its forward on the chunk_exact route, as
+# and remat recomputations) and minicpm3-4b (flash at (96, 64): SIMT in
+# f32, tensor cores in bf16) likewise.  rwkv6-7b at 2 layers, 2 x 200
+# tokens: the chunks of both training routes (wkv_kernel.CHUNK_STEPS steps)
+# cross boundaries and the last is ragged; in bf16 its forward on the chunk_exact route, as
 # every forward of a gradient there (wkv_kernel.route), and its backward on
 # the chunk route (wkv_kernel.bwd_route).
 TRAIN_SLICES = [
@@ -1544,7 +1546,8 @@ def want_train_launches(cfg, dtype, seq=None):
     over sequences of ``seq`` tokens, remat "full": a uniform stack's
     kernels by its layer kind (STACK_KERNELS), each flash kernel's launches
     all on the route of its head dims (attn_head_dims: (96, 64) for MLA,
-    the SIMT route in either dtype), every forward launch writing the lse
+    the tensor cores in bf16 and the SIMT route in f32), every forward
+    launch writing the lse
     (its inputs require grad), every scan backward on the TMA route (the
     model's a, h and dh are whole allocations, and a row of the model's
     width fills 16-byte lines in either dtype), every WKV forward on the route
@@ -1862,7 +1865,7 @@ def phase_train(arch):
     16 layers 46 and 16, as qwen3's; rwkv6-7b at 14 layers, in remat groups
     of 2, 35 WKV forward, all on the chunk_exact route, and 14 WKV backward,
     all on the chunk route; the MoE models and minicpm3-4b at their cut
-    depths likewise, minicpm3-4b's flash launches all SIMT at (96, 64));
+    depths likewise, minicpm3-4b's flash launches all wgmma at (96, 64));
     then one more step under the profiler."""
     cfg = dataclasses.replace(get_config(arch), **TRAIN_CUTS.get(arch, {}))
     batch_size, seq = TRAIN_SHAPES[arch]
@@ -1945,7 +1948,7 @@ SERVE_LAUNCHES = {
     "minicpm3-4b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 62},
 }
 # Each served flash launch on the route of its model's head dims in bf16:
-# at 128 and 256 the tensor cores; minicpm3-4b's (96, 64) the SIMT route.
+# the tensor cores at 128, 256 and minicpm3-4b's (96, 64).
 SERVE_FLASH_ROUTES = {
     arch: {r: counts["flash_attention_fwd"] * (
         r == fa_kernel.route(torch.bfloat16, *attn_head_dims(get_config(arch))))
@@ -1958,8 +1961,8 @@ SERVE_WKV_ROUTES["rwkv6-7b"] = {"chunk": 32, "chunk_exact": 0,
                                "recurrent": 32 * (SERVE_NEW - 1)}
 
 
-# minicpm3-4b's serve, whose flash launches take the SIMT route at (96, 64),
-# is also held against its plain path at full depth (serve_against_plain).
+# minicpm3-4b's serve, whose flash launches take the tensor cores at (96,
+# 64), is also held against its plain path at full depth (serve_against_plain).
 # In bf16 at 62 layers the plain versions disagree among themselves by
 # 2.9e-2 to 3.0e-2 of the prefill logits (chunked_attention at chunks of
 # 512 and 256, and the naive attention_reference: rounding's own spread,
@@ -2241,7 +2244,7 @@ def library_attention(fn, case):
 
 # Calls a timed run of (kernel, plain version, library) at each flash path's shape.
 FLASH_ITERS = {"qwen3-1.7b": (100, 10, 100), "recurrentgemma-2b": (20, 2, 10),
-               "yi-9b": (50, 5, 50), "minicpm3-4b": (20, 2, 20)}
+               "yi-9b": (50, 5, 50), "minicpm3-4b": (50, 2, 20)}
 
 
 def phase_timings():
@@ -2355,10 +2358,10 @@ def bwd_device_ms(case, calls=5):
             torch.cuda.synchronize()
         return [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    # a kernel's symbol goes on with "_wgmma<D>" on the tensor-core route, with
-    # its template arguments ("<") on the SIMT route
+    # a kernel's symbol goes on with "_wgmma<Dk, Dv>" on the tensor-core
+    # route, with its template arguments ("<") on the SIMT route
     wgmma = fa_kernel.route(torch.bfloat16, case[5], case[6], backward=True) == "wgmma"
-    tail = f"_wgmma<{case[5]}>" if wgmma else "<"
+    tail = f"_wgmma<{case[5]}, {case[6]}>" if wgmma else "<"
     return ms_a_launch(profile_once, {"delta": "attn_bwd_delta", "dkdv": f"attn_bwd_dkdv{tail}",
                                       "dq": f"attn_bwd_dq{tail}"}, calls)
 
@@ -2366,15 +2369,15 @@ def bwd_device_ms(case, calls=5):
 # Each train path's backward shape, bf16 (recurrentgemma's at the 10 heads
 # its step launches; minitron-4b's, 32 heads over 8 kv heads at yi-9b's
 # tokens, qwen3-moe's, which is yi-9b's, and qwen2-moe's, 16 heads over 16,
-# are held in phase_bwd_cases but not timed; minicpm3-4b's at (96, 64) on the SIMT
-# route), and the calls a timed run makes of (kernel, plain version,
-# library forward + backward, library forward), and the calls of each
+# are held in phase_bwd_cases but not timed; minicpm3-4b's at (96, 64)),
+# and the calls a timed run makes of (kernel, plain version, library forward
+# + backward, library forward), and the calls of each
 # profiler session (bwd_device_ms).  Then recurrentgemma's at 16 heads, as
 # earlier runs launched it, timed beside its path to compare with them.
 BWD_PATHS = {"qwen3-1.7b": (QWEN3_TRAIN, (20, 3, 20, 20), 5),
              "recurrentgemma-2b": (RECURRENTGEMMA_TRAIN_10H, (10, 1, 5, 5), 5),
              "yi-9b": (YI_TRAIN, (10, 1, 10, 10), 5),
-             "minicpm3-4b": (MINICPM3_TRAIN, (3, 1, 5, 5), 3)}
+             "minicpm3-4b": (MINICPM3_TRAIN, (10, 1, 5, 5), 5)}
 BWD_AT_16_HEADS = (RECURRENTGEMMA_TRAIN, (10, 1, 5, 5), 5)
 
 

@@ -40,7 +40,7 @@
 // product so that a value read from shared memory feeds several FMAs, and
 // rows in shared memory are padded to odd strides so that a warp's reads
 // fall in distinct banks.  route() in kernel.py sends bf16 at head dims
-// (128, 128) and (256, 256) to the tensor-core route
+// (128, 128), (256, 256) and (96, 64) to the tensor-core route
 // (flash_attention_bwd_sm90.cu) and everything else here; f32 stays here,
 // held to 1e-5 of the plain version, at every head dim.
 
@@ -427,9 +427,10 @@ cudaError_t dispatch(const Params& p, int dk, int dv, cudaStream_t s) {
   if (dk == 16 && dv == 16) return launch<T, 16, 16, 64, 64, 32, 64>(p, s);
   if (dk == 32 && dv == 32) return launch<T, 32, 32, 64, 64, 32, 64>(p, s);
   if (dk == 64 && dv == 64) return launch<T, 64, 64, 64, 64, 32, 64>(p, s);
-  // MLA (minicpm3-4b): q and k of 96 (64 + 32 rotary), v of 64.  The tiles
-  // of 64: a dK/dV block keeps 4 x 12 + 4 x 8 accumulators a thread, 77 KB
-  // of shared memory; a dQ block 4 x 12, 98 KB.
+  // MLA (minicpm3-4b): q and k of 96 (64 + 32 rotary), v of 64 (f32 only:
+  // bf16 runs on the tensor cores).  The tiles of 64: a dK/dV block keeps
+  // 4 x 12 + 4 x 8 accumulators a thread, 77 KB of shared memory; a dQ
+  // block 4 x 12, 98 KB.
   if (dk == 96 && dv == 64) return launch<T, 96, 64, 64, 64, 32, 64>(p, s);
   if (dk == 128 && dv == 128) return launch<T, 128, 128, 64, 32, 32, 32>(p, s);
   // 256 (f32 only: bf16 runs on the tensor cores): dK and dV take 256

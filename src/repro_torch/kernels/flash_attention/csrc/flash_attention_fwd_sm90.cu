@@ -1,24 +1,29 @@
 // Flash attention, forward, on the Hopper tensor cores (sm_90a).
 //
 // The route of flash_attention_fwd that route() in kernel.py sends bf16 at
-// head dims (Dk, Dv) = (128, 128) and (256, 256) to; everything else goes to
-// attn_fwd in flash_attention_fwd.cu.  Like that kernel it replaces the
-// Pallas TPU kernel
+// head dims (Dk, Dv) = (128, 128), (256, 256) and (96, 64) to; everything
+// else goes to attn_fwd in flash_attention_fwd.cu.  Like that kernel it
+// replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py :: flash_attention_kernel
 // (body _attn_kernel) and computes what it computes: online softmax with f32
 // running max m, denominator l and accumulator; head h reads kv head
 // h / (H / KH); causal, sliding-window, kv_len and q_offset masks; tiles that
 // no (query, key) pair can see are skipped; a row that sees no key outputs 0.
-// Layout: q (B, Sq, H, D), k and v (B, Sk, KH, D), o (B, Sq, H, D), bf16,
-// contiguous.  When the caller passes an lse buffer (training), each row's
-// log-sum-exp over the keys it sees goes there, for the backward.
+// Layout: q (B, Sq, H, Dk), k (B, Sk, KH, Dk), v (B, Sk, KH, Dv), o (B, Sq,
+// H, Dv), bf16, contiguous.  When the caller passes an lse buffer
+// (training), each row's log-sum-exp over the keys it sees goes there, for
+// the backward.
 //
 // What bounds it.  At the served prefill shapes the function needs 3.4e10
 // FLOP (qwen3-1.7b, q 8x1024x16x128) and 8.3e11 FLOP (recurrentgemma-2b, q
 // 8x4096x16x256, one kv head, window 2048) against 0.1 GB and 0.6 GB of
 // inputs and output: it is bound by operations, 989 TFLOP/s in bf16 on the
-// tensor cores.  The CUDA cores' f32 FMAs reach 67, so both products run as
-// wgmma, bf16 in and f32 out.
+// tensor cores.  minicpm3-4b's MLA prefill (q and k 8x1024x48x96, v
+// 8x1024x48x64) needs 6.45e10 FLOP against 0.25 GB, about even (0.065 ms
+// by operations, 0.075 by bytes); its train shape (2x4096, the same heads)
+// 2.58e11 FLOP against the same 0.25 GB, bound by operations.  The CUDA
+// cores' f32 FMAs reach 67, so both products run as wgmma, bf16 in and f32
+// out.
 //
 // Design.  A persistent grid, one block an SM, walks a static list of work
 // items (128 query rows of one (b, h)), heaviest causal q tile first.  A
@@ -44,7 +49,12 @@
 // another; a 4-D tensor map over (D, heads, S, B) zero-fills the ragged edge
 // of Sq and Sk inside each batch.  Tile BQ x BK = 128 x 128 at D 128 and
 // 128 x 64 at D 256: Q 64 KB + 2 stages x (K 32 KB + V 32 KB) = 192 KB of
-// shared memory.
+// shared memory.  At (Dk, Dv) = (96, 64), 128 x 128: Dk comes in as two
+// chunks whose second is zero past column 96 (the map's D is 96, so TMA
+// fills it), and every offset and expected byte count counts whole chunks
+// (tile_bytes); S takes 6 k16 steps, a count fixed by the template, which
+// never read the zero half, and P V runs at n64; Q 32 KB + 2 stages x (K
+// 32 KB + V 16 KB) = 128 KB.
 
 #include <math.h>
 
@@ -69,19 +79,20 @@ struct Args {
 };
 
 // Shared memory of one block, in bytes from a 1024-byte aligned base: Q as
-// D/64 chunks of 128 rows x 128 bytes; per stage K and V as D/64 chunks of BK
-// rows x 128 bytes; then the mbarriers.
+// chunks(DK) chunks of 128 rows x 128 bytes; per stage K and V as chunks(DK)
+// and chunks(DV) chunks of BK rows x 128 bytes; then the mbarriers.
 template <int DK, int DV, int BK>
 struct Smem {
-  static constexpr int kQ = kBQ * DK * 2;
-  static constexpr int kK = BK * DK * 2;
-  static constexpr int kV = BK * DV * 2;
+  static constexpr int kQ = tile_bytes(kBQ, DK);
+  static constexpr int kK = tile_bytes(BK, DK);
+  static constexpr int kV = tile_bytes(BK, DV);
   static constexpr int kKOff = kQ;
   static constexpr int kVOff = kKOff + kStages * kK;
   static constexpr int kBarOff = kVOff + kStages * kV;
   // q, empty_q, full_k[], full_v[], empty_k[], empty_v[]
   static constexpr int kBars = 2 + 4 * kStages;
   static constexpr int kBytes = kBarOff + 8 * kBars + 1024;  // + room to align the base
+  static_assert(kBytes <= 232448, "shared memory beyond 227 KB");
 };
 
 // Masks and online softmax of one tile's scores, for this thread's two rows
@@ -170,7 +181,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v) {
   using L = Smem<DK, DV, BK>;
-  static_assert(DK % kChunk == 0 && DV % kChunk == 0 && BK % 16 == 0, "tile shape");
+  static_assert(DK % 16 == 0 && DV % kChunk == 0 && BK % 16 == 0, "tile shape");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   // mbarriers: Q, or K or V of stage s, arrived (full); all 256 consumer
@@ -210,7 +221,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(empty_q, (j & 1) ^ 1);  // the first round passes at once
         mbar_expect_tx(bar_q, L::kQ);
 #pragma unroll
-        for (int c = 0; c < DK / kChunk; ++c)
+        for (int c = 0; c < chunks(DK); ++c)
           tma_load(base + c * kBQ * kRowBytes, &tm_q, bar_q, c * kChunk, it.h, it.q0, it.b);
         for (int t = it.t_begin; t < it.t_end; ++t, ++g) {
           const int s = g % kStages;
@@ -218,13 +229,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_wait(empty_k(s), parity);
           mbar_expect_tx(full_k(s), L::kK);
 #pragma unroll
-          for (int c = 0; c < DK / kChunk; ++c)
+          for (int c = 0; c < chunks(DK); ++c)
             tma_load(k_smem(s) + c * BK * kRowBytes, &tm_k, full_k(s), c * kChunk, kvh, t * BK,
                      it.b);
           mbar_wait(empty_v(s), parity);
           mbar_expect_tx(full_v(s), L::kV);
 #pragma unroll
-          for (int c = 0; c < DV / kChunk; ++c)
+          for (int c = 0; c < chunks(DV); ++c)
             tma_load(v_smem(s) + c * BK * kRowBytes, &tm_v, full_v(s), c * kChunk, kvh, t * BK,
                      it.b);
         }
@@ -382,6 +393,7 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dk == 128 && Dv == 128) return launch<128, 128, 128>(q, k, v, a, Sk, s);
   if (Dk == 256 && Dv == 256) return launch<256, 256, 64>(q, k, v, a, Sk, s);
+  if (Dk == 96 && Dv == 64) return launch<96, 64, 128>(q, k, v, a, Sk, s);
   return cudaErrorInvalidValue;
 }
 

@@ -176,15 +176,20 @@ def test_head_dim_80_matches_pallas_and_reference(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims", sorted(fa_kernel.HEAD_DIMS))
 def test_route_takes_the_tensor_cores_for_bf16_at_128_and_256_only(dtype, dims):
-    want = "wgmma" if dtype == torch.bfloat16 and dims in {(128, 128), (256, 256)} else "simt"
+    """bf16 at 128, 256 and MLA's (96, 64) on the tensor cores; the rest,
+    f32 at every pair, SIMT."""
+    want = ("wgmma" if dtype == torch.bfloat16 and dims in {(96, 64), (128, 128), (256, 256)}
+            else "simt")
     assert fa_kernel.route(dtype, *dims) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims", sorted(fa_kernel.BWD_HEAD_DIMS))
 def test_backward_route_takes_the_tensor_cores_for_bf16_at_128_only(dtype, dims):
-    """bf16 at 128 and, since recurrentgemma trains there, 256; the rest SIMT."""
-    want = "wgmma" if dtype == torch.bfloat16 and dims in {(128, 128), (256, 256)} else "simt"
+    """bf16 at 128, and, since recurrentgemma and minicpm3-4b train there,
+    256 and (96, 64); the rest SIMT."""
+    want = ("wgmma" if dtype == torch.bfloat16 and dims in {(96, 64), (128, 128), (256, 256)}
+            else "simt")
     assert fa_kernel.route(dtype, *dims, backward=True) == want
 
 
@@ -239,10 +244,10 @@ def test_backward_wgmma_head_dims_have_dispatch_lines():
     fail only on the card."""
     text = (Path(fa_kernel.__file__).parent / "csrc" / "flash_attention_bwd_sm90.cu").read_text()
     body = text[text.index('extern "C" int flash_attention_bwd_wgmma('):]
-    lines = re.findall(r"if \(Dk == (\d+) && Dv == (\d+)\) return launch<(\d+)>",
+    lines = re.findall(r"if \(Dk == (\d+) && Dv == (\d+)\) return launch<(\d+), (\d+)>",
                        body[:body.index("\n}\n")])
-    assert all(dk == dv == d for dk, dv, d in lines), lines
-    assert {(int(dk), int(dv)) for dk, dv, _ in lines} == fa_kernel.BWD_WGMMA_HEAD_DIMS
+    assert all((dk, dv) == (tdk, tdv) for dk, dv, tdk, tdv in lines), lines
+    assert {(int(dk), int(dv)) for dk, dv, _, _ in lines} == fa_kernel.BWD_WGMMA_HEAD_DIMS
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -303,6 +308,24 @@ def test_kernel_wrapper_refuses_misaligned_inputs_on_the_tensor_core_route():
                 fa_kernel._check(q, _OnCuda(t), _OnCuda(t), None, None)
         else:
             fa_kernel._check(q, _OnCuda(t), _OnCuda(t), None, None)
+
+
+@pytest.mark.parametrize("dims", sorted(fa_kernel.WGMMA_HEAD_DIMS))
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_kernel_wrapper_refuses_misaligned_inputs_at_each_tensor_core_head_dim(name, dims):
+    """TMA reads q, k and v from 16-byte aligned addresses at every head-dim
+    pair of the tensor-core route, (96, 64) among them; f32 there takes the
+    SIMT route, which does not."""
+    dk, dv = dims
+    for dtype, raises in ((torch.bfloat16, True), (torch.float32, False)):
+        t = {"q": torch.zeros(1, 8, 4, dk, dtype=dtype), "k": torch.zeros(1, 8, 2, dk, dtype=dtype),
+             "v": torch.zeros(1, 8, 2, dv, dtype=dtype)}
+        args = [_OnCuda(x, ptr=x.data_ptr() + 8 if n == name else None) for n, x in t.items()]
+        if raises:
+            with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+                fa_kernel._check(*args, None, None)
+        else:
+            fa_kernel._check(*args, None, None)
 
 
 def test_reset_launches_zeroes_both_counters():

@@ -9,7 +9,9 @@ inputs.  Tolerance 1e-5 relative (||a - b|| / ||b||) and 1e-5 absolute per
 element: every side computes in f32 from the same inputs and differs only
 in the order of its sums (the gradients are of magnitude about 1).  The
 tensor-core backward's tile schedule is emulated in numpy and held against
-the plain backward at the same tolerance.  ``FlashAttention`` is checked by
+the plain backward at the same tolerance; the tensor-core forward's at
+(96, 64) against the plain forward, exactly in f32 and, with P rounded to
+bf16, within the route's tolerances on the card.  ``FlashAttention`` is checked by
 ``torch.autograd.gradcheck`` in float64 with both kernel calls stood in by
 their plain versions.  The CUDA kernels cannot run here; the wrappers'
 checks, the head-dim rule and the refusals of WKV and scan are tested
@@ -53,11 +55,14 @@ CASES = [
 ]
 
 
-def _inputs(seed, case):
+def _inputs(seed, case, dims=None):
+    """q, k, v and dout of the case from seed, at head dims ``dims`` (Dk,
+    Dv) where given, else at the case's D."""
     B, Sq, Sk, H, KH, D = case[:6]
+    dk, dv = dims or (D, D)
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)
-            for s in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D), (B, Sq, H, D))]
+            for s in ((B, Sq, H, dk), (B, Sk, KH, dk), (B, Sk, KH, dv), (B, Sq, H, dv))]
 
 
 def _kw(case):
@@ -179,15 +184,20 @@ def test_plain_backward_of_padded_heads_is_zero():
     _close(dv.numpy(), dv10.numpy())
 
 
-# The tensor-core backward's tiles at each head dim
-# (csrc/flash_attention_bwd_sm90.cu, Tiles<D>): a dK/dV block owns BKV kv
-# rows and takes BQ query rows a step; a dQ block owns QROWS query rows, CROWS
-# a consumer, and takes KROWS kv rows a step.  At D 128 a dK/dV consumer owns
-# CROWS of the block's kv rows, every query column of a step and every
-# column of dK and dV (QCOLS = BQ); at D 256 both consumers take all BKV kv
-# rows, split a step's S^T and dP^T by query columns (QCOLS each), share P^T
-# and dS^T, and split dK and dV by head-dim columns (D / 2 each).
-LAYOUTS = {"d128": (128, 64, 128, 64, 64, 64), "d256": (64, 64, 128, 32, 64, 32)}
+# The tensor-core backward's tiles at each head-dim pair
+# (csrc/flash_attention_bwd_sm90.cu, Tiles<DK, DV>): a dK/dV block owns BKV
+# kv rows and takes BQ query rows a step; a dQ block owns QROWS query rows,
+# CROWS a consumer, and takes KROWS kv rows a step.  At D 128 and (96, 64) a
+# dK/dV consumer owns CROWS of the block's kv rows, every query column of a
+# step and every column of dK and dV (QCOLS = BQ); at D 256 both consumers
+# take all BKV kv rows, split a step's S^T and dP^T by query columns (QCOLS
+# each), share P^T and dS^T, and split dK and dV by head-dim columns (D / 2
+# each).  LAYOUT_DIMS: the head dims a layout is emulated at where they are
+# not the case's own D.
+LAYOUTS = {"d128": (128, 64, 128, 64, 64, 64), "d256": (64, 64, 128, 32, 64, 32),
+           "d96x64": (128, 64, 128, 64, 64, 64)}
+LAYOUT_DIMS = {"d96x64": (96, 64)}
+CHUNK = 64  # the columns of a 128-byte swizzled chunk of bf16 in shared memory
 
 
 def _visible(qpos, kpos, causal, window, kv_len):
@@ -200,6 +210,22 @@ def _visible(qpos, kpos, causal, window, kv_len):
     return vis
 
 
+def _chunked(x, d):
+    """x with its last dim, d columns, zero-filled to whole chunks (CHUNK
+    columns), as TMA fills a tile's last chunk past d."""
+    return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, -(-d // CHUNK) * CHUNK - d)])
+
+
+def _ksteps(a, b, depth):
+    """a @ b.T over the first ``depth`` columns in k16 steps, as issue_qk
+    issues them: depth / 16 steps, a count fixed by the head dim, step kk
+    reading 16 columns of chunk kk / 4, so the zero columns past depth are
+    never read."""
+    assert depth % 16 == 0
+    return sum(a[:, 16 * kk:16 * kk + 16] @ b[:, 16 * kk:16 * kk + 16].T
+               for kk in range(depth // 16))
+
+
 def _emulate_wgmma_backward(q, k, o, dout, lse, v, case, layout):
     """numpy, block by block and step by step as the two kernels schedule the
     work in ``layout`` (LAYOUTS): which q steps a dK/dV block walks (every
@@ -207,31 +233,39 @@ def _emulate_wgmma_backward(q, k, o, dout, lse, v, case, layout):
     visible" skips and each consumer's "all visible" fast path (held here
     against the element-wise masks), the masks, the split of a step between
     the consumers, and the ragged tails (rows beyond Sq or Sk read as 0).
-    In f32, without the kernels' bf16 rounding of P and dS: the schedule is
-    the point."""
+    Head dims from the arrays (Dk of q and k, Dv of v and dout): each tile
+    zero-filled to whole chunks; S^T and S in Dk / 16 k-steps, dP^T and dP
+    in Dv / 16; dK, dV and dQ accumulated at whole chunks (at Dk 96, dK and
+    dQ at 128 columns over the zero half chunk), the columns past Dk and Dv
+    held to come out 0 and never stored.  In f32, without the kernels' bf16
+    rounding of P and dS: the schedule is the point."""
     BKV, BQ, QROWS, KROWS, CROWS, QCOLS = layout
     split = QCOLS < BQ
-    B, Sq, Sk, H, KH, D, causal, window, q_offset, kv_len = case
+    B, Sq, Sk, H, KH, _, causal, window, q_offset, kv_len = case
+    Dk, Dv = q.shape[-1], v.shape[-1]
     win = -1 if window is None else window
     kv_len = Sk if kv_len is None else min(kv_len, Sk)
-    G, scale = H // KH, 1.0 / D ** 0.5
+    G, scale = H // KH, 1.0 / Dk ** 0.5
     pad = max(BKV, QROWS)
 
-    def padded(x, rows):  # (B, S, heads, D) with zero rows to a multiple of the tiles
+    def padded(x, rows, d):  # zero rows to a multiple of the tiles, zero columns to chunks
+        x = _chunked(x, d)
         return np.concatenate([x, np.zeros((x.shape[0], rows, *x.shape[2:]), x.dtype)], 1)
-    qp, kp, vp, dop = padded(q, pad), padded(k, pad), padded(v, pad), padded(dout, pad)
+    qp, kp = padded(q, pad, Dk), padded(k, pad, Dk)
+    vp, dop = padded(v, pad, Dv), padded(dout, pad, Dv)
     delta = np.pad((dout * o).sum(-1).transpose(0, 2, 1), ((0, 0), (0, 0), (0, pad)))
     lsep = np.pad(lse, ((0, 0), (0, 0), (0, pad)))
-    dq = np.zeros_like(q)
-    dk, dv = np.zeros_like(k), np.zeros_like(v)
+    dq = np.zeros((B, Sq, H, qp.shape[-1]), np.float32)
+    dk = np.zeros((B, Sk, KH, kp.shape[-1]), np.float32)
+    dv = np.zeros((B, Sk, KH, vp.shape[-1]), np.float32)
 
     def probs(qrows, krows, h, kvh, b):
         """P and dS of query rows qrows and kv rows krows, masked."""
-        s = qp[b, qrows, h] @ kp[b, krows, kvh].T * scale
+        s = _ksteps(qp[b, qrows, h], kp[b, krows, kvh], Dk) * scale
         vis = (qrows[:, None] < Sq) & _visible(q_offset + qrows[:, None], krows[None, :],
                                                 causal, win, kv_len)
         p = np.where(vis, np.exp(s - lsep[b, h, qrows][:, None]), 0.0)
-        dp = dop[b, qrows, h] @ vp[b, krows, kvh].T
+        dp = _ksteps(dop[b, qrows, h], vp[b, krows, kvh], Dv)
         return p, p * (dp - delta[b, h, qrows][:, None]), vis
 
     for b in range(B):
@@ -248,8 +282,8 @@ def _emulate_wgmma_backward(q, k, o, dout, lse, v, case, layout):
                 t_begin = i_lo // BQ
                 n_t = (i_hi + BQ - 1) // BQ - t_begin if i_hi > i_lo else 0
                 if split:
-                    _emulate_split_dkdv(k0, b, kvh, t_begin, n_t, layout, case, probs, qp, dop,
-                                        dk, dv)
+                    _emulate_split_dkdv(k0, b, kvh, t_begin, n_t, layout, case, scale, probs, qp,
+                                        dop, dk, dv)
                     continue
                 for cw in range(2):
                     kr0 = k0 + CROWS * cw
@@ -300,19 +334,21 @@ def _emulate_wgmma_backward(q, k, o, dout, lse, v, case, layout):
                         assert not all_ or vis.all()
                         keep = qrows < Sq
                         dq[b, qrows[keep], h] += (ds @ kp[b, krows, kvh])[keep] * scale
-    return dq, dk, dv
+    for acc, d in ((dq, Dk), (dk, Dk), (dv, Dv)):  # past the head dim: 0, and not stored
+        assert not acc[..., d:].any()
+    return dq[..., :Dk], dk[..., :Dk], dv[..., :Dv]
 
 
-def _emulate_split_dkdv(k0, b, kvh, t_begin, n_t, layout, case, probs, qp, dop, dk, dv):
+def _emulate_split_dkdv(k0, b, kvh, t_begin, n_t, layout, case, scale, probs, qp, dop, dk, dv):
     """A dK/dV block of the D 256 layout: a step none of whose pairs the
     block's kv rows see is skipped by both consumers; consumer cw forms P^T
     and dS^T of query columns QCOLS cw .. QCOLS cw + QCOLS - 1, and then owns
-    head-dim columns D/2 cw .. D/2 cw + D/2 - 1 of dK and dV over all of them."""
+    the half cw of the columns of dK and dV over all of them."""
     BKV, BQ, _, _, _, QCOLS = layout
-    _, Sq, Sk, H, KH, D, causal, window, q_offset, kv_len = case
+    _, Sq, Sk, H, KH, _, causal, window, q_offset, kv_len = case
     win = -1 if window is None else window
     kv_len = Sk if kv_len is None else min(kv_len, Sk)
-    scale, half = 1.0 / D ** 0.5, D // 2
+    half_k, half_v = dk.shape[-1] // 2, dv.shape[-1] // 2
     krows = np.arange(k0, k0 + BKV)
     keep = krows < Sk
     for g in range(H // KH * n_t):
@@ -334,9 +370,10 @@ def _emulate_split_dkdv(k0, b, kvh, t_begin, n_t, layout, case, probs, qp, dop, 
             assert not all_ or vis[cols].all()
             pt[:, cols], dst[:, cols] = p[cols].T, ds[cols].T
         for cw in range(2):  # dK and dV by head-dim columns, P^T and dS^T shared
-            dcols = slice(half * cw, half * cw + half)
-            dv[b, krows[keep], kvh, dcols] += (pt @ dop[b, qrows, h, dcols])[keep]
-            dk[b, krows[keep], kvh, dcols] += (dst @ qp[b, qrows, h, dcols])[keep] * scale
+            kcols = slice(half_k * cw, half_k * cw + half_k)
+            vcols = slice(half_v * cw, half_v * cw + half_v)
+            dv[b, krows[keep], kvh, vcols] += (pt @ dop[b, qrows, h, vcols])[keep]
+            dk[b, krows[keep], kvh, kcols] += (dst @ qp[b, qrows, h, kcols])[keep] * scale
 
 
 SCHEDULE_CASES = [
@@ -363,9 +400,10 @@ SCHEDULE_CASES = [
 @pytest.mark.parametrize("case", SCHEDULE_CASES)
 def test_wgmma_backward_tile_schedule_matches_plain_backward(case, layout):
     """The emulated schedule of the tensor-core backward, in each head dim's
-    layout, against the plain backward on the same inputs and lse, 1e-5
+    layout (at (96, 64) in its own: the case's shape and masks at those head
+    dims), against the plain backward on the same inputs and lse, 1e-5
     relative and absolute (f32 on both sides, sums in another order)."""
-    q, k, v, do = _inputs(500 + SCHEDULE_CASES.index(case), case)
+    q, k, v, do = _inputs(500 + SCHEDULE_CASES.index(case), case, LAYOUT_DIMS.get(layout))
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     kw = _kw(case)
     o = chunked_attention(tq, tk, tv, **kw)
@@ -374,6 +412,117 @@ def test_wgmma_backward_tile_schedule_matches_plain_backward(case, layout):
     got = _emulate_wgmma_backward(q, k, o.numpy(), do, lse.numpy(), v, case, LAYOUTS[layout])
     for mine, ref in zip(got, want):
         _close(mine, ref.numpy())
+
+
+# The tensor-core forward's tiles at (96, 64) (csrc/flash_attention_fwd_sm90.cu,
+# launch<96, 64, 128>): an item is BQ query rows of one (b, h), walking kv
+# tiles of BK rows.  Its tolerances on the card (chip_smoke.py: TOL, REL_TOL
+# and LSE_ABS_TOL of the route): max |out - ref| 2e-2 and ||out - ref|| /
+# ||ref|| 2**-7 in bf16, the lse within 2**-8.
+FWD_TILES = (128, 128)
+WGMMA_ABS, WGMMA_REL, WGMMA_LSE = 2e-2, 2**-7, 2**-8
+
+
+def _bf16(x):
+    """x rounded to bf16 (to nearest, ties to even, as __float2bfloat16_rn),
+    held as f32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).bfloat16().float().numpy()
+
+
+def _emulate_wgmma_forward(q, k, v, case, round_bf16=True):
+    """numpy, item by item and kv tile by kv tile as attn_fwd_wgmma schedules
+    the work: items heaviest q tile first, the kv tiles each walks (from its
+    first and last query, the window and kv_len), the all-visible fast path
+    (held against the element-wise masks), S in Dk / 16 k-steps over Q and K
+    zero-filled to whole chunks, the online softmax in exp2 with the scale
+    folded into log2(e) / sqrt(Dk), tile t's P V landing while tile t + 1's
+    softmax runs and O and l rescaled after it, rows that see no key 0, and
+    each row's lse.  With ``round_bf16``, P is rounded to bf16 for P V and
+    for l, and the output to bf16, as the kernel does; without, all in f32.
+    Returns o (B, Sq, H, Dv) and lse (B, H, Sq)."""
+    BQ, BK = FWD_TILES
+    B, Sq, Sk, H, KH, _, causal, window, q_offset, kv_len = case
+    Dk, Dv = q.shape[-1], v.shape[-1]
+    win = -1 if window is None else window
+    kv_len = Sk if kv_len is None else min(kv_len, Sk)
+    sl = np.log2(np.e) / np.sqrt(Dk)
+    rnd = _bf16 if round_bf16 else (lambda x: x)
+    nqt = -(-Sq // BQ)
+    qp = np.pad(_chunked(q, Dk), ((0, 0), (0, nqt * BQ - Sq), (0, 0), (0, 0)))
+    kp = np.pad(_chunked(k, Dk), ((0, 0), (0, -(-Sk // BK) * BK - Sk), (0, 0), (0, 0)))
+    vp = np.pad(v, ((0, 0), (0, -(-Sk // BK) * BK - Sk), (0, 0), (0, 0)))
+    o = np.full((B, Sq, H, Dv), np.nan, np.float32)
+    lse = np.full((B, H, Sq), np.nan, np.float32)
+    for w in range(nqt * H * B):
+        q0, hb = (nqt - 1 - w // (H * B)) * BQ, w % (H * B)
+        h, b = hb % H, hb // H
+        kvh = h // (H // KH)
+        nq = min(BQ, Sq - q0)
+        q_first, q_last = q_offset + q0, q_offset + q0 + nq - 1
+        kv_end = min(kv_len, q_last + 1) if causal else kv_len
+        kv_begin = max(0, q_first - win + 1) if win > 0 else 0
+        t_begin = kv_begin // BK
+        t_end = (kv_end + BK - 1) // BK if kv_end > kv_begin else t_begin
+        qpos = q_first + np.arange(BQ)[:, None]
+        m, l, acc, last = np.full(BQ, -np.inf), np.zeros(BQ), np.zeros((BQ, Dv)), None
+        for t in range(t_begin, t_end):
+            k0 = t * BK
+            s = _ksteps(qp[b, q0:q0 + BQ, h], kp[b, k0:k0 + BK, kvh], Dk)
+            vis = _visible(qpos, k0 + np.arange(BK)[None, :], causal, win, kv_len)
+            if (k0 + BK <= kv_len and (not causal or k0 + BK - 1 <= q_first)
+                    and (win <= 0 or k0 > q_last - win)):
+                assert vis[:nq].all()
+            else:
+                s = np.where(vis, s, -np.inf)
+            m_new = np.maximum(m, s.max(1))
+            m_sl = np.where(m_new == -np.inf, 0.0, m_new * sl)
+            alpha = np.exp2(m * sl - m_sl)
+            p = rnd(np.exp2(s * sl - m_sl[:, None]))
+            m = m_new
+            if last is None:
+                l = p.sum(1)
+            else:  # the last tile's P V lands, then O and l take this tile's alpha
+                acc = (acc + last[0] @ vp[b, last[1]:last[1] + BK, kvh]) * alpha[:, None]
+                l = alpha * l + p.sum(1)
+            last = (p, k0)
+        if last is not None:
+            acc = acc + last[0] @ vp[b, last[1]:last[1] + BK, kvh]
+        seen = l > 0
+        inv = np.where(seen, 1.0 / np.where(seen, l, 1.0), 0.0)
+        o[b, q0:q0 + nq, h] = rnd(acc * inv[:, None])[:nq]
+        lse[b, h, q0:q0 + nq] = np.where(
+            seen, (m * sl + np.log2(np.where(seen, l, 1.0))) * np.log(2.0), 0.0)[:nq]
+    assert not np.isnan(o).any() and not np.isnan(lse).any()  # every row written once
+    return o, lse
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_wgmma_forward_tile_schedule_at_96_64_matches_plain_forward(case):
+    """The emulated schedule of the tensor-core forward at (Dk, Dv) = (96,
+    64), on inputs rounded to bf16 as the card gets them: in f32 throughout,
+    the output within 1e-5 of chunked_attention (port and JAX) and the lse
+    of lse_reference; with P and the output rounded to bf16 as the kernel
+    rounds them, within the route's tolerances of chunked_attention, the
+    JAX reference and jax.nn.logsumexp."""
+    q, k, v, _ = (_bf16(x) for x in _inputs(700 + SCHEDULE_CASES.index(case), case, (96, 64)))
+    kw = _kw(case)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    plain = chunked_attention(tq, tk, tv, **kw).numpy()
+    plain_lse = lse_reference(tq, tk, tv, **kw).numpy()
+    exact, exact_lse = _emulate_wgmma_forward(q, k, v, case, round_bf16=False)
+    _close(exact, plain)
+    _close(exact, np.asarray(jax_chunked(*map(jnp.asarray, (q, k, v)), q_chunk=32, k_chunk=32,
+                                         **kw)))
+    _close(exact_lse, plain_lse)
+    out, lse = _emulate_wgmma_forward(q, k, v, case)
+    jax_ref = np.asarray(jax_reference(*map(jnp.asarray, (q, k, v)), **kw))
+    for ref in (plain, jax_ref):
+        diff, norm = np.linalg.norm(out - ref), np.linalg.norm(ref)
+        assert (diff / norm if norm > 0 else diff) <= WGMMA_REL
+        assert np.abs(out - ref).max() <= WGMMA_ABS
+    jax_lse = _jax_lse(q, k, case[:5] + (96,) + case[6:])
+    for ref in (plain_lse, jax_lse):
+        assert np.abs(lse - ref).max() <= WGMMA_LSE
 
 
 @pytest.mark.parametrize("case", [(1, 8, 8, 4, 2, 8, True, None, 0, None),

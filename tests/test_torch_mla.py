@@ -251,7 +251,8 @@ def test_cache_schema_matches_reference():
 def test_full_width_layer_attends_at_96_and_64():
     """At full width a layer hands flash_attention q and k of 96 (64 + 32
     rotary) and v of 64 at the 48 padded heads, one kv head a query head:
-    the backward's (96, 64) pair, on the SIMT route in either dtype."""
+    the backward's (96, 64) pair, on the tensor cores in bf16 and the SIMT
+    route in f32."""
     cfg = dataclasses.replace(get_config(NAME), n_layers=1)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
     seen = []
@@ -268,9 +269,9 @@ def test_full_width_layer_attends_at_96_and_64():
     assert seen == [((1, 3, 48, 96), (1, 3, 48, 96), (1, 3, 48, 64),
                      {"causal": True, "window": None})]
     assert (96, 64) in fa_kernel.BWD_HEAD_DIMS
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, want in ((torch.float32, "simt"), (torch.bfloat16, "wgmma")):
         assert fa_kernel.route(dtype, 96, 64) == fa_kernel.route(dtype, 96, 64, backward=True) \
-            == "simt"
+            == want
 
 
 def test_bridge_carries_the_reference_tree():
