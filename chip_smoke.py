@@ -7,12 +7,15 @@
 Builds every CUDA kernel of the port from this checkout's sources, holds
 each against its plain PyTorch version on the card, serves qwen3-1.7b (28
 layers), rwkv6-7b (32 layers), recurrentgemma-2b (26 layers), yi-9b (48),
-minitron-4b (32), qwen2-moe-a2.7b (24), qwen3-moe-30b-a3b (48) and
-minicpm3-4b (62, multi-head latent attention) at their full published
-widths (bf16, random weights from a seed) through the port's entry point,
-trains qwen3-1.7b and recurrentgemma-2b at full width and depth, and
-minitron-4b, yi-9b, rwkv6-7b, qwen2-moe-a2.7b, qwen3-moe-30b-a3b and
-minicpm3-4b at full width with the layers one card holds (TRAIN_CUTS), for
+minitron-4b (32), qwen2-moe-a2.7b (24), qwen3-moe-30b-a3b (48),
+minicpm3-4b (62, multi-head latent attention) and pixtral-12b (40, a
+prompt of patch embeddings) at their full published widths (bf16, random
+weights from a seed) through the port's entry point, encodes frame
+embeddings through hubert-xlarge (48, encoder-only), trains qwen3-1.7b,
+recurrentgemma-2b and hubert-xlarge at full width and depth, and
+minitron-4b, yi-9b, rwkv6-7b, qwen2-moe-a2.7b, qwen3-moe-30b-a3b,
+minicpm3-4b and pixtral-12b at full width with the layers one card holds
+(TRAIN_CUTS), for
 a few steps (AdamW, chunked cross-entropy, remat), checks that each serve
 and each train step went through its kernels, and times each kernel beside
 its bound.  Any failure raises, so the exit code is
@@ -27,7 +30,10 @@ bwd_tile_sweep only: the per-tile (per-step) and fixed cost of the flash
 forward's and backward's tensor-core kernels.  With ``--wkv-grad-routes``
 it builds the kernels and runs wkv_grad_routes only: rwkv6-7b's train
 slice gradients by the route of the WKV forward (the backward on the route
-``bwd_route()`` names), the evidence for ``route(..., grad=True)``.
+``bwd_route()`` names), the evidence for ``route(..., grad=True)``.  With
+``--depth-probe ARCH LAYERS...`` it runs depth_probe only: one train step
+of ARCH at each depth in turn until one runs out of memory, the evidence
+for its TRAIN_CUTS depth.
 """
 from __future__ import annotations
 
@@ -53,7 +59,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.data import SyntheticLMDataset  # noqa: E402
+from repro_torch.data import SyntheticLMDataset, pseudo_embeds  # noqa: E402
 from repro_torch.kernels.build import ptxas_summary  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -65,7 +71,7 @@ from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
 from repro_torch.models import attention, lm, moe, rglru, rwkv6  # noqa: E402
 from repro_torch.optim import adamw_update, init_train_state  # noqa: E402
-from repro_torch.serve import generate  # noqa: E402
+from repro_torch.serve import encode, generate  # noqa: E402
 from repro_torch.train import make_train_step, useful_flops  # noqa: E402
 from repro_torch.train import steps as train_steps  # noqa: E402
 from repro_torch.tree import leaves, paths  # noqa: E402
@@ -116,8 +122,16 @@ RECURRENTGEMMA_TRAIN_10H = (2, 4096, 4096, 10, 1, 256, 256, True, 2048, 0, None)
 # rotary) and v of 64: bf16 on the tensor cores, f32 on the SIMT route.
 MINICPM3_PREFILL = (8, 1024, 1024, 48, 48, 96, 64, True, None, 0, None)
 MINICPM3_TRAIN = (2, 4096, 4096, 48, 48, 96, 64, True, None, 0, None)
+# hubert-xlarge's: bidirectional, 16 heads over 16 of 80 (the SIMT route in
+# f32 and bf16), its encode of 8 x 1024 frames and its train shape, and the
+# small case at its head dim that earlier runs held.  pixtral-12b's (32
+# heads over 8 of 128) are minitron-4b's.
+HUBERT_PREFILL = (8, 1024, 1024, 16, 16, 80, 80, False, None, 0, None)
+HUBERT_TRAIN = (2, 4096, 4096, 16, 16, 80, 80, False, None, 0, None)
+HUBERT_SMALL = (2, 50, 50, 16, 16, 80, 80, False, None, 0, None)
 FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_PREFILL_10H,
-               "yi-9b": YI_PREFILL, "minicpm3-4b": MINICPM3_PREFILL}
+               "yi-9b": YI_PREFILL, "minicpm3-4b": MINICPM3_PREFILL,
+               "hubert-xlarge": HUBERT_PREFILL}
 # (B, Sq, Sk, H, KH, Dk, Dv, causal, window, q_offset, kv_len): the six CASES
 # of tests/test_kernels_attention.py, Dk 96 / Dv 64, kv_len < Sk, head dim
 # 256, hubert-xlarge's head dim 80 (bidirectional, 16 heads over 16); on the
@@ -130,8 +144,9 @@ FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_
 # lse, as training calls it); the served prefill shapes of yi-9b (and
 # qwen3-moe), minitron-4b and qwen2-moe, yi-9b's (and qwen3-moe's) and
 # minitron-4b's train shapes, minicpm3-4b's prefill and train shapes at
-# (96, 64), and qwen2-moe's train shape (last, as in BWD_CASES, so that no
-# earlier case's inputs, drawn from its index, move).
+# (96, 64), and qwen2-moe's train shape; then hubert-xlarge's prefill and
+# train shapes at (80, 80), bidirectional (after the cases whose inputs,
+# drawn from each case's index, they would otherwise move).
 KERNEL_CASES = [
     (2, 64, 64, 4, 2, 16, 16, True, None, 0, None),
     (1, 128, 128, 8, 8, 32, 32, True, None, 0, None),
@@ -142,7 +157,7 @@ KERNEL_CASES = [
     (2, 32, 32, 4, 4, 96, 64, True, None, 0, None),
     (2, 70, 200, 8, 2, 128, 128, False, None, 0, 150),
     (1, 100, 100, 4, 2, 256, 256, True, None, 0, None),
-    (2, 50, 50, 16, 16, 80, 80, False, None, 0, None),
+    HUBERT_SMALL,
     (2, 37, 93, 8, 2, 128, 128, True, None, 56, None),
     (1, 300, 300, 4, 1, 256, 256, True, 100, 0, None),
     (1, 64, 64, 4, 2, 128, 128, False, None, 0, 0),
@@ -159,11 +174,16 @@ KERNEL_CASES = [
     MINICPM3_PREFILL,
     MINICPM3_TRAIN,
     QWEN2_MOE_TRAIN,
+    HUBERT_PREFILL,
+    HUBERT_TRAIN,
 ]
+# The served prompts: tokens, or for the frontend stubs frames (hubert-xlarge)
+# and patch embeddings (pixtral-12b).
 SERVE_BATCH, SERVE_NEW = 8, 64
 SERVE_PROMPT = {"qwen3-1.7b": 1024, "rwkv6-7b": 1024, "recurrentgemma-2b": 4096,
                 "yi-9b": 1024, "minitron-4b": 1024, "qwen2-moe-a2.7b": 1024,
-                "qwen3-moe-30b-a3b": 1024, "minicpm3-4b": 1024}
+                "qwen3-moe-30b-a3b": 1024, "minicpm3-4b": 1024, "hubert-xlarge": 1024,
+                "pixtral-12b": 1024}
 
 # (B, T, H, D, random s0, decay): the three shapes of
 # tests/test_kernels_recurrence.py::test_rwkv6_kernel, a ragged T at D 64, the
@@ -247,9 +267,11 @@ SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
 # ragged; a window, q_offset and kv_len < Sk with GQA; kv_len 0;
 # recurrentgemma-2b's train shape (2 x 4096 tokens, 1 kv head of 256, a
 # 2048-token window) at the 10 heads its train step launches, and at 10
-# heads padded to 16 as earlier runs timed it.  Last qwen2-moe-a2.7b's
-# train shape (16 heads over 16 at 128), after the cases whose inputs its
-# index would otherwise move.  Where the heads hold fewer
+# heads padded to 16 as earlier runs timed it.  Then qwen2-moe-a2.7b's
+# train shape (16 heads over 16 at 128), and last the cases at hubert-xlarge's
+# (80, 80) (SIMT in both dtypes): its prefill and train shapes and the small
+# bidirectional case, each after the cases whose inputs its index would
+# otherwise move.  Where the heads hold fewer
 # real ones (BWD_REAL_HEADS: those 16 hold 10; minitron-4b's 32 hold 24;
 # minicpm3-4b's 48 hold 40, at (96, 64), bf16 on the tensor cores),
 # dout is 0 on the padded heads, as the reference's masked output gives
@@ -261,13 +283,16 @@ SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
 RECURRENTGEMMA_EDGES = (2, 77, 130, 16, 1, 256, 256, True, 33, 20, None)
 BWD_CASES = [c for c in KERNEL_CASES if (c[5], c[6]) in fa_kernel.BWD_HEAD_DIMS and c not in (
     RECURRENTGEMMA_PREFILL_10H, RECURRENTGEMMA_PREFILL, RECURRENTGEMMA_TRAIN_10H,
-    QWEN2_MOE_TRAIN)] + [
+    QWEN2_MOE_TRAIN, HUBERT_SMALL, HUBERT_PREFILL, HUBERT_TRAIN)] + [
     RECURRENTGEMMA_EDGES,
     (2, 250, 333, 8, 2, 256, 256, True, 150, 83, 300),
     (1, 64, 64, 4, 2, 256, 256, False, None, 0, 0),
     RECURRENTGEMMA_TRAIN_10H,
     RECURRENTGEMMA_TRAIN,
     QWEN2_MOE_TRAIN,
+    HUBERT_PREFILL,
+    HUBERT_TRAIN,
+    HUBERT_SMALL,
 ]
 BWD_REAL_HEADS = {RECURRENTGEMMA_EDGES: 10, RECURRENTGEMMA_TRAIN: 10, MINITRON_TRAIN: 24,
                   MINICPM3_TRAIN: 40}
@@ -506,13 +531,14 @@ def phase_build():
     # the scan's backward (both paths), the WKV chunk route, the chain of
     # the WKV chunk_exact route (its source's name is in its symbol), the
     # SIMT backward at 256 and at (96, 64) (f32 only: bf16 takes the tensor
-    # cores there), and the WKV
+    # cores there) and at (80, 80) (f32 and bf16), and the WKV
     # backward's kernels on both routes (each keeps a row or column of the
     # state in registers; the chunk route's job and its chain)
     for name, pattern in (("rglru_scan_bwd", "rglru_bwd"), ("rwkv6_wkv_fwd", "wkv_fwd_chunk"),
                           ("rwkv6_wkv_fwd", "wkv_fwd_exact"),
                           ("flash_attention_bwd", r"attn_bwd_(dkdv|dq)I.*Li256ELi256E"),
                           ("flash_attention_bwd", MLA_BWD_SYMBOLS),
+                          ("flash_attention_bwd", HUBERT_BWD_SYMBOLS),
                           ("rwkv6_wkv_bwd", "wkv_bwd")):
         seen, spills = spilling_entries(builds[name].log, pattern)
         if not seen or spills:
@@ -529,10 +555,12 @@ def phase_build():
 
 
 # Every tensor-core kernel of the flash libraries has this in its name; the
-# SIMT backward's kernels at (96, 64) (f32 only) have this pattern, which the
-# tensor-core kernels' names ("_wgmma" before the template) do not match.
+# SIMT backward's kernels at (96, 64) (f32 only) and at (80, 80) (f32 and
+# bf16) have these patterns, which the tensor-core kernels' names ("_wgmma"
+# before the template) do not match.
 WGMMA_SYMBOL = "_wgmma"
 MLA_BWD_SYMBOLS = r"attn_bwd_(dkdv|dq)I.*Li96ELi64E"
+HUBERT_BWD_SYMBOLS = r"attn_bwd_(dkdv|dq)I.*Li80ELi80E"
 
 
 def wgmma_ptxas_faults(log_text):
@@ -986,27 +1014,37 @@ def phase_wkv_bwd_cases():
     return worst
 
 
-def _slice_run(params, cfg, prompts, follow):
-    """One path of the slice, with the launches of each part.  First a
-    train-mode forward over the prompts: the final hidden state at every
+def prompt_kind(cfg) -> str:
+    """What a prompt of cfg is made of: tokens, or a frontend stub's
+    embeddings."""
+    return {None: "tokens", "audio": "frame embeddings", "vision": "patch embeddings"}[
+        cfg.frontend]
+
+
+def _slice_run(params, cfg, prompt, follow):
+    """One path of the slice, with the launches of each part.  ``prompt``:
+    {"tokens": (B, P)}, or {"embeds": (B, P, d)} for a frontend stub.  First
+    a train-mode forward over the prompt: the final hidden state at every
     position.  Then prefill and teacher-forced decode steps on a cache of its
     own: the logits of each, a copy of the cache's leaves after prefill, and
-    the cache's leaves at the end."""
+    the cache's leaves at the end.  An encoder-only model has no cache and
+    no decode step (``follow`` is empty): its prefill gives the frame logits."""
     reset_launches()
-    hidden, _ = lm.forward(params, cfg, tokens=prompts)
+    hidden, _ = lm.forward(params, cfg, **prompt)
     forward_launches = {**read_launches(), "rwkv6_wkv_fwd by route": read_wkv_routes()}
     reset_launches()
-    cache = lm.init_cache(cfg, prompts.shape[0], prompts.shape[1] + follow.shape[1],
-                          params["embed"].dtype, "cuda")
-    logits, cache = lm.prefill(params, cfg, cache, tokens=prompts)
+    B, P = next(iter(prompt.values())).shape[:2]
+    cache = lm.init_cache(cfg, B, P + follow.shape[1], params["embed"].dtype, "cuda")
+    logits, cache = lm.prefill(params, cfg, cache, **prompt)
     out = [logits]
-    after_prefill = {name: t.clone() for name, t in cache_leaves(cache["layers"])}
+    after_prefill = {} if cache is None else {
+        name: t.clone() for name, t in cache_leaves(cache["layers"])}
     for t in range(follow.shape[1]):
         logits, cache = lm.decode_step(params, cfg, cache, follow[:, t:t + 1])
         out.append(logits)
     return (hidden, forward_launches, out,
             {**read_launches(), "rwkv6_wkv_fwd by route": read_wkv_routes()}, after_prefill,
-            dict(cache_leaves(cache["layers"])))
+            {} if cache is None else dict(cache_leaves(cache["layers"])))
 
 
 def wkv_routes(cfg, dtype, tokens, n_multi, n_single, grad=False):
@@ -1032,6 +1070,10 @@ def wkv_routes(cfg, dtype, tokens, n_multi, n_single, grad=False):
 # minicpm3-4b (MLA: flash at (96, 64) in train mode and prefill, its decode
 # plain on the compressed cache): flash once a layer, as qwen3; the MoE
 # models' plain path replays the kernel path's expert choice (RouterReplay).
+# hubert-xlarge (bidirectional, flash at (80, 80), SIMT in both dtypes) over
+# 64 frame embeddings: flash once a layer in the forward and in its prefill,
+# which gives the frame logits; no cache, no decode step.  pixtral-12b
+# prefills 64 patch embeddings, then decodes tokens, as yi-9b.
 SLICE_DECODE_STEPS = 4
 # The dtypes the slices run in, each with its tolerance (phase_slice).
 SLICE_DTYPES = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
@@ -1050,7 +1092,7 @@ SLICES = [
 ] + [(arch, {"n_layers": 2}, 64, [(attention, "flash_attention", fa_ops.chunked_attention)],
       {"flash_attention_fwd": 2}, {"flash_attention_fwd": 2})
      for arch in ("yi-9b", "minitron-4b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
-                  "minicpm3-4b")]
+                  "minicpm3-4b", "hubert-xlarge", "pixtral-12b")]
 # The router the MoE block calls, as the port defines it (RouterReplay wraps it).
 ROUTER = moe._router
 
@@ -1158,9 +1200,12 @@ def phase_slice():
         g = torch.Generator("cuda").manual_seed(2)
         prompts = torch.randint(0, cfg.vocab, (2, prompt_len), generator=g, device="cuda")
         follow = torch.randint(0, cfg.vocab, (2, SLICE_DECODE_STEPS), generator=g,
-                               device="cuda")
+                               device="cuda")[:, :SLICE_DECODE_STEPS if cfg.has_decoder else 0]
         for dtype, tol in SLICE_DTYPES:
-            label = f"{arch} full width, {what_cut}, 2x{prompt_len} tokens, {dtype_name(dtype)}"
+            label = (f"{arch} full width, {what_cut}, 2x{prompt_len} {prompt_kind(cfg)}, "
+                     f"{dtype_name(dtype)}")
+            prompt = {"tokens": prompts} if not cfg.frontend else {"embeds": pseudo_embeds(
+                2, prompt_len, cfg.d_model, seed=2, step=0, dtype=dtype, device="cuda")}
             # WKV by route: the forward and prefill over the prompt (the chunk
             # route in bf16), each decode step a single step (recurrent)
             n_wkv = fwd_launches.get("rwkv6_wkv_fwd", 0)
@@ -1175,14 +1220,14 @@ def phase_slice():
                 if replay:
                     stack.enter_context(mock.patch.object(moe, "_router", replay.record))
                 (kernel_hidden, kernel_fwd, kernel_path, kernel_launches, kernel_prefill,
-                 kernel_final) = _slice_run(params, cfg, prompts, follow)
+                 kernel_final) = _slice_run(params, cfg, prompt, follow)
             with contextlib.ExitStack() as stack:
                 for module, attr, plain in patches:
                     stack.enter_context(mock.patch.object(module, attr, plain))
                 if replay:
                     stack.enter_context(mock.patch.object(moe, "_router", replay.replay))
                 (plain_hidden, plain_fwd, plain_path, plain_launches, plain_prefill,
-                 plain_final) = _slice_run(params, cfg, prompts, follow)
+                 plain_final) = _slice_run(params, cfg, prompt, follow)
             if replay:
                 if replay.replayed != len(replay.calls):
                     raise AssertionError(f"slice {label}: the plain path called the router "
@@ -1215,7 +1260,8 @@ def phase_slice():
                                      "state equals the plain path's bit for bit in f32")
             rels = []
             for i, (a, b) in enumerate(zip(kernel_path, plain_path)):
-                what = "prefill" if i == 0 else f"decode {i}"
+                what = ("prefill" if cfg.has_decoder else "encode (frame)") if i == 0 else \
+                    f"decode {i}"
                 if not torch.isfinite(a).all():
                     raise AssertionError(f"slice {label} {what}: non-finite logits")
                 rels.append(rel_err(a, b))
@@ -1224,7 +1270,7 @@ def phase_slice():
                     f"{b.abs().max().item():.1f}")
                 if rels[-1] > tol:
                     raise AssertionError(f"slice {label} {what}: rel_err {rels[-1]} > {tol}")
-            if rels[0] > 0 and rels[1] == 0:
+            if len(rels) > 1 and rels[0] > 0 and rels[1] == 0:
                 raise AssertionError(f"slice {label}: the first decode step's logits agree "
                                      "exactly while the prefill logits do not")
             shared = ({t.data_ptr() for t in kernel_final.values()}
@@ -1486,7 +1532,10 @@ def hybrid_train_launches(cfg):
 # tokens: the chunks of both training routes (wkv_kernel.CHUNK_STEPS steps)
 # cross boundaries and the last is ragged; in bf16 its forward on the chunk_exact route, as
 # every forward of a gradient there (wkv_kernel.route), and its backward on
-# the chunk route (wkv_kernel.bwd_route).
+# the chunk route (wkv_kernel.bwd_route).  hubert-xlarge (flash at (80, 80),
+# bidirectional, SIMT in both dtypes) and pixtral-12b train on embeddings
+# (pseudo_embeds) and the tokens' labels; their embed leaf, which the loss
+# never reads, takes a zero gradient, as jax.grad gives it.
 TRAIN_SLICES = [
     ("qwen3-1.7b", {"n_layers": 2}, 2, 64,
      [(attention, "flash_attention", fa_ops.chunked_attention)]),
@@ -1497,7 +1546,8 @@ TRAIN_SLICES = [
      for arch in ("yi-9b", "minitron-4b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
                   "minicpm3-4b")] + [
     ("rwkv6-7b", {"n_layers": 2}, 2, 200, [(rwkv6, "rwkv6_wkv", wkv_ref.rwkv6_reference)]),
-]
+] + [(arch, {"n_layers": 2}, 2, 64, [(attention, "flash_attention", fa_ops.chunked_attention)])
+     for arch in ("hubert-xlarge", "pixtral-12b")]
 # The dtypes each train slice runs in, with the tolerance of each: f32 and
 # bf16, but minitron-4b in bf16 only.  Its f32 slice failed the f32 master
 # hold on its zero-initialised ln2 (rel_err 1.62e-4 against 1e-4), whose
@@ -1508,7 +1558,7 @@ TRAIN_SLICES = [
 # every f32 gradient leaf agreed within 1.2e-6 (PERF.md §6, ROADMAP C4).
 # rwkv6-7b in bf16 only too: its block holds seven zero-initialised leaves
 # (ln1, tm_mu_x, tm_mus, ln_x, ln2, cm_mu_k, cm_mu_r;
-# src/repro_torch/models/schema.py:109-126), each exposed to that f32 master
+# src/repro_torch/models/schema.py:130-147), each exposed to that f32 master
 # hold as minitron's ln2 was (ROADMAP C4, open).  minicpm3-4b in bf16 only
 # as well: its f32 slice failed the same hold on its zero-initialised ln2
 # (rel_err 1.098e-4 against 1e-4) while every f32 gradient leaf agreed
@@ -1607,7 +1657,8 @@ def _train_slice_run(cfg, params, batch):
         w.requires_grad_(True)
     reset_launches()
     loss, _ = lm.loss_fn(params, cfg, batch, remat="full", ce_chunk=TRAIN_CE_CHUNK)
-    grads = torch.autograd.grad(loss, weights)
+    # embed, under a batch of embeddings, takes a zero gradient, as in the step
+    grads = torch.autograd.grad(loss, weights, allow_unused=True, materialize_grads=True)
     grad_launches = read_train_launches()
     step = make_train_step(cfg, remat="full", ce_chunk=TRAIN_CE_CHUNK)
     seen = {}
@@ -1730,10 +1781,13 @@ def phase_train_slice():
         cfg = dataclasses.replace(get_config(arch), **cut)
         g = torch.Generator("cuda").manual_seed(4)
         toks = torch.randint(0, cfg.vocab, (batch_size, seq + 1), generator=g, device="cuda")
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
         what_cut = ", ".join(f"{k} {v}" for k, v in cut.items())
         for dtype, tol in TRAIN_SLICE_DTYPES.get(arch, SLICE_DTYPES):
-            label = f"{arch} full width, {what_cut}, {batch_size}x{seq} tokens, {dtype_name(dtype)}"
+            label = (f"{arch} full width, {what_cut}, {batch_size}x{seq} {prompt_kind(cfg)}, "
+                     f"{dtype_name(dtype)}")
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]} if not cfg.frontend else {
+                "embeds": pseudo_embeds(batch_size, seq, cfg.d_model, seed=4, step=0,
+                                        dtype=dtype, device="cuda"), "labels": toks[:, 1:]}
             t0 = time.perf_counter()
             want = want_train_launches(cfg, dtype, seq)
 
@@ -1836,19 +1890,36 @@ def phase_train_slice():
 # steps found the MoE models at 4 layers (5 ran out of memory in AdamW,
 # whose f32 temporaries of a leaf scale with the stacked experts: 3.44 GiB
 # a temporary at 5 layers) and minicpm3-4b at 50 (54 ran out of memory).
+# hubert-xlarge's 0.945e9 parameters take 15 GB: it trains at full depth.
+# pixtral-12b's 12.25e9, 196 GB, 4.36 GB a layer beside 21.5 GB of embed and
+# lm_head (its embed leaf, never read, still takes AdamW's f32 state and
+# temporaries): a depth probe (--depth-probe pixtral-12b 6 7 8 9 10 11 12)
+# ran one step at 10 layers with a peak of 79.93 GB and 11 ran out of
+# memory, but at 10 layers in the whole run, after the other phases, the
+# warm-up step ran out of memory in AdamW (4.58 GiB reserved and free in
+# pieces); at 9 the probe's peak was 74.10 GB.
 TRAIN_SHAPES = {"qwen3-1.7b": (8, 1024), "recurrentgemma-2b": (2, 4096),
                 "minitron-4b": (2, 4096), "yi-9b": (2, 4096), "rwkv6-7b": (2, 4096),
                 "qwen2-moe-a2.7b": (2, 4096), "qwen3-moe-30b-a3b": (2, 4096),
-                "minicpm3-4b": (2, 4096)}
+                "minicpm3-4b": (2, 4096), "hubert-xlarge": (2, 4096), "pixtral-12b": (2, 4096)}
 TRAIN_CUTS = {"minitron-4b": {"n_layers": 26}, "yi-9b": {"n_layers": 16},
               "rwkv6-7b": {"n_layers": 14}, "qwen2-moe-a2.7b": {"n_layers": 4},
-              "qwen3-moe-30b-a3b": {"n_layers": 4}, "minicpm3-4b": {"n_layers": 50}}
+              "qwen3-moe-30b-a3b": {"n_layers": 4}, "minicpm3-4b": {"n_layers": 50},
+              "pixtral-12b": {"n_layers": 9}}
 TRAIN_STEPS = 3
 
 
-def train_batch(data, step, batch_size):
-    return {k: torch.from_numpy(v).long().to("cuda")
-            for k, v in data.batch(step, batch_size).items()}
+def train_batch(data, step, batch_size, cfg):
+    """A step's batch from the port's SyntheticLMDataset: its tokens and
+    labels, or for a frontend stub pseudo-embeddings drawn from (0, step)
+    with the labels, as the train driver makes them at --seed 0."""
+    batch = {k: torch.from_numpy(v).long().to("cuda")
+             for k, v in data.batch(step, batch_size).items()}
+    if not cfg.frontend:
+        return batch
+    return {"embeds": pseudo_embeds(batch_size, data.seq_len, cfg.d_model, seed=0, step=step,
+                                    dtype=torch.bfloat16, device="cuda"),
+            "labels": batch["labels"]}
 
 
 def phase_train(arch):
@@ -1865,8 +1936,11 @@ def phase_train(arch):
     16 layers 46 and 16, as qwen3's; rwkv6-7b at 14 layers, in remat groups
     of 2, 35 WKV forward, all on the chunk_exact route, and 14 WKV backward,
     all on the chunk route; the MoE models and minicpm3-4b at their cut
-    depths likewise, minicpm3-4b's flash launches all wgmma at (96, 64));
-    then one more step under the profiler."""
+    depths likewise, minicpm3-4b's flash launches all wgmma at (96, 64);
+    hubert-xlarge at 48 layers 138 forward and 48 backward, all SIMT at
+    (80, 80), and pixtral-12b at 9 layers (remat groups of 1) 18 and 9,
+    all wgmma, both on
+    pseudo-embeddings); then one more step under the profiler."""
     cfg = dataclasses.replace(get_config(arch), **TRAIN_CUTS.get(arch, {}))
     batch_size, seq = TRAIN_SHAPES[arch]
     params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda")
@@ -1874,13 +1948,13 @@ def phase_train(arch):
     state = init_train_state(params)
     data = SyntheticLMDataset(cfg.vocab, seq, seed=0)
     step_fn = make_train_step(cfg, remat="full", ce_chunk=TRAIN_CE_CHUNK)
-    state, metrics = step_fn(state, train_batch(data, 0, batch_size))  # warm-up
+    state, metrics = step_fn(state, train_batch(data, 0, batch_size, cfg))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     want = want_train_launches(cfg, torch.bfloat16, seq)
     times, launches, losses = [], [], []
     for i in range(1, 1 + TRAIN_STEPS):
-        batch = train_batch(data, i, batch_size)
+        batch = train_batch(data, i, batch_size, cfg)
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -1913,12 +1987,12 @@ def phase_train(arch):
     flops = useful_flops(cfg, ShapeConfig("train", seq, batch_size, "train"))
     log(f"[train] {cfg.name}: {n_params} params bf16, {cfg.n_layers} of "
         f"{get_config(arch).n_layers} layers, batch "
-        f"{batch_size} x {seq} tokens, remat full, ce_chunk {TRAIN_CE_CHUNK}: step "
+        f"{batch_size} x {seq} {prompt_kind(cfg)}, remat full, ce_chunk {TRAIN_CE_CHUNK}: step "
         f"{step_s * 1e3:.3f} ms (median of {TRAIN_STEPS}; {[round(t * 1e3, 3) for t in times]}), "
         f"{tokens / step_s:.1f} tokens/s, useful_flops {flops:.4e} = model-FLOP share "
         f"{flops / step_s / PEAK_BF16_FLOPS:.4f} of {PEAK_BF16_FLOPS:.0e}; "
         f"max_memory_allocated {peak} bytes, {memory_left(peak)}; losses {losses}")
-    batch = train_batch(data, 1 + TRAIN_STEPS, batch_size)
+    batch = train_batch(data, 1 + TRAIN_STEPS, batch_size, cfg)
     profile_call(f"{cfg.name} train step", lambda: step_fn(state, batch))
     del state, params
     return dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
@@ -1935,7 +2009,11 @@ def phase_train(arch):
 # rglru layers, in prefill only (decode is plain, as in the JAX package);
 # yi-9b, minitron-4b, qwen2-moe-a2.7b, qwen3-moe-30b-a3b and minicpm3-4b run
 # flash once a layer in prefill, as qwen3-1.7b (minicpm3-4b's decode attends
-# over its compressed cache in plain PyTorch, as the JAX package does).
+# over its compressed cache in plain PyTorch, as the JAX package does);
+# hubert-xlarge encodes (its prefill gives the frame logits; it has no
+# decode step) through flash at (80, 80) once a layer, on the SIMT route in
+# bf16; pixtral-12b prefills its patch embeddings through flash once a layer
+# and decodes tokens, as yi-9b.
 SERVE_LAUNCHES = {
     "qwen3-1.7b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 28},
     "rwkv6-7b": {**dict.fromkeys(KERNELS, 0), "rwkv6_wkv_fwd": 32 * SERVE_NEW},
@@ -1946,9 +2024,12 @@ SERVE_LAUNCHES = {
     "qwen2-moe-a2.7b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 24},
     "qwen3-moe-30b-a3b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 48},
     "minicpm3-4b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 62},
+    "hubert-xlarge": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 48},
+    "pixtral-12b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 40},
 }
 # Each served flash launch on the route of its model's head dims in bf16:
-# the tensor cores at 128, 256 and minicpm3-4b's (96, 64).
+# the tensor cores at 128, 256 and minicpm3-4b's (96, 64); SIMT at
+# hubert-xlarge's (80, 80).
 SERVE_FLASH_ROUTES = {
     arch: {r: counts["flash_attention_fwd"] * (
         r == fa_kernel.route(torch.bfloat16, *attn_head_dims(get_config(arch))))
@@ -2031,28 +2112,44 @@ def serve_against_plain(params, cfg, prompts, tokens):
                              f"logits rel_err {max(held)} > {tol}")
 
 
+def serve_prompt(cfg, length):
+    """SERVE_BATCH prompts of ``length``: {"tokens"} drawn from seed 1, or
+    for a frontend stub {"embeds"} drawn from (1, 0) in bf16, as the serve
+    entry point's CLI draws them."""
+    if cfg.frontend:
+        return {"embeds": pseudo_embeds(SERVE_BATCH, length, cfg.d_model, seed=1, step=0,
+                                        dtype=torch.bfloat16, device="cuda")}
+    return {"tokens": torch.randint(0, cfg.vocab, (SERVE_BATCH, length),
+                                    generator=torch.Generator("cuda").manual_seed(1),
+                                    device="cuda")}
+
+
 def phase_serve(arch):
-    """The main path: serve one model at full width through the entry point.
-    An MoE model's prefill must give the same logits to the bit in the
-    warm-up and in the timed serve: its combine adds in a fixed order.
-    SERVE_AGAINST_PLAIN is then held against its plain path
-    (serve_against_plain)."""
+    """The main path: serve one model at full width through the entry point
+    (an encoder-only model encodes instead, phase_encode).  A prompt is
+    tokens, or pixtral-12b's patch embeddings.  An MoE model's prefill must
+    give the same logits to the bit in the warm-up and in the timed serve:
+    its combine adds in a fixed order.  SERVE_AGAINST_PLAIN is then held
+    against its plain path (serve_against_plain)."""
     cfg = get_config(arch)
     params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda")
     n_params = numel(params)
-    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT[arch]),
-                            generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+    prompt = serve_prompt(cfg, SERVE_PROMPT[arch])
+    if not cfg.has_decoder:
+        return phase_encode(arch, cfg, params, n_params, prompt)
+    prompts, embeds = prompt.get("tokens"), prompt.get("embeds")
     # warm-up: cuBLAS, allocator
-    warm = generate(params, cfg, prompts, 2, cache_dtype=torch.bfloat16)
+    warm = generate(params, cfg, prompts, 2, cache_dtype=torch.bfloat16, embeds=embeds)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    gen = generate(params, cfg, prompts, SERVE_NEW, cache_dtype=torch.bfloat16)
+    gen = generate(params, cfg, prompts, SERVE_NEW, cache_dtype=torch.bfloat16, embeds=embeds)
     launches, routes, wkv_routes_ = read_launches(), read_flash_routes(), read_wkv_routes()
     lse_launches = fa_kernel.flash_attention_fwd.lse_launches
     peak = torch.cuda.max_memory_allocated()
     steps = SERVE_NEW - 1
     log(f"[serve] {cfg.name}: {n_params} params bf16, {cfg.n_layers} layers, batch "
-        f"{SERVE_BATCH} x {SERVE_PROMPT[arch]}-token prompts, {SERVE_NEW} new tokens")
+        f"{SERVE_BATCH} x {SERVE_PROMPT[arch]} {prompt_kind(cfg)} a prompt, {SERVE_NEW} new "
+        "tokens")
     log(f"[serve] {cfg.name}: prefill {gen.prefill_s * 1e3:.3f} ms; decode {steps} steps in "
         f"{gen.decode_s * 1e3:.3f} ms = {gen.decode_s * 1e3 / steps:.3f} ms/step = "
         f"{SERVE_BATCH * steps / gen.decode_s:.1f} tokens/s; launches {launches} "
@@ -2097,19 +2194,75 @@ def phase_serve(arch):
             "the timed serve's) gave the same logits to the bit")
     if arch == SERVE_AGAINST_PLAIN:
         serve_against_plain(params, cfg, prompts, gen.tokens)
-    return params, cfg, prompts, launches, routes, wkv_routes_
+    return params, cfg, prompt, launches, routes, wkv_routes_
 
 
-def phase_profile(params, cfg, prompts):
-    """Device time by kernel over one prefill and over one decode step."""
-    cache = lm.init_cache(cfg, prompts.shape[0], prompts.shape[1] + 16, torch.bfloat16, "cuda")
-    cur = prompts[:, :1]
+def phase_encode(arch, cfg, params, n_params, prompt):
+    """An encoder-only model's main path: serve.encode over SERVE_BATCH x
+    SERVE_PROMPT[arch] frame embeddings (its prefill: a train-mode forward
+    and the f32 frame logits, then their argmax), once to warm up, then
+    timed, the launch counters set to 0 just before it: flash once a layer,
+    on the route of its head dims in bf16 (SIMT at (80, 80)), no lse, no
+    decode step.  Whether the warm-up's logits equal the timed encode's to
+    the bit is logged."""
+    embeds = prompt["embeds"]
+    warm = encode(params, cfg, embeds)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    enc = encode(params, cfg, embeds)
+    launches, routes, wkv_routes_ = read_launches(), read_flash_routes(), read_wkv_routes()
+    lse_launches = fa_kernel.flash_attention_fwd.lse_launches
+    peak = torch.cuda.max_memory_allocated()
+    B, S = embeds.shape[:2]
+    log(f"[serve] {cfg.name}: {n_params} params bf16, {cfg.n_layers} layers, batch {B} x {S} "
+        f"{prompt_kind(cfg)} a sequence, encoder-only: no decode step")
+    log(f"[serve] {cfg.name}: encode (prefill and argmax) {enc.prefill_s * 1e3:.3f} ms = "
+        f"{B * S / enc.prefill_s:.1f} frames/s; launches {launches} (expected "
+        f"{SERVE_LAUNCHES[arch]}), flash by route {routes} (expected "
+        f"{SERVE_FLASH_ROUTES[arch]}), {lse_launches} flash launches writing an lse; "
+        f"max_memory_allocated {peak} bytes, {memory_left(peak)}; the warm-up's frame logits "
+        f"equal to the bit: {torch.equal(warm.logits, enc.logits)}")
+    log(f"[serve] {cfg.name} sample (frame labels): {enc.labels[0, :16].tolist()}")
+    if enc.logits.shape != (B, S, cfg.padded_vocab) or enc.logits.dtype != torch.float32:
+        raise AssertionError(f"serve {arch}: frame logits {tuple(enc.logits.shape)} "
+                             f"{enc.logits.dtype}")
+    if not torch.isfinite(enc.logits).all():
+        raise AssertionError(f"serve {arch}: non-finite frame logits")
+    if not ((enc.labels >= 0) & (enc.labels < cfg.padded_vocab)).all():
+        raise AssertionError(f"serve {arch}: frame labels out of the vocabulary")
+    if launches != SERVE_LAUNCHES[arch]:
+        raise AssertionError(f"serve {arch}: kernel launches {launches}, "
+                             f"expected {SERVE_LAUNCHES[arch]}")
+    if routes != SERVE_FLASH_ROUTES[arch]:
+        raise AssertionError(f"serve {arch}: flash launches by route {routes}, "
+                             f"expected {SERVE_FLASH_ROUTES[arch]}")
+    if wkv_routes_ != SERVE_WKV_ROUTES[arch]:
+        raise AssertionError(f"serve {arch}: WKV launches by route {wkv_routes_}, "
+                             f"expected {SERVE_WKV_ROUTES[arch]}")
+    if lse_launches:
+        raise AssertionError(f"serve {arch}: {lse_launches} flash launches wrote an lse")
+    return params, cfg, prompt, launches, routes, wkv_routes_
+
+
+def phase_profile(params, cfg, prompt):
+    """Device time by kernel over one prefill and over one decode step (an
+    encoder-only model: its prefill alone).  ``prompt``: as serve_prompt
+    makes it; a decode step after a prompt of embeddings reads token 0."""
+    B, P = next(iter(prompt.values())).shape[:2]
+    cache = lm.init_cache(cfg, B, P + 16, torch.bfloat16, "cuda")
 
     def run_prefill():
-        lm.prefill(params, cfg, cache, tokens=prompts)
+        lm.prefill(params, cfg, cache, **prompt)
+
+    if cache is None:
+        run_prefill()
+        profile_call(f"{cfg.name} prefill", run_prefill)
+        return
+    cur = prompt["tokens"][:, :1] if "tokens" in prompt else torch.zeros(
+        (B, 1), dtype=torch.long, device="cuda")
 
     def run_decode():
-        lm.decode_step(params, cfg, {"pos": prompts.shape[1], "layers": cache["layers"]}, cur)
+        lm.decode_step(params, cfg, {"pos": P, "layers": cache["layers"]}, cur)
 
     for what, fn in (("prefill", run_prefill), ("decode step", run_decode)):
         fn()
@@ -2197,11 +2350,13 @@ def in_turns(fns, timer=time_ms):
 
 def sdpa_call(q, k, v, case):
     """The library's attention on (B, H, S, D) copies of the case's inputs:
-    is_causal for a causal case, the sliding window as a boolean attn_mask."""
+    is_causal as the case says (hubert-xlarge's is bidirectional), the
+    sliding window as a boolean attn_mask."""
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     Sq, Sk, window = case[1], case[2], case[8]
     if window is None:
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=case[7],
+                                                      enable_gqa=True)
     i = torch.arange(Sq, device="cuda")[:, None]
     j = torch.arange(Sk, device="cuda")[None, :]
     mask = (j <= i) & (j > i - window)
@@ -2233,18 +2388,25 @@ def fused_sdpa(fn):
     return None, refused
 
 
+# The head dims whose library yardstick is SDPA's default choice, as earlier
+# runs timed it; elsewhere (MLA's (96, 64), hubert-xlarge's (80, 80)) the
+# fused backend that ran is named.
+DEFAULT_SDPA_DIMS = ((128, 128), (256, 256))
+
+
 def library_attention(fn, case):
-    """The library yardstick for a case: fn (an SDPA call) as it is where
-    Dk equals Dv, else fused_sdpa(fn); with the backend's name (None for
-    the default choice) or the refusals."""
-    if case[5] == case[6]:
+    """The library yardstick for a case: fn (an SDPA call) as it is at
+    DEFAULT_SDPA_DIMS, else fused_sdpa(fn); with the backend's name (None
+    for the default choice) or the refusals."""
+    if (case[5], case[6]) in DEFAULT_SDPA_DIMS:
         return fn, None
     return fused_sdpa(fn)
 
 
 # Calls a timed run of (kernel, plain version, library) at each flash path's shape.
 FLASH_ITERS = {"qwen3-1.7b": (100, 10, 100), "recurrentgemma-2b": (20, 2, 10),
-               "yi-9b": (50, 5, 50), "minicpm3-4b": (50, 2, 20)}
+               "yi-9b": (50, 5, 50), "minicpm3-4b": (50, 2, 20),
+               "hubert-xlarge": (10, 2, 20)}
 
 
 def phase_timings():
@@ -2253,9 +2415,9 @@ def phase_timings():
     calls; then kernel and library again by device time a call (device_ms),
     which leaves out the host's time between launches (the kernel wrapper's
     checks, three tensor maps and a ctypes call), so that the two are
-    compared on the card's time alone.  At minicpm3-4b's (96, 64) the
-    library is the first fused backend that takes Dv != Dk
-    (library_attention), or none."""
+    compared on the card's time alone.  At minicpm3-4b's (96, 64) and
+    hubert-xlarge's (80, 80) the library is the first fused backend that
+    takes the call, named (library_attention), or none."""
     out = {}
     for arch, case in FLASH_PATHS.items():
         q, k, v = case_inputs(case, torch.bfloat16, seed=123)
@@ -2277,7 +2439,7 @@ def phase_timings():
         bound_ms, bound_by, flops, nbytes = attention_bound(case, torch.bfloat16)
         lib_ms = f"{ms['library']:.4f} ms" if library else "none"
         log(f"[timings] flash_attention_fwd, {arch} prefill: q {tuple(q.shape)} k,v "
-            f"{tuple(k.shape)}, {tuple(v.shape)} bf16 causal, window {case[8]}, route "
+            f"{tuple(k.shape)}, {tuple(v.shape)} bf16 causal {case[7]}, window {case[8]}, route "
             f"{fa_kernel.route(torch.bfloat16, case[5], case[6])}, median of 4: kernel "
             f"{ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; "
             f"scaled_dot_product_attention {lib_ms} ({lib_note}); bound {bound_ms:.4f} ms by "
@@ -2292,7 +2454,7 @@ def phase_timings():
         out[arch] = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=ms.get("library"),
                          device_ms=dev["kernel"], library_device_ms=dev.get("library"))
-        if case[5] != case[6]:
+        if (case[5], case[6]) not in DEFAULT_SDPA_DIMS:
             out[arch]["library"] = backend if library else f"none: {json.dumps(backend)}"
     return out
 
@@ -2377,7 +2539,8 @@ def bwd_device_ms(case, calls=5):
 BWD_PATHS = {"qwen3-1.7b": (QWEN3_TRAIN, (20, 3, 20, 20), 5),
              "recurrentgemma-2b": (RECURRENTGEMMA_TRAIN_10H, (10, 1, 5, 5), 5),
              "yi-9b": (YI_TRAIN, (10, 1, 10, 10), 5),
-             "minicpm3-4b": (MINICPM3_TRAIN, (10, 1, 5, 5), 5)}
+             "minicpm3-4b": (MINICPM3_TRAIN, (10, 1, 5, 5), 5),
+             "hubert-xlarge": (HUBERT_TRAIN, (4, 1, 5, 5), 3)}
 BWD_AT_16_HEADS = (RECURRENTGEMMA_TRAIN, (10, 1, 5, 5), 5)
 
 
@@ -2413,7 +2576,7 @@ def _bwd_timings(arch, case, iters, calls):
     route = fa_kernel.route(torch.bfloat16, case[5], case[6], backward=True)
     window = case[8]
     if window is None:
-        mask = {"is_causal": True}
+        mask = {"is_causal": case[7]}
     else:
         i = torch.arange(case[1], device="cuda")[:, None]
         j = torch.arange(case[2], device="cuda")[None, :]
@@ -2446,7 +2609,8 @@ def _bwd_timings(arch, case, iters, calls):
     lib_ms = (f"{library:.4f} ms (forward + backward {ms['sdpa_fwd_bwd']:.4f} less forward "
               f"{ms['sdpa_fwd']:.4f}; {lib_note})" if sdpa_fwd else f"none ({lib_note})")
     log(f"[timings] flash_attention_bwd, {arch} train, route {route}: q {tuple(q.shape)} "
-        f"k,v {tuple(k.shape)}, {tuple(v.shape)} bf16 causal, window {window}, median of 4: "
+        f"k,v {tuple(k.shape)}, {tuple(v.shape)} bf16 causal {case[7]}, window {window}, "
+        "median of 4: "
         f"kernel {ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; "
         f"scaled_dot_product_attention backward {lib_ms}; bound {bound_ms:.4f} ms by "
         f"{bound_by} ({flops:.3e} FLOP, {nbytes} bytes)")
@@ -2465,7 +2629,7 @@ def _bwd_timings(arch, case, iters, calls):
     out = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library, device_ms=dev["kernel"], library_device_ms=lib_dev,
                stage_device_ms=stages)
-    if case[5] != case[6]:
+    if (case[5], case[6]) not in DEFAULT_SDPA_DIMS:
         out["library"] = backend if sdpa_fwd else f"none: {json.dumps(backend)}"
     return out
 
@@ -2769,6 +2933,42 @@ def bwd_tile_sweep():
             f"{json.dumps(bwd_device_ms(case))}")
 
 
+def depth_probe(arch, depths):
+    """One train step of arch at TRAIN_SHAPES[arch] at each of ``depths``
+    layers in turn, as phase_train takes it (bf16, f32 AdamW state, remat
+    full, from a fresh state): each depth's step time (host clock, the
+    first step, so with its warm-up) and peak memory, until a depth runs out
+    of memory.  The evidence for a TRAIN_CUTS depth."""
+    batch_size, seq = TRAIN_SHAPES[arch]
+    for n in depths:
+        cfg = dataclasses.replace(get_config(arch), n_layers=n)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                    torch.bfloat16, "cuda")
+            state = init_train_state(params)
+            step_fn = make_train_step(cfg, remat="full", ce_chunk=TRAIN_CE_CHUNK)
+            batch = train_batch(SyntheticLMDataset(cfg.vocab, seq, seed=0), 0, batch_size, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = metrics["loss"].item()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            log(f"[depth-probe] {arch} at {n} of {get_config(arch).n_layers} layers, "
+                f"{numel(params)} params, {batch_size} x {seq}: one step "
+                f"{(time.perf_counter() - t0) * 1e3:.3f} ms, loss {loss:.4f}, "
+                f"max_memory_allocated {peak} bytes, {memory_left(peak)}")
+        except torch.cuda.OutOfMemoryError as err:
+            log(f"[depth-probe] {arch} at {n} layers: out of memory "
+                f"({str(err).splitlines()[0][:200]})")
+            break
+        finally:
+            params = state = batch = metrics = None
+    torch.cuda.empty_cache()
+
+
 def wkv_grad_routes():
     """The evidence for a train step's WKV forward route
     (wkv_kernel.route(..., grad=True)), reproducible by --wkv-grad-routes:
@@ -2846,8 +3046,11 @@ def main() -> int:
         return 1
     sweep = sys.argv[1:] == ["--tile-sweep"]
     routes = sys.argv[1:] == ["--wkv-grad-routes"]
-    if sys.argv[1:] and not (sweep or routes):
-        print(f"usage: {sys.argv[0]} [--tile-sweep | --wkv-grad-routes]", file=sys.stderr)
+    probe = (len(sys.argv) > 3 and sys.argv[1] == "--depth-probe" and sys.argv[2] in TRAIN_SHAPES
+             and all(a.isdigit() for a in sys.argv[3:]))
+    if sys.argv[1:] and not (sweep or routes or probe):
+        print(f"usage: {sys.argv[0]} [--tile-sweep | --wkv-grad-routes | --depth-probe ARCH "
+              "LAYERS...]", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2865,6 +3068,10 @@ def main() -> int:
         seconds[name] = round(seconds.get(name, 0.0) + time.perf_counter() - t0, 1)
         return out
 
+    if probe:  # no kernel is built for it but those the path compiles at first use
+        depth_probe(sys.argv[2], [int(a) for a in sys.argv[3:]])
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
     run("build", phase_build)
     if sweep or routes:
         if sweep:
@@ -2899,9 +3106,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path, routes_by_path, wkv_routes_by_path = {}, {}, {}
     for arch in SERVE_LAUNCHES:
-        (params, cfg, prompts, by_path[arch], routes_by_path[arch],
+        (params, cfg, prompt, by_path[arch], routes_by_path[arch],
          wkv_routes_by_path[arch]) = run(f"serve {arch}", phase_serve, arch)
-        run(f"serve {arch}", phase_profile, params, cfg, prompts)
+        run(f"serve {arch}", phase_profile, params, cfg, prompt)
         del params  # free one model's weights before the next
         torch.cuda.empty_cache()
     train = {}

@@ -1,1 +1,1 @@
-from .pipeline import SyntheticLMDataset, make_batches  # noqa: F401
+from .pipeline import SyntheticLMDataset, make_batches, pseudo_embeds  # noqa: F401

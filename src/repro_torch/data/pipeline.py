@@ -5,12 +5,14 @@ the vocab) so smoke training shows a real, reproducible loss decrease.  The
 pipeline is: (a) seeded and restartable from any step (checkpoint stores only
 the step counter), (b) host-shardable — each data-parallel host slices its
 rows deterministically, (c) allocation-free until a batch is requested.
-numpy only: a batch equals the JAX package's, element for element, for the
-same (seed, step, host).
+A token batch is made in numpy and equals the JAX package's, element for
+element, for the same (seed, step, host).  ``pseudo_embeds`` makes a
+frontend stub's input on the device instead.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class SyntheticLMDataset:
@@ -48,6 +50,19 @@ class SyntheticLMDataset:
             (self.seed * 1_000_003 + step) * 97 + host_id)
         toks = self._gen(rng, local)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def pseudo_embeds(batch: int, seq: int, d_model: int, *, seed: int, step: int, dtype,
+                  device):
+    """A frontend stub's input for one step: 0.02 * N(0, 1) of shape (batch,
+    seq, d_model), drawn in f32 and rounded once to ``dtype``, from a
+    ``torch.Generator`` on ``device`` seeded from (seed, step), so that a
+    resumed run draws the same embeddings.  The JAX package draws its own
+    through ``jax.random``, which torch cannot reproduce."""
+    state = int(np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0])
+    g = torch.Generator(device).manual_seed(state)
+    x = torch.randn((batch, seq, d_model), generator=g, dtype=torch.float32, device=device)
+    return (0.02 * x).to(dtype)
 
 
 def make_batches(dataset: SyntheticLMDataset, batch_size: int, steps: int,

@@ -427,6 +427,11 @@ cudaError_t dispatch(const Params& p, int dk, int dv, cudaStream_t s) {
   if (dk == 16 && dv == 16) return launch<T, 16, 16, 64, 64, 32, 64>(p, s);
   if (dk == 32 && dv == 32) return launch<T, 32, 32, 64, 64, 32, 64>(p, s);
   if (dk == 64 && dv == 64) return launch<T, 64, 64, 64, 64, 32, 64>(p, s);
+  // hubert-xlarge: 80 and 80, bf16 and f32 (bidirectional).  Dk + Dv is
+  // 160, as at (96, 64) below, so the same tiles: a dK/dV block keeps 4 x 10
+  // + 4 x 10 accumulators a thread, 77 KB of shared memory; a dQ block 4 x
+  // 10, 98 KB.
+  if (dk == 80 && dv == 80) return launch<T, 80, 80, 64, 64, 32, 64>(p, s);
   // MLA (minicpm3-4b): q and k of 96 (64 + 32 rotary), v of 64 (f32 only:
   // bf16 runs on the tensor cores).  The tiles of 64: a dK/dV block keeps
   // 4 x 12 + 4 x 8 accumulators a thread, 77 KB of shared memory; a dQ

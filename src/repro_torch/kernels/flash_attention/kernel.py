@@ -44,9 +44,8 @@ BWD_SOURCES = [_CSRC / "flash_attention_bwd.cu", _CSRC / "flash_attention_bwd_sm
 # compiles it for every pair not on the tensor cores (route_condition).
 HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (80, 80), (96, 64), (128, 128),
                        (256, 256)})
-# (Dk, Dv) pairs the backward takes.  The other, (80, 80), waits for its
-# backward: ROADMAP.md B4.
-BWD_HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (96, 64), (128, 128), (256, 256)})
+# (Dk, Dv) pairs the backward takes: every pair the forward takes.
+BWD_HEAD_DIMS = HEAD_DIMS
 # The route rule: bf16 at these pairs runs on the tensor cores.
 WGMMA_HEAD_DIMS = frozenset({(96, 64), (128, 128), (256, 256)})
 BWD_WGMMA_HEAD_DIMS = frozenset({(96, 64), (128, 128), (256, 256)})
@@ -146,7 +145,7 @@ def _check_tensors(who, named, like):
             raise ValueError(f"{who}: {name} has a dim beyond int32")
 
 
-def _check_common(q, k, v, window, kv_len, who, head_dims, why=""):
+def _check_common(q, k, v, window, kv_len, who, head_dims):
     _check_tensors(who, (("q", q), ("k", k), ("v", v)), q)
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{who}: dtype {q.dtype} not supported (float32 or bfloat16)")
@@ -159,7 +158,7 @@ def _check_common(q, k, v, window, kv_len, who, head_dims, why=""):
         raise ValueError(f"{who}: {H} query heads are not a multiple of {KH} kv heads")
     if (Dk, v.shape[3]) not in head_dims:
         raise ValueError(f"{who}: head dims (Dk={Dk}, Dv={v.shape[3]}) "
-                         f"not supported{why}; supported: {sorted(head_dims)}")
+                         f"not supported; supported: {sorted(head_dims)}")
     if window is not None and window < 1:
         raise ValueError(f"{who}: window must be >= 1, got {window}")
     if kv_len is not None and kv_len < 0:
@@ -253,8 +252,7 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal=True, window=None, q_of
     dQ kernels, in order on the current stream).
     """
     who = "flash_attention_bwd"
-    _check_common(q, k, v, window, kv_len, who, BWD_HEAD_DIMS,
-                  why=" yet (their backward kernel is queued in ROADMAP.md B4)")
+    _check_common(q, k, v, window, kv_len, who, BWD_HEAD_DIMS)
     _check_tensors(who, (("o", o), ("dout", dout)), q)
     B, Sq, H, Dk = q.shape
     Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[3]

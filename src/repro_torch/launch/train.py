@@ -9,6 +9,9 @@ Fault-tolerance contract (the paper's preemption semantics):
   pipeline is step-addressed, so resume is exactly deterministic
 * checkpoints are the JAX package's format: a run of either package
   resumes from the other's
+* a model with a frontend stub (hubert-xlarge, pixtral-12b) reads
+  pseudo-embeddings drawn from (--seed, step) in place of the tokens,
+  with the dataset's labels
 
 Runs on the GPU unless ``--device cpu`` is given; with no GPU it raises.
 The dtype follows the JAX package's rule unless ``--dtype`` is given: f32
@@ -33,7 +36,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.data import SyntheticLMDataset
+from repro_torch.data import SyntheticLMDataset, pseudo_embeds
 from repro_torch.models import lm
 from repro_torch.optim import init_train_state
 from repro_torch.serve import DTYPES
@@ -98,6 +101,11 @@ def main(argv=None):
         for step in range(start_step, args.steps):
             batch = {k: torch.from_numpy(v).long().to(device)
                      for k, v in data.batch(step, args.batch).items()}
+            if cfg.frontend:  # the modality stub: pseudo-embeddings for the tokens
+                batch = {"embeds": pseudo_embeds(args.batch, args.seq, cfg.d_model,
+                                                 seed=args.seed, step=step, dtype=dtype,
+                                                 device=device),
+                         "labels": batch["labels"]}
             state, metrics = step_fn(state, batch)
             losses.append(float(metrics["loss"]))
             if (step + 1) % args.log_every == 0:

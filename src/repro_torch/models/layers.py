@@ -31,10 +31,12 @@ def _act(kind, g, u):
         return F.silu(g) * u
     if kind == "geglu":  # jax.nn.gelu's default is the tanh approximation
         return F.gelu(g, approximate="tanh") * u
+    if kind == "gelu":  # ungated: g is None
+        return F.gelu(u, approximate="tanh")
     if kind == "relu2":  # ungated: g is None
         r = F.relu(u)
         return r * r
-    raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
+    raise ValueError(kind)
 
 
 def mlp_apply(p, x, kind):

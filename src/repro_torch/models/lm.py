@@ -1,9 +1,12 @@
 """LM assembly (``repro.models.lm`` twin) for the dense decoder with GQA or MLA
-attention (with an MLP or a MoE branch), RWKV6 and the RG-LRU hybrid.
+attention (with an MLP or a MoE branch), RWKV6, the RG-LRU hybrid and the
+encoder-only model.
 
 Modes:
   train   — full-sequence forward + chunked CE loss (no cache)
-  prefill — full-sequence forward that fills the decode cache
+  prefill — full-sequence forward that fills the decode cache; an
+            encoder-only model has no cache, and its prefill is a train-mode
+            forward that returns the frame logits
   decode  — one token against the cache
 
 The layers are walked by a Python loop: the stacked ``blocks`` (leading
@@ -106,8 +109,11 @@ def cache_schema(cfg: ArchConfig, batch: int, max_len: int):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda"):
-    """A zero cache; ``dtype`` applies to the leaves the schema does not fix."""
+    """A zero cache; ``dtype`` applies to the leaves the schema does not fix.
+    An encoder-only model decodes nothing and gets None."""
     dev = resolve_device(device)
+    if not cfg.has_decoder:
+        return None
     layers = map_schema(cache_schema(cfg, batch, max_len),
                     lambda p: torch.zeros(p.shape, dtype=leaf_dtype(p, dtype), device=dev))
     return {"pos": 0, "layers": layers}
@@ -196,6 +202,8 @@ def _embed_tokens(params, cfg, tokens):
 
 
 def _head_weight(params, cfg):
+    if not cfg.has_decoder:
+        return params["cls_head"]
     if cfg.tie_embeddings:
         return params["embed"].T
     return params["lm_head"]
@@ -236,7 +244,13 @@ def loss_fn(params, cfg: ArchConfig, batch, *, remat="full", ce_chunk=512, remat
 
 
 def prefill(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None):
-    """Fill the cache from a prompt; returns (last_logits (B, V) f32, cache)."""
+    """Fill the cache from a prompt; returns (last_logits (B, V) f32, cache).
+
+    An encoder-only model takes no cache (None): a train-mode forward with
+    remat "none", and the frame logits (B, S, V) f32 and None."""
+    if not cfg.has_decoder:
+        x, _ = forward(params, cfg, tokens=tokens, embeds=embeds, mode="train", remat="none")
+        return _head_logits(x, _head_weight(params, cfg)), None
     x, new_cache = forward(params, cfg, tokens=tokens, embeds=embeds,
                            mode="prefill", cache=cache)
     return _head_logits(x[:, -1], _head_weight(params, cfg)), new_cache

@@ -8,8 +8,8 @@ distributions (``fan_in``, ``normal``, ``zeros``, ``lru_lambda``), drawn from
 a ``torch.Generator``; it does not give the JAX package's bits.
 
 The port covers the dense decoder with GQA or MLA attention (gated or
-ungated MLP, or MoE), the RWKV6 block and the RG-LRU hybrid; encoder-only
-models raise.
+ungated MLP, or MoE), the RWKV6 block, the RG-LRU hybrid and the
+encoder-only model, whose head is ``cls_head``.
 """
 from __future__ import annotations
 
@@ -177,13 +177,13 @@ def _stack(schema, n):
 
 def model_schema(cfg: ArchConfig):
     """Full parameter schema for one architecture."""
-    if not cfg.has_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-only models are not ported yet")
     d, v = cfg.d_model, cfg.padded_vocab
     tree = {"embed": Param((v, d), ("vocab", "embed"), "normal"),
             "final_norm": Param((d,), ("embed",), "zeros")}
-    if not cfg.tie_embeddings:
+    if cfg.has_decoder and not cfg.tie_embeddings:
         tree["lm_head"] = Param((d, v), ("embed", "vocab"))
+    if not cfg.has_decoder:
+        tree["cls_head"] = Param((d, v), ("embed", "vocab"))
     kinds = cfg.layer_kinds()
     if cfg.uniform_blocks:
         tree["blocks"] = _stack(block_schema(cfg, kinds[0]), cfg.n_layers)

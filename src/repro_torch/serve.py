@@ -1,11 +1,14 @@
 """Batched serving: prefill a batch of prompts, then greedy decode with a
-shared KV cache (twin of ``examples/serve.py``).
+shared KV cache (twin of ``examples/serve.py``); an encoder-only model
+(hubert-xlarge) encodes instead: one prefill that gives the frame logits.
 
     PYTHONPATH=src python -m repro_torch.serve --arch qwen3-1.7b \
         [--reduced] [--device cpu] [--dtype bf16]
 
 Runs on the GPU unless ``--device cpu`` is given; with no GPU it raises.
-Weights are random, drawn from a fixed seed.
+Weights are random, drawn from a fixed seed.  A model with a frontend stub
+(hubert-xlarge, pixtral-12b) reads a prompt of pseudo-embeddings
+(``data.pseudo_embeds``) in place of tokens.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.data import pseudo_embeds
 from repro_torch.models import lm
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -35,14 +39,26 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def generate(params, cfg, prompts, new_tokens: int, *, cache_dtype) -> Generation:
-    """Prefill ``prompts`` (B, P) and decode ``new_tokens`` tokens greedily."""
-    B, P = prompts.shape
-    device = prompts.device
+@dataclass
+class Encoding:
+    logits: torch.Tensor  # (B, S, V) f32 frame logits
+    labels: torch.Tensor  # (B, S) their argmax
+    prefill_s: float      # prefill and its argmax, host clock after a sync
+
+
+def generate(params, cfg, prompts, new_tokens: int, *, cache_dtype,
+             embeds=None) -> Generation:
+    """Prefill ``prompts`` (B, P), or a prompt of ``embeds`` (B, P, d) with
+    ``prompts`` None, and decode ``new_tokens`` tokens greedily."""
+    if not cfg.has_decoder:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode step; use encode()")
+    prompt = prompts if embeds is None else embeds
+    B, P = prompt.shape[:2]
+    device = prompt.device
     cache = lm.init_cache(cfg, B, P + new_tokens + 8, cache_dtype, device)
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = lm.prefill(params, cfg, cache, tokens=prompts)
+    logits, cache = lm.prefill(params, cfg, cache, tokens=prompts, embeds=embeds)
     cur = torch.argmax(logits, -1)[:, None]
     _sync(device)
     t1 = time.perf_counter()
@@ -54,6 +70,20 @@ def generate(params, cfg, prompts, new_tokens: int, *, cache_dtype) -> Generatio
     _sync(device)
     t2 = time.perf_counter()
     return Generation(torch.cat(out, dim=1), logits, t1 - t0, t2 - t1)
+
+
+def encode(params, cfg, embeds) -> Encoding:
+    """An encoder-only model over ``embeds`` (B, S, d): its prefill, which
+    gives the frame logits, and their argmax."""
+    if cfg.has_decoder:
+        raise ValueError(f"{cfg.name} has a decoder: use generate()")
+    device = embeds.device
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, _ = lm.prefill(params, cfg, None, embeds=embeds)
+    labels = torch.argmax(logits, -1)
+    _sync(device)
+    return Encoding(logits, labels, time.perf_counter() - t0)
 
 
 def main(argv=None):
@@ -74,11 +104,20 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     params = lm.init_params(cfg, torch.Generator(device).manual_seed(0), dtype, device)
-    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                            generator=torch.Generator(device).manual_seed(1),
-                            device=device)
+    embeds = None
+    if cfg.frontend:
+        embeds = pseudo_embeds(args.batch, args.prompt_len, cfg.d_model, seed=1, step=0,
+                               dtype=dtype, device=device)
+    if not cfg.has_decoder:
+        enc = encode(params, cfg, embeds)
+        print(f"[serve] encoded {args.batch}x{args.prompt_len} frames in {enc.prefill_s:.2f}s")
+        print("[serve] sample:", enc.labels[0, :16].tolist())
+        return
+    prompts = None if cfg.frontend else torch.randint(
+        0, cfg.vocab, (args.batch, args.prompt_len),
+        generator=torch.Generator(device).manual_seed(1), device=device)
 
-    gen = generate(params, cfg, prompts, args.new_tokens, cache_dtype=dtype)
+    gen = generate(params, cfg, prompts, args.new_tokens, cache_dtype=dtype, embeds=embeds)
     print(f"[serve] prefill {args.batch}x{args.prompt_len} in {gen.prefill_s:.2f}s")
     print(f"[serve] decoded {args.new_tokens} tokens/seq x {args.batch} seqs "
           f"in {gen.decode_s:.2f}s ({args.batch * args.new_tokens / gen.decode_s:.1f} tok/s)")

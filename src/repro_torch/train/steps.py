@@ -34,7 +34,10 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, warmup=100, total=10_000, remat
             w.requires_grad_(True)
         loss, aux = lm.loss_fn(params, cfg, batch, remat=remat, ce_chunk=ce_chunk,
                                remat_group=remat_group)
-        grads = torch.autograd.grad(loss, weights)
+        # a leaf the loss never reads (``embed`` under a batch of "embeds")
+        # gets a zero gradient, as jax.grad gives it: AdamW still decays its
+        # master, and it counts in the global norm
+        grads = torch.autograd.grad(loss, weights, allow_unused=True, materialize_grads=True)
         return loss.detach(), aux["tokens"], grads
 
     def train_step(state, batch):
@@ -69,7 +72,9 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, warmup=100, total=10_000, remat
 def make_prefill_step(cfg: ArchConfig):
     """prefill_step(params, cache, batch) -> (last logits (B, V) f32, cache).
 
-    batch: {"tokens" | "embeds"}; the cache is written in place."""
+    batch: {"tokens" | "embeds"}; the cache is written in place.  An
+    encoder-only model takes cache None and returns its frame logits (B, S,
+    V) f32 and None."""
     def prefill_step(params, cache, batch):
         return lm.prefill(params, cfg, cache, tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"))

@@ -814,23 +814,57 @@ def test_serve_launches_of_minicpm3():
     assert chip_smoke.attn_head_dims(chip_smoke.get_config("yi-9b")) == (128, 128)
 
 
+def _named(*names):
+    return [getattr(chip_smoke, n) if isinstance(n, str) else n for n in names]
+
+
+# KERNEL_CASES and BWD_CASES as they stood before hubert-xlarge's cases
+# joined them: each case's inputs are drawn from its index, so each keeps it.
+EARLIER_KERNEL_CASES = _named(
+    (2, 64, 64, 4, 2, 16, 16, True, None, 0, None),
+    (1, 128, 128, 8, 8, 32, 32, True, None, 0, None),
+    (1, 128, 128, 4, 1, 32, 32, True, 48, 0, None), (2, 37, 93, 6, 3, 16, 16, True, None, 56, None),
+    (1, 50, 50, 4, 4, 16, 16, False, None, 0, None), (1, 96, 96, 2, 2, 64, 64, True, 32, 0, None),
+    (2, 32, 32, 4, 4, 96, 64, True, None, 0, None),
+    (2, 70, 200, 8, 2, 128, 128, False, None, 0, 150),
+    (1, 100, 100, 4, 2, 256, 256, True, None, 0, None),
+    (2, 50, 50, 16, 16, 80, 80, False, None, 0, None),
+    (2, 37, 93, 8, 2, 128, 128, True, None, 56, None),
+    (1, 300, 300, 4, 1, 256, 256, True, 100, 0, None),
+    (1, 64, 64, 4, 2, 128, 128, False, None, 0, 0),
+    (2, 250, 333, 8, 2, 128, 128, True, 150, 83, 300),
+    "QWEN3_TRAIN", "RECURRENTGEMMA_PREFILL_10H", "RECURRENTGEMMA_PREFILL",
+    "RECURRENTGEMMA_TRAIN_10H", "YI_PREFILL", "MINITRON_PREFILL", "QWEN2_MOE_PREFILL", "YI_TRAIN",
+    "MINITRON_TRAIN", "MINICPM3_PREFILL", "MINICPM3_TRAIN", "QWEN2_MOE_TRAIN")
+EARLIER_BWD_CASES = [c for c in EARLIER_KERNEL_CASES[:14] if c[5] != 80] + _named(
+    "QWEN3_TRAIN", "YI_PREFILL", "MINITRON_PREFILL", "QWEN2_MOE_PREFILL", "YI_TRAIN",
+    "MINITRON_TRAIN", "MINICPM3_PREFILL", "MINICPM3_TRAIN", "RECURRENTGEMMA_EDGES",
+    (2, 250, 333, 8, 2, 256, 256, True, 150, 83, 300),
+    (1, 64, 64, 4, 2, 256, 256, False, None, 0, 0),
+    "RECURRENTGEMMA_TRAIN_10H", "RECURRENTGEMMA_TRAIN", "QWEN2_MOE_TRAIN")
+
+
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "minitron-4b", "yi-9b", "qwen2-moe-a2.7b",
-                                  "qwen3-moe-30b-a3b", "minicpm3-4b"])
+                                  "qwen3-moe-30b-a3b", "minicpm3-4b", "hubert-xlarge",
+                                  "pixtral-12b"])
 def test_train_path_flash_shapes_are_kernel_and_backward_cases(arch):
     """Each train path whose layers all attend globally gives the flash
     forward (with the lse) and the backward one shape, its padded heads
     over its kv heads (MLA: one a query head) at its train batch and
-    sequence: a case of KERNEL_CASES and of BWD_CASES, so both kernels are
-    held against their plain versions at it in f32 and bf16.  qwen2-moe's
-    (16 over 16) is a case of its own, last in both lists, so no earlier
-    case's seed moves; qwen3-moe's is yi-9b's."""
+    sequence, causal but for hubert-xlarge: a case of KERNEL_CASES and of
+    BWD_CASES, so both kernels are held against their plain versions at it
+    in f32 and bf16.  qwen3-moe's is yi-9b's, pixtral-12b's minitron-4b's.
+    Every case the lists held before a new shape joined them keeps its
+    index, and with it the inputs drawn from it."""
     cfg = chip_smoke.get_config(arch)
     batch, seq = chip_smoke.TRAIN_SHAPES[arch]
     kv = cfg.padded_heads if cfg.attn_kind == "mla" else cfg.n_kv_heads
-    case = (batch, seq, seq, cfg.padded_heads, kv, *chip_smoke.attn_head_dims(cfg), True, None,
-            0, None)
+    case = (batch, seq, seq, cfg.padded_heads, kv, *chip_smoke.attn_head_dims(cfg), cfg.causal,
+            None, 0, None)
     assert case in chip_smoke.KERNEL_CASES and case in chip_smoke.BWD_CASES
-    assert chip_smoke.KERNEL_CASES[-1] == chip_smoke.BWD_CASES[-1] == chip_smoke.QWEN2_MOE_TRAIN
+    assert len(EARLIER_KERNEL_CASES) == 26 and len(EARLIER_BWD_CASES) == 27
+    assert chip_smoke.KERNEL_CASES[:26] == EARLIER_KERNEL_CASES
+    assert chip_smoke.BWD_CASES[:27] == EARLIER_BWD_CASES
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "minicpm3-4b"])
@@ -912,3 +946,139 @@ def test_twice_equal_names_the_leaves_that_differ(capsys):
              {"names": ["a", "b"], "master": {"a": torch.zeros(2), "b": torch.ones(2)}})
     chip_smoke.twice_equal("x", run, other)
     assert "equal to the bit: False; leaves that differ: ['b']" in capsys.readouterr().out
+
+
+def test_hubert_shapes_join_the_kernel_and_backward_cases_last():
+    """hubert-xlarge's encode and train shapes at (80, 80), bidirectional,
+    16 heads over 16, on the SIMT route in both dtypes, forward and
+    backward: appended after every earlier case of each list; the small
+    (80, 80) case keeps its place in KERNEL_CASES and joins BWD_CASES
+    last.  Each is timed on its path."""
+    prefill, train, small = chip_smoke.HUBERT_PREFILL, chip_smoke.HUBERT_TRAIN, \
+        chip_smoke.HUBERT_SMALL
+    for case in (prefill, train, small):
+        assert case[3:9] == (16, 16, 80, 80, False, None)
+        for dtype in (torch.float32, torch.bfloat16):
+            assert chip_smoke.fa_kernel.route(dtype, 80, 80) == "simt"
+            assert chip_smoke.fa_kernel.route(dtype, 80, 80, backward=True) == "simt"
+    assert (prefill[:3], train[:3]) == ((8, 1024, 1024), (2, 4096, 4096))
+    assert chip_smoke.KERNEL_CASES[-3:] == [chip_smoke.QWEN2_MOE_TRAIN, prefill, train]
+    assert chip_smoke.KERNEL_CASES.index(small) == 9
+    assert chip_smoke.BWD_CASES[-4:] == [chip_smoke.QWEN2_MOE_TRAIN, prefill, train, small]
+    assert chip_smoke.BWD_CASES.count(small) == 1
+    assert len(set(chip_smoke.BWD_CASES)) == len(chip_smoke.BWD_CASES)
+    assert (80, 80) in chip_smoke.fa_kernel.BWD_HEAD_DIMS
+    assert (80, 80) not in chip_smoke.fa_kernel.WGMMA_HEAD_DIMS | \
+        chip_smoke.fa_kernel.BWD_WGMMA_HEAD_DIMS
+    assert chip_smoke.FLASH_PATHS["hubert-xlarge"] == prefill
+    assert chip_smoke.BWD_PATHS["hubert-xlarge"][0] == train
+
+
+def test_bounds_at_hubert_shapes():
+    """Every query sees every key: 8 x 16 x 1024^2 pairs at the encode
+    shape, 4.29e10 FLOP, 0.0434 ms at 989 TFLOP/s; the backward's five
+    products over 2 x 16 x 4096^2 pairs, 4.29e11 FLOP, 0.434 ms."""
+    fwd_ms, fwd_by, fwd_flops, _ = chip_smoke.attention_bound(chip_smoke.HUBERT_PREFILL,
+                                                              torch.bfloat16)
+    assert chip_smoke.visible_pairs(chip_smoke.HUBERT_PREFILL) == 8 * 16 * 1024 * 1024
+    assert fwd_flops == 2 * 8 * 16 * 1024 * 1024 * 160 == 42_949_672_960
+    assert fwd_by == "operations" and abs(fwd_ms - 0.04343) < 1e-5
+    bwd_ms, bwd_by, bwd_flops, _ = chip_smoke.bwd_bound(chip_smoke.HUBERT_TRAIN, torch.bfloat16)
+    assert bwd_flops == 2 * (2 * 16 * 4096 * 4096) * 5 * 80 == 429_496_729_600
+    assert bwd_by == "operations" and abs(bwd_ms - 0.4343) < 1e-4
+
+
+def test_frontend_models_tables():
+    """Both serve 8 x 1024 (frames, patch embeddings) and train at 2 x 4096:
+    hubert-xlarge at its full 48 layers, pixtral-12b at the depth its probe
+    picked, which the train check reports as cut."""
+    for arch in ("hubert-xlarge", "pixtral-12b"):
+        assert chip_smoke.SERVE_PROMPT[arch] == 1024
+        assert chip_smoke.TRAIN_SHAPES[arch] == (2, 4096)
+    assert "hubert-xlarge" not in chip_smoke.TRAIN_CUTS
+    assert chip_smoke.TRAIN_CUTS["pixtral-12b"] == {"n_layers": 9}
+    assert chip_smoke.get_config("pixtral-12b").n_layers == 40
+    assert chip_smoke.prompt_kind(chip_smoke.get_config("hubert-xlarge")) == "frame embeddings"
+    assert chip_smoke.prompt_kind(chip_smoke.get_config("pixtral-12b")) == "patch embeddings"
+    assert chip_smoke.prompt_kind(chip_smoke.get_config("yi-9b")) == "tokens"
+
+
+def test_serve_launches_of_the_frontend_models():
+    """hubert-xlarge encodes through 48 flash launches, SIMT at (80, 80);
+    pixtral-12b prefills through 40, on the tensor cores, and decodes with
+    none; no WKV."""
+    for arch, n, route in (("hubert-xlarge", 48, "simt"), ("pixtral-12b", 40, "wgmma")):
+        assert chip_smoke.SERVE_LAUNCHES[arch] == {**dict.fromkeys(chip_smoke.KERNELS, 0),
+                                                   "flash_attention_fwd": n}
+        assert chip_smoke.get_config(arch).n_layers == n
+        assert chip_smoke.SERVE_FLASH_ROUTES[arch] == {"wgmma": 0, "simt": 0, route: n}
+        assert chip_smoke.SERVE_WKV_ROUTES[arch] == {"chunk": 0, "chunk_exact": 0,
+                                                     "recurrent": 0}
+
+
+@pytest.mark.parametrize("arch, layers, fwd, bwd, route", [
+    ("hubert-xlarge", 48, 138, 48, "simt"), ("pixtral-12b", 9, 18, 9, "wgmma")])
+def test_train_launches_of_the_frontend_models(arch, layers, fwd, bwd, route):
+    """3 L - L / k forward launches (k the remat group: 8, or 1 at 9 layers), each writing
+    the lse, and L backward, all on the route of the model's head dims in
+    bf16; in f32 all SIMT.  Their slices run at 2 layers full width, 2 x 64
+    embeddings, flash swapped for chunked_attention on the plain path."""
+    cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config(arch),
+                                         **chip_smoke.TRAIN_CUTS.get(arch, {}))
+    assert cfg.n_layers == layers
+    want = chip_smoke.want_train_launches(cfg, torch.bfloat16, 4096)
+    assert {name: want[name] for name in chip_smoke.KERNELS} == chip_smoke.train_launches(layers)
+    assert (want["flash_attention_fwd"], want["flash_attention_bwd"]) == (fwd, bwd)
+    assert want["flash_attention_fwd by route"] == {"wgmma": 0, "simt": 0, route: fwd}
+    assert want["flash_attention_bwd by route"] == {"wgmma": 0, "simt": 0, route: bwd}
+    assert want["flash_attention_fwd with lse"] == fwd
+    f32 = chip_smoke.want_train_launches(cfg, torch.float32, 4096)
+    assert f32["flash_attention_bwd by route"] == {"wgmma": 0, "simt": bwd}
+    _, cut, batch, seq, patches = next(s for s in chip_smoke.TRAIN_SLICES if s[0] == arch)
+    assert (cut, batch, seq) == ({"n_layers": 2}, 2, 64)
+    assert patches == [(chip_smoke.attention, "flash_attention",
+                        chip_smoke.fa_ops.chunked_attention)]
+    _, cut, prompt_len, patches, fwd_launches, launches = next(
+        s for s in chip_smoke.SLICES if s[0] == arch)
+    assert (cut, prompt_len) == ({"n_layers": 2}, 64)
+    assert fwd_launches == launches == {"flash_attention_fwd": 2}
+
+
+def test_spill_check_finds_the_hubert_backward_kernels():
+    """The SIMT backward's kernels at (80, 80), in both dtypes (bf16 runs
+    there too), and none of the other head dims'."""
+    names = [f"_ZN55_GLOBAL__N__77aa_13attn_bwd_dkdvI{t}Li80ELi80ELi32ELi64EEEvNS_6ParamsE"
+             for t in ("f", "13__nv_bfloat16")]
+    names += [f"_ZN55_GLOBAL__N__77aa_11attn_bwd_dqI{t}Li80ELi80ELi64ELi64EEEvNS_6ParamsE"
+              for t in ("f", "13__nv_bfloat16")]
+    mla = "_ZN55_GLOBAL__N__77aa_11attn_bwd_dqIfLi96ELi64ELi64ELi64EEEvNS_6ParamsE"
+    text = _log(*(_entry(n) for n in names), _entry(mla, 8, 8), _entry(SIMT_BWD, 8, 8))
+    assert chip_smoke.spilling_entries(text, chip_smoke.HUBERT_BWD_SYMBOLS) == (4, [])
+    seen, spills = chip_smoke.spilling_entries(_log(_entry(names[0]), _entry(names[3], 4, 4)),
+                                               chip_smoke.HUBERT_BWD_SYMBOLS)
+    assert seen == 2 and len(spills) == 1 and spills[0].startswith(names[3])
+
+
+@pytest.mark.parametrize("case, causal", [("HUBERT_PREFILL", False), ("QWEN3_PREFILL", True)])
+def test_sdpa_call_follows_the_case_causal_flag(case, causal, monkeypatch):
+    """The library yardstick attends as the case does: hubert-xlarge's
+    bidirectionally, the causal paths causally."""
+    seen = {}
+    monkeypatch.setattr(chip_smoke.F, "scaled_dot_product_attention",
+                        lambda *a, **kw: seen.update(kw))
+    q = torch.zeros(1, 4, 2, 8)
+    chip_smoke.sdpa_call(q, q, q, getattr(chip_smoke, case))()
+    assert seen == {"is_causal": causal, "enable_gqa": True}
+
+
+def test_library_attention_names_the_backend_at_80(monkeypatch):
+    """At (80, 80) the yardstick is the first fused backend that runs,
+    named, as at (96, 64); at 128 and 256 SDPA's default choice."""
+    seen = []
+    import torch.nn.attention as tna
+    monkeypatch.setattr(tna, "sdpa_kernel", lambda backends: _Record(seen, backends[0].name))
+    call, name = chip_smoke.library_attention(lambda: "ran", chip_smoke.HUBERT_TRAIN)
+    assert name == "FLASH_ATTENTION" and call() == "ran"
+    fn = object()
+    for case in (chip_smoke.QWEN3_PREFILL, chip_smoke.RECURRENTGEMMA_TRAIN):
+        assert chip_smoke.library_attention(fn, case) == (fn, None)

@@ -90,18 +90,6 @@ def test_init_params_follows_schema_distributions():
     assert torch.all(params["blocks"]["ln1"] == 0) and torch.all(params["final_norm"] == 0)
 
 
-# What the port does not run yet: an encoder-only model (hubert-xlarge), as
-# the reduced widths give it.
-UNPORTED = {"encoder-only": dict(has_decoder=False, causal=False, mlp_kind="gelu")}
-
-
-@pytest.mark.parametrize("kind", sorted(UNPORTED))
-def test_unported_blocks_raise(kind):
-    cfg = dataclasses.replace(get_config(NAME).reduced(), **UNPORTED[kind])
-    with pytest.raises(NotImplementedError):
-        lm.model_schema(cfg)
-
-
 def test_forward_hidden_matches_jax(models):
     jcfg, jparams, cfg, tparams = models
     tokens = _tokens(cfg.vocab)
