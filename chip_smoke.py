@@ -87,8 +87,8 @@ L2_BYTES = 50 * 2**20
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # Tolerance on ||out - ref|| / ||ref||.  In f32 and on the SIMT route in bf16,
 # kernel and plain version both compute in f32 and round once to the output
-# dtype.  The tensor-core route (bf16 at head dims 128, 256 and (96, 64))
-# also rounds P
+# dtype.  The tensor-core route (bf16 at head dims 128, 256, (96, 64) and
+# (80, 80)) also rounds P
 # to bf16 before P V, a relative error of at most 2**-9 on each weight, which
 # the normalisation by the same rounded weights' sum largely cancels; with the
 # output's own rounding that stays under 2**-7.
@@ -122,13 +122,20 @@ RECURRENTGEMMA_TRAIN_10H = (2, 4096, 4096, 10, 1, 256, 256, True, 2048, 0, None)
 # rotary) and v of 64: bf16 on the tensor cores, f32 on the SIMT route.
 MINICPM3_PREFILL = (8, 1024, 1024, 48, 48, 96, 64, True, None, 0, None)
 MINICPM3_TRAIN = (2, 4096, 4096, 48, 48, 96, 64, True, None, 0, None)
-# hubert-xlarge's: bidirectional, 16 heads over 16 of 80 (the SIMT route in
-# f32 and bf16), its encode of 8 x 1024 frames and its train shape, and the
-# small case at its head dim that earlier runs held.  pixtral-12b's (32
-# heads over 8 of 128) are minitron-4b's.
+# hubert-xlarge's: bidirectional, 16 heads over 16 of 80 (the tensor cores
+# in bf16, the SIMT route in f32), its encode of 8 x 1024 frames and its
+# train shape, and the small case at its head dim that earlier runs held.
+# pixtral-12b's (32 heads over 8 of 128) are minitron-4b's.
 HUBERT_PREFILL = (8, 1024, 1024, 16, 16, 80, 80, False, None, 0, None)
 HUBERT_TRAIN = (2, 4096, 4096, 16, 16, 80, 80, False, None, 0, None)
 HUBERT_SMALL = (2, 50, 50, 16, 16, 80, 80, False, None, 0, None)
+# Every bf16 call at (80, 80) takes the tensor cores, so the masks that
+# hubert never sets are held there too: a ragged case with GQA, a window
+# and q_offset; kv_len < Sk; kv_len 0, where every row sees nothing and
+# the output and every gradient must be 0.
+AT_80_MASKS = [(2, 77, 130, 8, 2, 80, 80, True, 33, 20, None),
+               (2, 70, 200, 8, 2, 80, 80, False, None, 0, 150),
+               (1, 64, 64, 4, 2, 80, 80, False, None, 0, 0)]
 FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_PREFILL_10H,
                "yi-9b": YI_PREFILL, "minicpm3-4b": MINICPM3_PREFILL,
                "hubert-xlarge": HUBERT_PREFILL}
@@ -145,8 +152,9 @@ FLASH_PATHS = {"qwen3-1.7b": QWEN3_PREFILL, "recurrentgemma-2b": RECURRENTGEMMA_
 # qwen3-moe), minitron-4b and qwen2-moe, yi-9b's (and qwen3-moe's) and
 # minitron-4b's train shapes, minicpm3-4b's prefill and train shapes at
 # (96, 64), and qwen2-moe's train shape; then hubert-xlarge's prefill and
-# train shapes at (80, 80), bidirectional (after the cases whose inputs,
-# drawn from each case's index, they would otherwise move).
+# train shapes at (80, 80), bidirectional, and last the masks at (80, 80)
+# (AT_80_MASKS), each after the cases whose inputs, drawn from each case's
+# index, it would otherwise move.
 KERNEL_CASES = [
     (2, 64, 64, 4, 2, 16, 16, True, None, 0, None),
     (1, 128, 128, 8, 8, 32, 32, True, None, 0, None),
@@ -176,6 +184,7 @@ KERNEL_CASES = [
     QWEN2_MOE_TRAIN,
     HUBERT_PREFILL,
     HUBERT_TRAIN,
+    *AT_80_MASKS,
 ]
 # The served prompts: tokens, or for the frontend stubs frames (hubert-xlarge)
 # and patch embeddings (pixtral-12b).
@@ -269,9 +278,9 @@ SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
 # 2048-token window) at the 10 heads its train step launches, and at 10
 # heads padded to 16 as earlier runs timed it.  Then qwen2-moe-a2.7b's
 # train shape (16 heads over 16 at 128), and last the cases at hubert-xlarge's
-# (80, 80) (SIMT in both dtypes): its prefill and train shapes and the small
-# bidirectional case, each after the cases whose inputs its index would
-# otherwise move.  Where the heads hold fewer
+# (80, 80) (bf16 on the tensor cores, f32 SIMT): its prefill and train
+# shapes and the small bidirectional case, then the masks (AT_80_MASKS),
+# each after the cases whose inputs its index would otherwise move.  Where the heads hold fewer
 # real ones (BWD_REAL_HEADS: those 16 hold 10; minitron-4b's 32 hold 24;
 # minicpm3-4b's 48 hold 40, at (96, 64), bf16 on the tensor cores),
 # dout is 0 on the padded heads, as the reference's masked output gives
@@ -283,7 +292,7 @@ SCAN_REL_TOL = {(torch.float32, "h"): 1e-6, (torch.float32, "h_last"): 1e-6,
 RECURRENTGEMMA_EDGES = (2, 77, 130, 16, 1, 256, 256, True, 33, 20, None)
 BWD_CASES = [c for c in KERNEL_CASES if (c[5], c[6]) in fa_kernel.BWD_HEAD_DIMS and c not in (
     RECURRENTGEMMA_PREFILL_10H, RECURRENTGEMMA_PREFILL, RECURRENTGEMMA_TRAIN_10H,
-    QWEN2_MOE_TRAIN, HUBERT_SMALL, HUBERT_PREFILL, HUBERT_TRAIN)] + [
+    QWEN2_MOE_TRAIN, HUBERT_SMALL, HUBERT_PREFILL, HUBERT_TRAIN, *AT_80_MASKS)] + [
     RECURRENTGEMMA_EDGES,
     (2, 250, 333, 8, 2, 256, 256, True, 150, 83, 300),
     (1, 64, 64, 4, 2, 256, 256, False, None, 0, 0),
@@ -293,6 +302,7 @@ BWD_CASES = [c for c in KERNEL_CASES if (c[5], c[6]) in fa_kernel.BWD_HEAD_DIMS 
     HUBERT_PREFILL,
     HUBERT_TRAIN,
     HUBERT_SMALL,
+    *AT_80_MASKS,
 ]
 BWD_REAL_HEADS = {RECURRENTGEMMA_EDGES: 10, RECURRENTGEMMA_TRAIN: 10, MINITRON_TRAIN: 24,
                   MINICPM3_TRAIN: 40}
@@ -530,8 +540,8 @@ def phase_build():
         log(f"[build] {name}: {seen} {WGMMA_SYMBOL} kernels, no spill, no serialized wgmma")
     # the scan's backward (both paths), the WKV chunk route, the chain of
     # the WKV chunk_exact route (its source's name is in its symbol), the
-    # SIMT backward at 256 and at (96, 64) (f32 only: bf16 takes the tensor
-    # cores there) and at (80, 80) (f32 and bf16), and the WKV
+    # SIMT backward at 256, at (96, 64) and at (80, 80) (f32 only: bf16
+    # takes the tensor cores there), and the WKV
     # backward's kernels on both routes (each keeps a row or column of the
     # state in registers; the chunk route's job and its chain)
     for name, pattern in (("rglru_scan_bwd", "rglru_bwd"), ("rwkv6_wkv_fwd", "wkv_fwd_chunk"),
@@ -555,8 +565,8 @@ def phase_build():
 
 
 # Every tensor-core kernel of the flash libraries has this in its name; the
-# SIMT backward's kernels at (96, 64) (f32 only) and at (80, 80) (f32 and
-# bf16) have these patterns, which the tensor-core kernels' names ("_wgmma"
+# SIMT backward's kernels at (96, 64) and at (80, 80) (f32 only) have these
+# patterns, which the tensor-core kernels' names ("_wgmma"
 # before the template) do not match.
 WGMMA_SYMBOL = "_wgmma"
 MLA_BWD_SYMBOLS = r"attn_bwd_(dkdv|dq)I.*Li96ELi64E"
@@ -1070,7 +1080,8 @@ def wkv_routes(cfg, dtype, tokens, n_multi, n_single, grad=False):
 # minicpm3-4b (MLA: flash at (96, 64) in train mode and prefill, its decode
 # plain on the compressed cache): flash once a layer, as qwen3; the MoE
 # models' plain path replays the kernel path's expert choice (RouterReplay).
-# hubert-xlarge (bidirectional, flash at (80, 80), SIMT in both dtypes) over
+# hubert-xlarge (bidirectional, flash at (80, 80): bf16 on the tensor cores,
+# f32 SIMT) over
 # 64 frame embeddings: flash once a layer in the forward and in its prefill,
 # which gives the frame logits; no cache, no decode step.  pixtral-12b
 # prefills 64 patch embeddings, then decodes tokens, as yi-9b.
@@ -1533,7 +1544,8 @@ def hybrid_train_launches(cfg):
 # cross boundaries and the last is ragged; in bf16 its forward on the chunk_exact route, as
 # every forward of a gradient there (wkv_kernel.route), and its backward on
 # the chunk route (wkv_kernel.bwd_route).  hubert-xlarge (flash at (80, 80),
-# bidirectional, SIMT in both dtypes) and pixtral-12b train on embeddings
+# bidirectional: bf16 on the tensor cores, f32 SIMT) and pixtral-12b train
+# on embeddings
 # (pseudo_embeds) and the tokens' labels; their embed leaf, which the loss
 # never reads, takes a zero gradient, as jax.grad gives it.
 TRAIN_SLICES = [
@@ -1937,7 +1949,7 @@ def phase_train(arch):
     of 2, 35 WKV forward, all on the chunk_exact route, and 14 WKV backward,
     all on the chunk route; the MoE models and minicpm3-4b at their cut
     depths likewise, minicpm3-4b's flash launches all wgmma at (96, 64);
-    hubert-xlarge at 48 layers 138 forward and 48 backward, all SIMT at
+    hubert-xlarge at 48 layers 138 forward and 48 backward, all wgmma at
     (80, 80), and pixtral-12b at 9 layers (remat groups of 1) 18 and 9,
     all wgmma, both on
     pseudo-embeddings); then one more step under the profiler."""
@@ -2011,8 +2023,8 @@ def phase_train(arch):
 # flash once a layer in prefill, as qwen3-1.7b (minicpm3-4b's decode attends
 # over its compressed cache in plain PyTorch, as the JAX package does);
 # hubert-xlarge encodes (its prefill gives the frame logits; it has no
-# decode step) through flash at (80, 80) once a layer, on the SIMT route in
-# bf16; pixtral-12b prefills its patch embeddings through flash once a layer
+# decode step) through flash at (80, 80) once a layer, on the tensor cores
+# in bf16; pixtral-12b prefills its patch embeddings through flash once a layer
 # and decodes tokens, as yi-9b.
 SERVE_LAUNCHES = {
     "qwen3-1.7b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 28},
@@ -2028,8 +2040,8 @@ SERVE_LAUNCHES = {
     "pixtral-12b": {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": 40},
 }
 # Each served flash launch on the route of its model's head dims in bf16:
-# the tensor cores at 128, 256 and minicpm3-4b's (96, 64); SIMT at
-# hubert-xlarge's (80, 80).
+# the tensor cores at 128, 256, minicpm3-4b's (96, 64) and hubert-xlarge's
+# (80, 80).
 SERVE_FLASH_ROUTES = {
     arch: {r: counts["flash_attention_fwd"] * (
         r == fa_kernel.route(torch.bfloat16, *attn_head_dims(get_config(arch))))
@@ -2202,8 +2214,8 @@ def phase_encode(arch, cfg, params, n_params, prompt):
     SERVE_PROMPT[arch] frame embeddings (its prefill: a train-mode forward
     and the f32 frame logits, then their argmax), once to warm up, then
     timed, the launch counters set to 0 just before it: flash once a layer,
-    on the route of its head dims in bf16 (SIMT at (80, 80)), no lse, no
-    decode step.  Whether the warm-up's logits equal the timed encode's to
+    on the route of its head dims in bf16 (the tensor cores at (80, 80)), no
+    lse, no decode step.  Whether the warm-up's logits equal the timed encode's to
     the bit is logged."""
     embeds = prompt["embeds"]
     warm = encode(params, cfg, embeds)
@@ -2406,7 +2418,7 @@ def library_attention(fn, case):
 # Calls a timed run of (kernel, plain version, library) at each flash path's shape.
 FLASH_ITERS = {"qwen3-1.7b": (100, 10, 100), "recurrentgemma-2b": (20, 2, 10),
                "yi-9b": (50, 5, 50), "minicpm3-4b": (50, 2, 20),
-               "hubert-xlarge": (10, 2, 20)}
+               "hubert-xlarge": (50, 2, 50)}
 
 
 def phase_timings():
@@ -2540,7 +2552,7 @@ BWD_PATHS = {"qwen3-1.7b": (QWEN3_TRAIN, (20, 3, 20, 20), 5),
              "recurrentgemma-2b": (RECURRENTGEMMA_TRAIN_10H, (10, 1, 5, 5), 5),
              "yi-9b": (YI_TRAIN, (10, 1, 10, 10), 5),
              "minicpm3-4b": (MINICPM3_TRAIN, (10, 1, 5, 5), 5),
-             "hubert-xlarge": (HUBERT_TRAIN, (4, 1, 5, 5), 3)}
+             "hubert-xlarge": (HUBERT_TRAIN, (10, 1, 5, 5), 5)}
 BWD_AT_16_HEADS = (RECURRENTGEMMA_TRAIN, (10, 1, 5, 5), 5)
 
 

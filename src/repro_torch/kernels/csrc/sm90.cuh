@@ -7,12 +7,14 @@
 // Tiles in shared memory.  A bf16 tile of R rows x D columns comes in by TMA
 // as chunks(D) chunks, each R rows of 64 elements (128 bytes) with the
 // 128-byte swizzle, chunk c at byte c R 128; every chunk starts on a
-// 1024-byte boundary.  Where D is not a multiple of 64 (Dk 96) the last
-// chunk's columns past D are zeros, which TMA fills in and counts among the
+// 1024-byte boundary.  Where D is not a multiple of 64 (Dk 96, D 80) the
+// last chunk's columns past D are zeros, which TMA fills in and counts among the
 // bytes a barrier expects (tile_bytes).  Such a tile is a K-major operand of
 // wgmma when D is the product's depth (Q and K in S = Q K^T) and an MN-major
 // one, through the descriptor's transpose bit, when its rows are the depth
-// (V in O += P V).
+// (V in O += P V): then N runs over whole chunks, the 128-byte swizzle's
+// 64-column atoms, and a product whose N is not a multiple of 64 (Dv 80)
+// runs at the next one over the zero columns.
 
 #pragma once
 
@@ -294,7 +296,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 // rows (a_smem points at its first row), B is BN rows of a tile of BROWS
 // rows; step kk reads 32 bytes into chunk kk / 4 of each.  D / 16 steps, a
 // compile-time count: at D 96 six, the last two in chunk 1, whose zero half
-// is never read.
+// is never read; at D 80 five, the fifth in chunk 1.
 template <int D, int BN, int AROWS, int BROWS = BN>
 __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t a_smem, uint32_t b_smem) {
 #pragma unroll
@@ -391,7 +393,7 @@ EncodeTiled encode_tiled() {
 // A 4-D map over a contiguous bf16 (B, S, heads, D) tensor, innermost first,
 // whose box is 64 elements of D x 1 head x `rows` rows x 1 batch, with the
 // 128-byte swizzle.  Out-of-range rows, and columns past D in a box from
-// column 64 of a D of 96, are filled with zeros.
+// column 64 of a D of 80 or 96, are filled with zeros.
 CUresult encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,

@@ -40,7 +40,7 @@
 // product so that a value read from shared memory feeds several FMAs, and
 // rows in shared memory are padded to odd strides so that a warp's reads
 // fall in distinct banks.  route() in kernel.py sends bf16 at head dims
-// (128, 128), (256, 256) and (96, 64) to the tensor-core route
+// (128, 128), (256, 256), (96, 64) and (80, 80) to the tensor-core route
 // (flash_attention_bwd_sm90.cu) and everything else here; f32 stays here,
 // held to 1e-5 of the plain version, at every head dim.
 
@@ -427,7 +427,8 @@ cudaError_t dispatch(const Params& p, int dk, int dv, cudaStream_t s) {
   if (dk == 16 && dv == 16) return launch<T, 16, 16, 64, 64, 32, 64>(p, s);
   if (dk == 32 && dv == 32) return launch<T, 32, 32, 64, 64, 32, 64>(p, s);
   if (dk == 64 && dv == 64) return launch<T, 64, 64, 64, 64, 32, 64>(p, s);
-  // hubert-xlarge: 80 and 80, bf16 and f32 (bidirectional).  Dk + Dv is
+  // hubert-xlarge: 80 and 80 (f32 only: bf16 runs on the tensor cores;
+  // bidirectional).  Dk + Dv is
   // 160, as at (96, 64) below, so the same tiles: a dK/dV block keeps 4 x 10
   // + 4 x 10 accumulators a thread, 77 KB of shared memory; a dQ block 4 x
   // 10, 98 KB.

@@ -1,8 +1,9 @@
 // Flash attention, backward, on the Hopper tensor cores (sm_90a).
 //
 // The route of flash_attention_bwd that route(..., backward=True) in
-// kernel.py sends bf16 at head dims (Dk, Dv) = (128, 128), (256, 256) and
-// (96, 64) to; everything else goes to flash_attention_bwd.cu (SIMT).  It
+// kernel.py sends bf16 at head dims (Dk, Dv) = (128, 128), (256, 256),
+// (96, 64) and (80, 80) to; everything else goes to flash_attention_bwd.cu
+// (SIMT).  It
 // is the gradient of what the forward computes (flash_attention_fwd; the
 // Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py :: flash_attention_kernel
@@ -24,8 +25,10 @@
 // recurrentgemma-2b's (q 2x4096x10x256, k/v 2x4096x1x256, a 2048-token
 // window) 1.26e8 pairs, 3.2e11 FLOP, against 0.1 GB; at minicpm3-4b's
 // (q, k 2x4096x48x96, v 2x4096x48x64, causal) 8.1e8 pairs, 6.7e11 FLOP,
-// against 0.5 GB.  All are bound by operations (0.087, 0.33 and 0.68 ms at
-// 989 TFLOP/s bf16), so every product runs as wgmma, bf16 operands and f32
+// against 0.5 GB; at hubert-xlarge's (q, k, v 2x4096x16x80,
+// bidirectional) 5.4e8 pairs, 4.3e11 FLOP, against 0.08 GB.  All are bound
+// by operations (0.087, 0.33, 0.68 and 0.43 ms at 989 TFLOP/s bf16), so
+// every product runs as wgmma, bf16 operands and f32
 // accumulators; P and dS are rounded to bf16 for their products, as the
 // forward rounds P.
 //
@@ -36,7 +39,8 @@
 // consumers (240 registers).  Tiles come in as 64-element (128-byte)
 // swizzled chunks of D, through 4-D tensor maps over (D, heads, S, B) that
 // zero-fill the ragged edges (and, at Dk 96, columns 96-127 of the second
-// chunk: offsets and expected bytes count whole chunks, tile_bytes).
+// chunk, at (80, 80) columns 80-127 of every tile's second chunk: offsets
+// and expected bytes count whole chunks, tile_bytes).
 //   attn_bwd_dkdv_wgmma<DK, DV>: a block owns the kv rows of one tile of one kv
 //     head (K and V loaded once) and walks, for each query head of the GQA
 //     group, the 64-row q steps that see the tile (Q, dout and their lse
@@ -59,6 +63,18 @@
 //     never stored.  The other way, Q and K in three 32-column chunks with
 //     the 64-byte swizzle and n96, would need a second layout of both
 //     tiles, their maps and descriptors for 1/4 of two of seven products.
+//     (80, 80): D 128's tiles and code too.  The products over Dk and Dv
+//     (S^T = K Q^T, dP^T = V dout^T) take 5 k16 steps each, the fifth in
+//     the second chunk.  dK = dS^T Q and dV = P^T dout both have N = 80,
+//     and their B operands (Q and dout through the transpose bit) are laid
+//     in 64-column atoms along N under the 128-byte swizzle, which no
+//     descriptor of n80 describes: both run at n128 over the zero-filled
+//     half chunk, 3/8 of each wasted, and dK and dV take 64 registers each,
+//     128 a thread as at D 128.  Their columns 80-127 come out 0 and are
+//     never stored.  The other way, a 16-column tail of Q and dout in maps
+//     of their own with the 32-byte swizzle and an n16 product beside each
+//     n64, would need a second layout, map and descriptor of both for 3/8
+//     of three of seven products (dQ's too).
 //     D 256: dK and dV of 64 rows at 256 columns would take 256 registers a
 //     thread, beyond the 240 a consumer has; so a block owns 64 kv rows,
 //     shared by both consumers (dkdv_consumer_256), and splits the work
@@ -66,10 +82,11 @@
 //     head-dim columns, with P^T and dS^T passed through shared memory.
 //   attn_bwd_dq_wgmma<DK, DV>: a block owns 128 q rows of one head (Q and
 //     dout loaded once) and walks the visible kv tiles, 64 rows a step at D
-//     128 and (96, 64) and 32 at D 256 (dQ's 64 x 256 accumulator takes 128
+//     128, (96, 64) and (80, 80) and 32 at D 256 (dQ's 64 x 256 accumulator takes 128
 //     registers); a consumer recomputes S = Q K^T and dP = dout V^T (its 64
 //     q rows), P while dP runs, then dS, then dQ += dS K (K through the
-//     transpose bit; at Dk 96 n128 over K's zero-filled half chunk, as dK).
+//     transpose bit; at Dk 96 and 80 n128 over K's zero-filled half chunk,
+//     as dK).
 //     (Issuing a tile's dQ together with the next tile's S and dP was no
 //     faster on the card at D 128.)
 // Seven products where five would do, for no atomics: every sum runs in a
@@ -79,8 +96,9 @@
 // first under causal: kv tile 0 for dK/dV, the last q tile for dQ.  Shared
 // memory: dK/dV 64 KB of K and V + 3 stages x 32.5 KB at D 128; 64 KB + 2
 // stages x 64.5 KB + 16 KB of P^T and dS^T at D 256, 48 KB + 3 stages x
-// 24.5 KB at (96, 64); dQ 64 KB of Q and dout + 3 stages x 32 KB at D 128,
-// 128 KB + 3 x 32 KB at D 256, 48 KB + 3 x 24 KB at (96, 64).
+// 24.5 KB at (96, 64), 64 KB + 3 stages x 32.5 KB at (80, 80); dQ 64 KB of
+// Q and dout + 3 stages x 32 KB at D 128 and (80, 80), 128 KB + 3 x 32 KB
+// at D 256, 48 KB + 3 x 24 KB at (96, 64).
 
 #include <math.h>
 
@@ -111,6 +129,12 @@ struct Tiles<256, 256> {
 };
 template <>
 struct Tiles<96, 64> {  // D 128's: fewer bytes and registers every way
+  static constexpr int kBKV = 128;
+  static constexpr int kStages = 3;
+  static constexpr int kKRows = 64;
+};
+template <>
+struct Tiles<80, 80> {  // D 128's: the same bytes (whole chunks) and registers
   static constexpr int kBKV = 128;
   static constexpr int kStages = 3;
   static constexpr int kKRows = 64;
@@ -211,7 +235,8 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
 }
 
 // Rows row0 and row0 + 8 of the first N columns of a consumer's 64-row
-// accumulator (2 M columns: at Dk 96, N 96 of 128), times mul, as bf16 into
+// accumulator (2 M columns: at Dk 96, N 96 of 128; at 80, 80 of 128), times
+// mul, as bf16 into
 // rows out and out + 8 * row_stride.
 template <int N, int M>
 __device__ __forceinline__ void store_rows(const float (&d)[M], float mul, __nv_bfloat16* out,
@@ -256,15 +281,16 @@ __device__ __forceinline__ DkdvWork dkdv_work(const Args& a) {
   return w;
 }
 
-// The consumers of a dK/dV block at D 128 and (96, 64): consumer cw owns kv
-// rows 64 cw .. 64 cw + 63 of the tile and every column of their dK and dV
-// (dK's accumulator at whole chunks: 128 columns at Dk 96, the last 32 zero).
+// The consumers of a dK/dV block at D 128, (96, 64) and (80, 80): consumer
+// cw owns kv rows 64 cw .. 64 cw + 63 of the tile and every column of their
+// dK and dV (each accumulator at whole chunks: 128 columns at Dk 96, the
+// last 32 zero; at (80, 80) dK and dV both 128, the last 48 zero).
 template <int DK, int DV>
 __device__ __forceinline__ void dkdv_consumer_rows(const Args& a, const DkdvWork& w,
                                                    uint32_t base, const uint8_t* smem,
                                                    const Ring<3>& ring) {
   using L = DkdvSmem<DK, DV>;
-  constexpr int kNK = chunks(DK) * kChunk;
+  constexpr int kNK = chunks(DK) * kChunk, kNV = chunks(DV) * kChunk;
   auto q_smem = [base](int s) { return base + L::kQOff + s * L::kQ; };
   auto do_smem = [base](int s) { return base + L::kDoOff + s * L::kDo; };
   const int cw = threadIdx.x / 128 - 1;
@@ -273,7 +299,7 @@ __device__ __forceinline__ void dkdv_consumer_rows(const Args& a, const DkdvWork
   const int krow = kr0 + 16 * (threadIdx.x % 128 / 32) + lane / 4;  // and krow + 8
   const uint32_t k_a = base + 64 * cw * kRowBytes, v_a = k_a + L::kVOff;
   const float sl = a.scale * kLog2e;
-  float dk[kNK / 2], dv[DV / 2], sc[kBQ / 2], dp[kBQ / 2];
+  float dk[kNK / 2], dv[kNV / 2], sc[kBQ / 2], dp[kBQ / 2];
   uint32_t pp[kBQ / 16][4], pd[kBQ / 16][4];  // P^T and dS^T as bf16 A fragments
   zero(dk);
   zero(dv);
@@ -331,7 +357,7 @@ __device__ __forceinline__ void dkdv_consumer_rows(const Args& a, const DkdvWork
       wgmma_fence();
       fence_regs(dv);
       fence_regs(dk);
-      issue_pv<DV, kBQ>(dv, pp, do_smem(s));
+      issue_pv<kNV, kBQ>(dv, pp, do_smem(s));
       issue_pv<kNK, kBQ>(dk, pd, q_smem(s));
       wgmma_commit();
       wgmma_wait<0>();
@@ -341,7 +367,7 @@ __device__ __forceinline__ void dkdv_consumer_rows(const Args& a, const DkdvWork
     mbar_arrive(ring.empty(s));
   }
   // Every row of the tile is written, 0 where no query sees it; dK's
-  // columns from DK on are not.
+  // columns from DK on, and dV's from DV on, are not.
   const size_t k_stride = (size_t)a.KH * DK, v_stride = (size_t)a.KH * DV;
   const size_t row = (size_t)w.b * a.Sk + krow;
   store_rows<DK>(dk, a.scale, a.dk + row * k_stride + (size_t)w.kvh * DK + c2, k_stride,
@@ -729,6 +755,7 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
   if (Dk == 128 && Dv == 128) return launch<128, 128>(q, k, v, dout, a, s);
   if (Dk == 256 && Dv == 256) return launch<256, 256>(q, k, v, dout, a, s);
   if (Dk == 96 && Dv == 64) return launch<96, 64>(q, k, v, dout, a, s);
+  if (Dk == 80 && Dv == 80) return launch<80, 80>(q, k, v, dout, a, s);
   return cudaErrorInvalidValue;
 }
 

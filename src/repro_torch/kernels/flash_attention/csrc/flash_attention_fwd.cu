@@ -31,8 +31,8 @@
 // device memory.  Causal q tiles are launched heaviest first.
 //
 // Two routes, each its own entry point.  route() in kernel.py, the rule's
-// only copy, sends bf16 at (Dk, Dv) = (128, 128), (256, 256) and (96, 64),
-// the served shapes, to the tensor-core kernel in flash_attention_fwd_sm90.cu
+// only copy, sends bf16 at (Dk, Dv) = (128, 128), (256, 256), (96, 64) and
+// (80, 80), the served shapes, to the tensor-core kernel in flash_attention_fwd_sm90.cu
 // (wgmma, TMA) and everything else here: f32 at every head dim (its callers hold it
 // to 1e-5 of the plain version, which TF32 would not meet) and bf16 at the
 // other head dims.  Neither route falls back to the other.

@@ -1,8 +1,8 @@
 // Flash attention, forward, on the Hopper tensor cores (sm_90a).
 //
 // The route of flash_attention_fwd that route() in kernel.py sends bf16 at
-// head dims (Dk, Dv) = (128, 128), (256, 256) and (96, 64) to; everything
-// else goes to attn_fwd in flash_attention_fwd.cu.  Like that kernel it
+// head dims (Dk, Dv) = (128, 128), (256, 256), (96, 64) and (80, 80) to;
+// everything else goes to attn_fwd in flash_attention_fwd.cu.  Like that kernel it
 // replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py :: flash_attention_kernel
 // (body _attn_kernel) and computes what it computes: online softmax with f32
@@ -21,7 +21,10 @@
 // tensor cores.  minicpm3-4b's MLA prefill (q and k 8x1024x48x96, v
 // 8x1024x48x64) needs 6.45e10 FLOP against 0.25 GB, about even (0.065 ms
 // by operations, 0.075 by bytes); its train shape (2x4096, the same heads)
-// 2.58e11 FLOP against the same 0.25 GB, bound by operations.  The CUDA
+// 2.58e11 FLOP against the same 0.25 GB, bound by operations.
+// hubert-xlarge's encode (q, k, v 8x1024x16x80, bidirectional) needs
+// 4.29e10 FLOP against 0.08 GB (0.043 ms by operations, 0.025 by bytes).
+// The CUDA
 // cores' f32 FMAs reach 67, so both products run as wgmma, bf16 in and f32
 // out.
 //
@@ -54,7 +57,17 @@
 // fills it), and every offset and expected byte count counts whole chunks
 // (tile_bytes); S takes 6 k16 steps, a count fixed by the template, which
 // never read the zero half, and P V runs at n64; Q 32 KB + 2 stages x (K
-// 32 KB + V 16 KB) = 128 KB.
+// 32 KB + V 16 KB) = 128 KB.  At (80, 80), D 128's tiles: Q, K and V each
+// come in as two chunks whose second is zero past column 80; S takes 5 k16
+// steps, and P V runs at n128 over V's zero-filled half chunk, since under
+// the 128-byte swizzle an MN-major B operand (V through the transpose bit)
+// is laid in 64-column atoms along N, so n80 is no layout its descriptor
+// describes.  O's accumulator is sized by whole chunks (64 registers a
+// thread, as at D 128); its columns 80-127 come out 0 and are never
+// stored; 3/8 of P V is wasted.  The other way, a 16-column tail of V in a
+// second map with the 32-byte swizzle and an n16 product beside the n64
+// one, would need a second layout, map and descriptor of V for 3/8 of one
+// of two products.  Q 32 KB + 2 stages x (K 32 KB + V 32 KB) = 160 KB.
 
 #include <math.h>
 
@@ -181,7 +194,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v) {
   using L = Smem<DK, DV, BK>;
-  static_assert(DK % 16 == 0 && DV % kChunk == 0 && BK % 16 == 0, "tile shape");
+  // P V's N: Dv at whole chunks (128 at Dv 80, the columns past Dv 0)
+  constexpr int kNV = chunks(DV) * kChunk;
+  static_assert(DK % 16 == 0 && DV % 16 == 0 && BK % 16 == 0, "tile shape");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   // mbarriers: Q, or K or V of stage s, arrived (full); all 256 consumer
@@ -252,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int lane = threadIdx.x % 32;
     const int row0 = 64 * cw + 16 * (threadIdx.x % 128 / 32) + lane / 4;  // and row0 + 8
     const uint32_t q_smem = base + 64 * cw * kRowBytes;
-    float o[DV / 2], m[2], l[2], sc[BK / 2], alpha[2], rs[2];
+    float o[kNV / 2], m[2], l[2], sc[BK / 2], alpha[2], rs[2];
     uint32_t p[BK / 16][4];  // P of the tile whose P V is next
 
     int g = 0, j = 0;
@@ -264,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                (a.window <= 0 || k0 > it.q_last - a.window);
       };
 #pragma unroll
-      for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < kNV / 2; ++i) o[i] = 0.f;
       m[0] = m[1] = -INFINITY;  // running max of the raw scores
       l[0] = l[1] = 0.f;        // this thread's part of the row sums
 
@@ -290,7 +305,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_commit();
         mbar_wait(full_v(sp), ((gi - 1) / kStages) & 1);
         fence_regs(o);
-        issue_pv<DV, BK>(o, p, v_smem(sp));
+        issue_pv<kNV, BK>(o, p, v_smem(sp));
         wgmma_commit();
         wgmma_wait<1>();  // S has landed; P V may still run
         fence_regs(sc);
@@ -303,7 +318,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) l[hh] = alpha[hh] * l[hh] + rs[hh];
 #pragma unroll
-        for (int jj = 0; jj < DV / 8; ++jj) {
+        for (int jj = 0; jj < DV / 8; ++jj) {  // the columns past Dv stay 0
           o[4 * jj] *= alpha[0];
           o[4 * jj + 1] *= alpha[0];
           o[4 * jj + 2] *= alpha[1];
@@ -316,7 +331,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(full_v(s), (gi / kStages) & 1);
         wgmma_fence();
         fence_regs(o);
-        issue_pv<DV, BK>(o, p, v_smem(s));
+        issue_pv<kNV, BK>(o, p, v_smem(s));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o);
@@ -394,6 +409,7 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
   if (Dk == 128 && Dv == 128) return launch<128, 128, 128>(q, k, v, a, Sk, s);
   if (Dk == 256 && Dv == 256) return launch<256, 256, 64>(q, k, v, a, Sk, s);
   if (Dk == 96 && Dv == 64) return launch<96, 64, 128>(q, k, v, a, Sk, s);
+  if (Dk == 80 && Dv == 80) return launch<80, 80, 128>(q, k, v, a, Sk, s);
   return cudaErrorInvalidValue;
 }
 

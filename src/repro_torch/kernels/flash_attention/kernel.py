@@ -9,7 +9,7 @@ current stream.  Each library exports one entry point a route, and
 
 * ``"wgmma"``: bf16 at (Dk, Dv) in ``WGMMA_HEAD_DIMS`` (forward: the served
   shapes) or ``BWD_WGMMA_HEAD_DIMS`` (backward: the trained shapes), 128
-  and 256 and MLA's (96, 64), on the tensor cores
+  and 256, MLA's (96, 64) and hubert-xlarge's (80, 80), on the tensor cores
   (``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_bwd_sm90.cu``:
   wgmma, TMA);
 * ``"simt"``: everything else, f32 FMAs on the CUDA cores
@@ -47,8 +47,8 @@ HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (80, 80), (96, 64), (128, 1
 # (Dk, Dv) pairs the backward takes: every pair the forward takes.
 BWD_HEAD_DIMS = HEAD_DIMS
 # The route rule: bf16 at these pairs runs on the tensor cores.
-WGMMA_HEAD_DIMS = frozenset({(96, 64), (128, 128), (256, 256)})
-BWD_WGMMA_HEAD_DIMS = frozenset({(96, 64), (128, 128), (256, 256)})
+WGMMA_HEAD_DIMS = frozenset({(80, 80), (96, 64), (128, 128), (256, 256)})
+BWD_WGMMA_HEAD_DIMS = frozenset({(80, 80), (96, 64), (128, 128), (256, 256)})
 ROUTES = ("wgmma", "simt")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1

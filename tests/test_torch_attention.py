@@ -173,23 +173,55 @@ def test_head_dim_80_matches_pallas_and_reference(dtype):
     _close(out, ref, TOL[dtype])
 
 
+# The masks hubert-xlarge never sets, at its head dim (80, 80), where every
+# bf16 call takes the tensor cores: ragged with GQA, a window and q_offset;
+# kv_len < Sk; kv_len 0 (chip_smoke.AT_80_MASKS, without the head dims).
+AT_80_MASKS = [(2, 77, 130, 8, 2, True, 33, 20, None),
+               (2, 70, 200, 8, 2, False, None, 0, 150),
+               (1, 64, 64, 4, 2, False, None, 0, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", AT_80_MASKS)
+def test_head_dim_80_with_masks_matches_pallas_and_chunked(case, dtype):
+    """The plain version the card holds the (80, 80) kernels to
+    (chunked_attention) against the JAX package's Pallas kernel in
+    interpret mode and its chunked attention, at the masks' small shapes;
+    where kv_len is 0 every row sees nothing and the output is 0."""
+    B, Sq, Sk, H, KH, causal, window, qoff, kv_len = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        20 + AT_80_MASKS.index(case), [(B, Sq, H, 80), (B, Sk, KH, 80), (B, Sk, KH, 80)], dtype)
+    kw = dict(causal=causal, window=window, q_offset=qoff, kv_len=kv_len)
+    pallas = jax_flash(jq, jk, jv, backend="pallas", interpret=True, block_q=32, block_k=32,
+                       **kw)
+    chunked = jax_flash(jq, jk, jv, backend="chunked", q_chunk=32, k_chunk=32, **kw)
+    out = chunked_attention(tq, tk, tv, **kw)
+    assert out.dtype == _TORCH[dtype] and out.shape == (B, Sq, H, 80)
+    _close(out, pallas, TOL[dtype])
+    _close(out, chunked, TOL[dtype])
+    if kv_len == 0:
+        assert torch.all(out == 0)
+    else:
+        _close(out, jax_reference(jq, jk, jv, **kw), TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims", sorted(fa_kernel.HEAD_DIMS))
 def test_route_takes_the_tensor_cores_for_bf16_at_128_and_256_only(dtype, dims):
-    """bf16 at 128, 256 and MLA's (96, 64) on the tensor cores; the rest,
-    f32 at every pair, SIMT."""
-    want = ("wgmma" if dtype == torch.bfloat16 and dims in {(96, 64), (128, 128), (256, 256)}
-            else "simt")
+    """bf16 at 128, 256, MLA's (96, 64) and hubert-xlarge's (80, 80) on the
+    tensor cores; the rest, f32 at every pair, SIMT."""
+    want = ("wgmma" if dtype == torch.bfloat16
+            and dims in {(80, 80), (96, 64), (128, 128), (256, 256)} else "simt")
     assert fa_kernel.route(dtype, *dims) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims", sorted(fa_kernel.BWD_HEAD_DIMS))
 def test_backward_route_takes_the_tensor_cores_for_bf16_at_128_only(dtype, dims):
-    """bf16 at 128, and, since recurrentgemma and minicpm3-4b train there,
-    256 and (96, 64); the rest SIMT."""
-    want = ("wgmma" if dtype == torch.bfloat16 and dims in {(96, 64), (128, 128), (256, 256)}
-            else "simt")
+    """bf16 at 128, and, since recurrentgemma, minicpm3-4b and hubert-xlarge
+    train there, 256, (96, 64) and (80, 80); the rest SIMT."""
+    want = ("wgmma" if dtype == torch.bfloat16
+            and dims in {(80, 80), (96, 64), (128, 128), (256, 256)} else "simt")
     assert fa_kernel.route(dtype, *dims, backward=True) == want
 
 

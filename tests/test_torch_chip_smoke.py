@@ -950,25 +950,28 @@ def test_twice_equal_names_the_leaves_that_differ(capsys):
 
 def test_hubert_shapes_join_the_kernel_and_backward_cases_last():
     """hubert-xlarge's encode and train shapes at (80, 80), bidirectional,
-    16 heads over 16, on the SIMT route in both dtypes, forward and
-    backward: appended after every earlier case of each list; the small
-    (80, 80) case keeps its place in KERNEL_CASES and joins BWD_CASES
-    last.  Each is timed on its path."""
+    16 heads over 16, on the tensor cores in bf16 and the SIMT route in
+    f32, forward and backward: appended after every earlier case of each
+    list, before the masks at (80, 80) (AT_80_MASKS, last); the small
+    (80, 80) case keeps its place in KERNEL_CASES and joins BWD_CASES after
+    the two.  Each is timed on its path."""
     prefill, train, small = chip_smoke.HUBERT_PREFILL, chip_smoke.HUBERT_TRAIN, \
         chip_smoke.HUBERT_SMALL
     for case in (prefill, train, small):
         assert case[3:9] == (16, 16, 80, 80, False, None)
-        for dtype in (torch.float32, torch.bfloat16):
-            assert chip_smoke.fa_kernel.route(dtype, 80, 80) == "simt"
-            assert chip_smoke.fa_kernel.route(dtype, 80, 80, backward=True) == "simt"
+        for dtype, route in ((torch.float32, "simt"), (torch.bfloat16, "wgmma")):
+            assert chip_smoke.fa_kernel.route(dtype, 80, 80) == route
+            assert chip_smoke.fa_kernel.route(dtype, 80, 80, backward=True) == route
     assert (prefill[:3], train[:3]) == ((8, 1024, 1024), (2, 4096, 4096))
-    assert chip_smoke.KERNEL_CASES[-3:] == [chip_smoke.QWEN2_MOE_TRAIN, prefill, train]
+    masks = chip_smoke.AT_80_MASKS
+    assert chip_smoke.KERNEL_CASES[-6:] == [chip_smoke.QWEN2_MOE_TRAIN, prefill, train, *masks]
     assert chip_smoke.KERNEL_CASES.index(small) == 9
-    assert chip_smoke.BWD_CASES[-4:] == [chip_smoke.QWEN2_MOE_TRAIN, prefill, train, small]
+    assert chip_smoke.BWD_CASES[-7:] == [chip_smoke.QWEN2_MOE_TRAIN, prefill, train, small,
+                                         *masks]
     assert chip_smoke.BWD_CASES.count(small) == 1
     assert len(set(chip_smoke.BWD_CASES)) == len(chip_smoke.BWD_CASES)
     assert (80, 80) in chip_smoke.fa_kernel.BWD_HEAD_DIMS
-    assert (80, 80) not in chip_smoke.fa_kernel.WGMMA_HEAD_DIMS | \
+    assert (80, 80) in chip_smoke.fa_kernel.WGMMA_HEAD_DIMS & \
         chip_smoke.fa_kernel.BWD_WGMMA_HEAD_DIMS
     assert chip_smoke.FLASH_PATHS["hubert-xlarge"] == prefill
     assert chip_smoke.BWD_PATHS["hubert-xlarge"][0] == train
@@ -1004,10 +1007,10 @@ def test_frontend_models_tables():
 
 
 def test_serve_launches_of_the_frontend_models():
-    """hubert-xlarge encodes through 48 flash launches, SIMT at (80, 80);
-    pixtral-12b prefills through 40, on the tensor cores, and decodes with
-    none; no WKV."""
-    for arch, n, route in (("hubert-xlarge", 48, "simt"), ("pixtral-12b", 40, "wgmma")):
+    """hubert-xlarge encodes through 48 flash launches, on the tensor cores
+    at (80, 80); pixtral-12b prefills through 40, on the tensor cores, and
+    decodes with none; no WKV."""
+    for arch, n, route in (("hubert-xlarge", 48, "wgmma"), ("pixtral-12b", 40, "wgmma")):
         assert chip_smoke.SERVE_LAUNCHES[arch] == {**dict.fromkeys(chip_smoke.KERNELS, 0),
                                                    "flash_attention_fwd": n}
         assert chip_smoke.get_config(arch).n_layers == n
@@ -1017,7 +1020,7 @@ def test_serve_launches_of_the_frontend_models():
 
 
 @pytest.mark.parametrize("arch, layers, fwd, bwd, route", [
-    ("hubert-xlarge", 48, 138, 48, "simt"), ("pixtral-12b", 9, 18, 9, "wgmma")])
+    ("hubert-xlarge", 48, 138, 48, "wgmma"), ("pixtral-12b", 9, 18, 9, "wgmma")])
 def test_train_launches_of_the_frontend_models(arch, layers, fwd, bwd, route):
     """3 L - L / k forward launches (k the remat group: 8, or 1 at 9 layers), each writing
     the lse, and L backward, all on the route of the model's head dims in
@@ -1045,18 +1048,20 @@ def test_train_launches_of_the_frontend_models(arch, layers, fwd, bwd, route):
 
 
 def test_spill_check_finds_the_hubert_backward_kernels():
-    """The SIMT backward's kernels at (80, 80), in both dtypes (bf16 runs
-    there too), and none of the other head dims'."""
-    names = [f"_ZN55_GLOBAL__N__77aa_13attn_bwd_dkdvI{t}Li80ELi80ELi32ELi64EEEvNS_6ParamsE"
-             for t in ("f", "13__nv_bfloat16")]
-    names += [f"_ZN55_GLOBAL__N__77aa_11attn_bwd_dqI{t}Li80ELi80ELi64ELi64EEEvNS_6ParamsE"
-              for t in ("f", "13__nv_bfloat16")]
+    """The SIMT backward's kernels at (80, 80), f32 only now (bf16 runs on
+    the tensor cores), and none of the other head dims' nor the
+    tensor-core kernels at (80, 80), whose names the wgmma check reads."""
+    names = ["_ZN55_GLOBAL__N__77aa_13attn_bwd_dkdvIfLi80ELi80ELi32ELi64EEEvNS_6ParamsE",
+             "_ZN55_GLOBAL__N__77aa_11attn_bwd_dqIfLi80ELi80ELi64ELi64EEEvNS_6ParamsE"]
+    wgmma = [f"_ZN60_GLOBAL__N__e9e9_{n}ILi80ELi80EEEvNS_4ArgsE14CUtensorMap_stS2_S2_S2_"
+             for n in ("19attn_bwd_dkdv_wgmma", "17attn_bwd_dq_wgmma")]
     mla = "_ZN55_GLOBAL__N__77aa_11attn_bwd_dqIfLi96ELi64ELi64ELi64EEEvNS_6ParamsE"
-    text = _log(*(_entry(n) for n in names), _entry(mla, 8, 8), _entry(SIMT_BWD, 8, 8))
-    assert chip_smoke.spilling_entries(text, chip_smoke.HUBERT_BWD_SYMBOLS) == (4, [])
-    seen, spills = chip_smoke.spilling_entries(_log(_entry(names[0]), _entry(names[3], 4, 4)),
+    text = _log(*(_entry(n) for n in names + wgmma), _entry(mla, 8, 8), _entry(SIMT_BWD, 8, 8))
+    assert chip_smoke.spilling_entries(text, chip_smoke.HUBERT_BWD_SYMBOLS) == (2, [])
+    assert chip_smoke.wgmma_ptxas_faults(text) == (2, [])
+    seen, spills = chip_smoke.spilling_entries(_log(_entry(names[0]), _entry(names[1], 4, 4)),
                                                chip_smoke.HUBERT_BWD_SYMBOLS)
-    assert seen == 2 and len(spills) == 1 and spills[0].startswith(names[3])
+    assert seen == 2 and len(spills) == 1 and spills[0].startswith(names[1])
 
 
 @pytest.mark.parametrize("case, causal", [("HUBERT_PREFILL", False), ("QWEN3_PREFILL", True)])
@@ -1082,3 +1087,24 @@ def test_library_attention_names_the_backend_at_80(monkeypatch):
     fn = object()
     for case in (chip_smoke.QWEN3_PREFILL, chip_smoke.RECURRENTGEMMA_TRAIN):
         assert chip_smoke.library_attention(fn, case) == (fn, None)
+
+
+def test_masks_at_80_join_the_kernel_and_backward_cases_last():
+    """bf16 at (80, 80) takes the tensor cores for every call, so the masks
+    hubert never sets are held there, forward and backward, in f32 (SIMT)
+    and bf16 (wgmma): ragged with GQA, a window and q_offset; kv_len < Sk;
+    kv_len 0.  They come last in both lists, so every earlier case keeps
+    its index and the inputs drawn from it."""
+    masks = [(2, 77, 130, 8, 2, 80, 80, True, 33, 20, None),
+             (2, 70, 200, 8, 2, 80, 80, False, None, 0, 150),
+             (1, 64, 64, 4, 2, 80, 80, False, None, 0, 0)]
+    assert chip_smoke.AT_80_MASKS == masks
+    hubert = [chip_smoke.HUBERT_PREFILL, chip_smoke.HUBERT_TRAIN]
+    assert chip_smoke.KERNEL_CASES == EARLIER_KERNEL_CASES + hubert + masks
+    assert chip_smoke.BWD_CASES == EARLIER_BWD_CASES + hubert + [chip_smoke.HUBERT_SMALL] + masks
+    for case in masks:
+        assert case not in chip_smoke.BWD_REAL_HEADS
+        for dtype, route in ((torch.float32, "simt"), (torch.bfloat16, "wgmma")):
+            assert chip_smoke.fa_kernel.route(dtype, case[5], case[6]) == route
+            assert chip_smoke.fa_kernel.route(dtype, case[5], case[6], backward=True) == route
+    assert chip_smoke.visible_pairs(masks[2]) == 0

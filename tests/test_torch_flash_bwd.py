@@ -10,8 +10,8 @@ element: every side computes in f32 from the same inputs and differs only
 in the order of its sums (the gradients are of magnitude about 1).  The
 tensor-core backward's tile schedule is emulated in numpy and held against
 the plain backward at the same tolerance; the tensor-core forward's at
-(96, 64) against the plain forward, exactly in f32 and, with P rounded to
-bf16, within the route's tolerances on the card.  ``FlashAttention`` is checked by
+(96, 64) and (80, 80) against the plain forward, exactly in f32 and, with P
+rounded to bf16, within the route's tolerances on the card.  ``FlashAttention`` is checked by
 ``torch.autograd.gradcheck`` in float64 with both kernel calls stood in by
 their plain versions.  The CUDA kernels cannot run here; the wrappers'
 checks, the head-dim rule and the refusals of WKV and scan are tested
@@ -53,6 +53,11 @@ CASES = [
     (1, 40, 40, 16, 1, 256, True, 12, 0, None),       # recurrentgemma's: GQA 16:1, window
     (2, 37, 70, 4, 1, 256, True, 24, 33, None),       # 256, a window past q_offset, ragged
     (2, 50, 50, 16, 16, 80, False, None, 0, None),    # hubert-xlarge's: 80, bidirectional
+    # the masks hubert never sets at its head dim, where every bf16 call takes
+    # the tensor cores (chip_smoke.AT_80_MASKS)
+    (2, 77, 130, 8, 2, 80, True, 33, 20, None),       # ragged, GQA, window, q_offset
+    (2, 70, 200, 8, 2, 80, False, None, 0, 150),      # kv_len < Sk
+    (1, 64, 64, 4, 2, 80, False, None, 0, 0),         # kv_len 0
 ]
 
 
@@ -87,7 +92,13 @@ def _close(a, b, tol=TOL):
 
 @pytest.mark.parametrize("case", CASES)
 def test_plain_backward_matches_jax_vjp(case):
-    q, k, v, do = _inputs(CASES.index(case), case)
+    _check_against_jax_vjp(case, *_inputs(CASES.index(case), case))
+
+
+def _check_against_jax_vjp(case, q, k, v, do):
+    """The plain backward on numpy f32 inputs against jax.vjp of the JAX
+    package's chunked_attention, and of its attention_reference where every
+    row sees a key; where some row sees none, that row's dq is 0."""
     kw = _kw(case)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     o = chunked_attention(tq, tk, tv, **kw)
@@ -168,6 +179,13 @@ def test_plain_backward_given_the_lse_equals_itself_without(case):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("case", CASES[-3:])
+def test_plain_backward_on_bf16_values_at_80_matches_jax_vjp(case):
+    """The masks at (80, 80) on inputs rounded to bf16, as the card's bf16
+    cases get them, computed in f32 on both sides (1e-5)."""
+    _check_against_jax_vjp(case, *(_bf16(x) for x in _inputs(600 + CASES.index(case), case)))
+
+
 def test_plain_backward_of_padded_heads_is_zero():
     """recurrentgemma's 10 heads padded to 16 over 1 kv head: gqa_block zeroes
     the padded heads' output, so their dout is 0.  Their dq comes back 0 (not
@@ -194,10 +212,11 @@ def test_plain_backward_of_padded_heads_is_zero():
 # take all BKV kv rows, split a step's S^T and dP^T by query columns (QCOLS
 # each), share P^T and dS^T, and split dK and dV by head-dim columns (D / 2
 # each).  LAYOUT_DIMS: the head dims a layout is emulated at where they are
-# not the case's own D.
+# not the case's own D (at (80, 80) D 128's tiles, Dk and Dv each in two
+# chunks, the second zero past 80, and dK, dV and dQ at 128 columns).
 LAYOUTS = {"d128": (128, 64, 128, 64, 64, 64), "d256": (64, 64, 128, 32, 64, 32),
-           "d96x64": (128, 64, 128, 64, 64, 64)}
-LAYOUT_DIMS = {"d96x64": (96, 64)}
+           "d96x64": (128, 64, 128, 64, 64, 64), "d80x80": (128, 64, 128, 64, 64, 64)}
+LAYOUT_DIMS = {"d96x64": (96, 64), "d80x80": (80, 80)}
 CHUNK = 64  # the columns of a 128-byte swizzled chunk of bf16 in shared memory
 
 
@@ -415,11 +434,12 @@ def test_wgmma_backward_tile_schedule_matches_plain_backward(case, layout):
         _close(mine, ref.numpy())
 
 
-# The tensor-core forward's tiles at (96, 64) (csrc/flash_attention_fwd_sm90.cu,
-# launch<96, 64, 128>): an item is BQ query rows of one (b, h), walking kv
-# tiles of BK rows.  Its tolerances on the card (chip_smoke.py: TOL, REL_TOL
-# and LSE_ABS_TOL of the route): max |out - ref| 2e-2 and ||out - ref|| /
-# ||ref|| 2**-7 in bf16, the lse within 2**-8.
+# The tensor-core forward's tiles at (96, 64) and (80, 80)
+# (csrc/flash_attention_fwd_sm90.cu, launch<96, 64, 128>, launch<80, 80,
+# 128>): an item is BQ query rows of one (b, h), walking kv tiles of BK rows.
+# Its tolerances on the card (chip_smoke.py: TOL, REL_TOL and LSE_ABS_TOL of
+# the route): max |out - ref| 2e-2 and ||out - ref|| / ||ref|| 2**-7 in bf16,
+# the lse within 2**-8.
 FWD_TILES = (128, 128)
 WGMMA_ABS, WGMMA_REL, WGMMA_LSE = 2e-2, 2**-7, 2**-8
 
@@ -437,9 +457,11 @@ def _emulate_wgmma_forward(q, k, v, case, round_bf16=True):
     (held against the element-wise masks), S in Dk / 16 k-steps over Q and K
     zero-filled to whole chunks, the online softmax in exp2 with the scale
     folded into log2(e) / sqrt(Dk), tile t's P V landing while tile t + 1's
-    softmax runs and O and l rescaled after it, rows that see no key 0, and
-    each row's lse.  With ``round_bf16``, P is rounded to bf16 for P V and
-    for l, and the output to bf16, as the kernel does; without, all in f32.
+    softmax runs and O and l rescaled after it, P V over V zero-filled to
+    whole chunks (at Dv 80, O's columns 80-127 held to come out 0 and never
+    stored), rows that see no key 0, and each row's lse.  With
+    ``round_bf16``, P is rounded to bf16 for P V and for l, and the output to
+    bf16, as the kernel does; without, all in f32.
     Returns o (B, Sq, H, Dv) and lse (B, H, Sq)."""
     BQ, BK = FWD_TILES
     B, Sq, Sk, H, KH, _, causal, window, q_offset, kv_len = case
@@ -451,7 +473,7 @@ def _emulate_wgmma_forward(q, k, v, case, round_bf16=True):
     nqt = -(-Sq // BQ)
     qp = np.pad(_chunked(q, Dk), ((0, 0), (0, nqt * BQ - Sq), (0, 0), (0, 0)))
     kp = np.pad(_chunked(k, Dk), ((0, 0), (0, -(-Sk // BK) * BK - Sk), (0, 0), (0, 0)))
-    vp = np.pad(v, ((0, 0), (0, -(-Sk // BK) * BK - Sk), (0, 0), (0, 0)))
+    vp = np.pad(_chunked(v, Dv), ((0, 0), (0, -(-Sk // BK) * BK - Sk), (0, 0), (0, 0)))
     o = np.full((B, Sq, H, Dv), np.nan, np.float32)
     lse = np.full((B, H, Sq), np.nan, np.float32)
     for w in range(nqt * H * B):
@@ -465,7 +487,7 @@ def _emulate_wgmma_forward(q, k, v, case, round_bf16=True):
         t_begin = kv_begin // BK
         t_end = (kv_end + BK - 1) // BK if kv_end > kv_begin else t_begin
         qpos = q_first + np.arange(BQ)[:, None]
-        m, l, acc, last = np.full(BQ, -np.inf), np.zeros(BQ), np.zeros((BQ, Dv)), None
+        m, l, acc, last = np.full(BQ, -np.inf), np.zeros(BQ), np.zeros((BQ, vp.shape[-1])), None
         for t in range(t_begin, t_end):
             k0 = t * BK
             s = _ksteps(qp[b, q0:q0 + BQ, h], kp[b, k0:k0 + BK, kvh], Dk)
@@ -488,6 +510,8 @@ def _emulate_wgmma_forward(q, k, v, case, round_bf16=True):
             last = (p, k0)
         if last is not None:
             acc = acc + last[0] @ vp[b, last[1]:last[1] + BK, kvh]
+        assert not acc[:, Dv:].any()  # past Dv: 0, and not stored
+        acc = acc[:, :Dv]
         seen = l > 0
         inv = np.where(seen, 1.0 / np.where(seen, l, 1.0), 0.0)
         o[b, q0:q0 + nq, h] = rnd(acc * inv[:, None])[:nq]
@@ -505,7 +529,18 @@ def test_wgmma_forward_tile_schedule_at_96_64_matches_plain_forward(case):
     of lse_reference; with P and the output rounded to bf16 as the kernel
     rounds them, within the route's tolerances of chunked_attention, the
     JAX reference and jax.nn.logsumexp."""
-    q, k, v, _ = (_bf16(x) for x in _inputs(700 + SCHEDULE_CASES.index(case), case, (96, 64)))
+    _check_wgmma_forward_schedule(case, (96, 64), 700 + SCHEDULE_CASES.index(case))
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_wgmma_forward_tile_schedule_at_80_80_matches_plain_forward(case):
+    """The same at hubert-xlarge's (80, 80): Q and K in 5 k-steps, P V over
+    V's zero-filled half chunk."""
+    _check_wgmma_forward_schedule(case, (80, 80), 800 + SCHEDULE_CASES.index(case))
+
+
+def _check_wgmma_forward_schedule(case, dims, seed):
+    q, k, v, _ = (_bf16(x) for x in _inputs(seed, case, dims))
     kw = _kw(case)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     plain = chunked_attention(tq, tk, tv, **kw).numpy()
@@ -521,7 +556,7 @@ def test_wgmma_forward_tile_schedule_at_96_64_matches_plain_forward(case):
         diff, norm = np.linalg.norm(out - ref), np.linalg.norm(ref)
         assert (diff / norm if norm > 0 else diff) <= WGMMA_REL
         assert np.abs(out - ref).max() <= WGMMA_ABS
-    jax_lse = _jax_lse(q, k, case[:5] + (96,) + case[6:])
+    jax_lse = _jax_lse(q, k, case[:5] + (dims[0],) + case[6:])
     for ref in (plain_lse, jax_lse):
         assert np.abs(lse - ref).max() <= WGMMA_LSE
 
