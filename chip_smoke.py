@@ -18,7 +18,9 @@ minicpm3-4b and pixtral-12b at full width with the layers one card holds
 (TRAIN_CUTS), for
 a few steps (AdamW, chunked cross-entropy, remat), checks that each serve
 and each train step went through its kernels, and times each kernel beside
-its bound.  Any failure raises, so the exit code is
+its bound.  Its phase ``sharded`` runs qwen3-1.7b's train step on DTensors
+over a one-rank mesh against the unsharded step, and the dry-run of four
+cells on a "cuda" mesh (phase_sharded).  Any failure raises, so the exit code is
 not 0.  With no CUDA device, or away from the checkout, it exits non-zero
 and prints no result.  It imports nothing of JAX and nothing of ``repro``.
 
@@ -33,7 +35,11 @@ slice gradients by the route of the WKV forward (the backward on the route
 ``bwd_route()`` names), the evidence for ``route(..., grad=True)``.  With
 ``--depth-probe ARCH LAYERS...`` it runs depth_probe only: one train step
 of ARCH at each depth in turn until one runs out of memory, the evidence
-for its TRAIN_CUTS depth.
+for its TRAIN_CUTS depth.  With ``--in-turns PARENT_TREE`` (a checkout of
+another commit, unpacked into a gitignored directory) it runs
+trees_in_turns only: IN_TURNS_TRAIN's train steps and IN_TURNS_SERVE's
+prefill and decode from that tree and this one in turns (parent, this,
+this, parent), each run a process that builds and imports its own tree.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -56,7 +63,10 @@ from unittest import mock
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.distributed.tensor import DTensor, distribute_tensor  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import SyntheticLMDataset, pseudo_embeds  # noqa: E402
@@ -69,12 +79,15 @@ from repro_torch.kernels.rglru_scan import ref as scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
+from repro_torch.launch.dryrun import run_cell  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import attention, lm, moe, rglru, rwkv6  # noqa: E402
-from repro_torch.optim import adamw_update, init_train_state  # noqa: E402
+from repro_torch.optim import adamw_update, init_train_state, train_state_specs  # noqa: E402
 from repro_torch.serve import encode, generate  # noqa: E402
-from repro_torch.train import make_train_step, useful_flops  # noqa: E402
+from repro_torch.sharding import make_rules, placements_for, use_mesh_rules  # noqa: E402
+from repro_torch.train import batch_specs, make_train_step, useful_flops  # noqa: E402
 from repro_torch.train import steps as train_steps  # noqa: E402
-from repro_torch.tree import leaves, paths  # noqa: E402
+from repro_torch.tree import is_spec, leaves, paths, unflatten  # noqa: E402
 from repro_torch.types import ShapeConfig  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor-core rate, f32 rate outside
@@ -2012,6 +2025,193 @@ def phase_train(arch):
                 n_layers=cfg.n_layers, launches=launches)
 
 
+# The sharded phase: the sharding slice's train step on a one-rank mesh and
+# the dry-run on a "cuda" mesh.  SHARDED_ARCH trains at TRAIN_SHAPES' batch
+# (8 x 1024) at full depth; the dry-run prices that cell on the (1, 1) host
+# mesh and SHARDED_CELLS on the production meshes, reaching the kernels'
+# custom ops (their fake implementations) and no kernel.
+SHARDED_ARCH = "qwen3-1.7b"
+SHARDED_CELLS = (("qwen3-1.7b", "train_4k", "pod16x16"),
+                 ("qwen3-moe-30b-a3b", "decode_32k", "pod16x16"),
+                 ("rwkv6-7b", "prefill_32k", "pod2x16x16"))
+SHARDED_TOL = SLICE_DTYPES[1][1]  # the train slice's bf16 tolerance on ||a - b|| / ||b||, 2e-2
+
+
+def _sharded_state(params, cfg, mesh, rules):
+    """The train state of ``params`` as DTensors: the params on their specs,
+    f32 master, mu and nu on ZeRO-1's (train_state_specs)."""
+    pspecs = lm.param_specs(cfg, rules)
+    sspecs = train_state_specs(pspecs, lm.abstract_params(cfg), mesh, rules)
+
+    def on(tree, specs):
+        return unflatten(tree, [
+            distribute_tensor(t, mesh, placements_for(s, mesh, t.ndim), src_data_rank=None)
+            for t, s in zip(leaves(tree), leaves(specs, is_spec), strict=True)])
+    state = {"params": on(params, pspecs),
+             "master": on(unflatten(params, [t.float() for t in leaves(params)]),
+                          sspecs["master"]),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    for k in ("mu", "nu"):
+        state[k] = on(unflatten(params, [torch.zeros(t.shape, dtype=torch.float32,
+                                                     device="cuda") for t in leaves(params)]),
+                      sspecs[k])
+    return state
+
+
+def phase_sharded():
+    """The sharding slice on the card.
+
+    (a) One SHARDED_ARCH train step at full width and depth, 8 x 1024 tokens,
+    bf16, on make_host_mesh() over a real one-rank NCCL group (a file://
+    store in a temporary directory; nothing goes over a network), DTensor
+    params and ZeRO-1 state under use_mesh_rules, against the unsharded step
+    of the same weights and batch, held as phase_train_slice holds its bf16
+    paths: the loss, the grad_norm and every gradient leaf at ||a - b|| /
+    ||b|| <= SHARDED_TOL, each gradient's sign flips within SHARDED_TOL of
+    its leaf's largest (sign_flips), and every element of every master leaf
+    within f32 rounding of the difference the two steps' own gradients make
+    through the first AdamW step (first_step_excess); every master leaf must
+    have moved from its initial value.  Launches exactly those of
+    phase_train's step (77 flash forward, all wgmma and each writing the
+    lse, and 28 backward, all wgmma).  FlopCounterMode reads the unsharded
+    step's FLOPs.
+    (b) The dry-run on a "cuda" mesh: the (1, 1) host mesh of the same cell,
+    then SHARDED_CELLS, each with status ok.
+    (c) The (1, 1) cell's per-device FLOPs equal (a)'s FlopCounterMode count;
+    its predicted peak bytes beside (a)'s, their ratio logged, not gated.
+    Returns the numbers the run logs."""
+    cfg = get_config(SHARDED_ARCH)
+    batch_size, seq = TRAIN_SHAPES[SHARDED_ARCH]
+    data = SyntheticLMDataset(cfg.vocab, seq, seed=0)
+    batch = train_batch(data, 0, batch_size, cfg)
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda")
+    want = want_train_launches(cfg, torch.bfloat16, seq)
+
+    # the unsharded step, counted by FlopCounterMode
+    seen = {}
+    state = init_train_state(unflatten(params, [t.clone() for t in leaves(params)]))
+    with mock.patch.object(train_steps, "adamw_update", first_step_seen(seen)), \
+            FlopCounterMode(display=False) as counter:
+        state, metrics = make_train_step(cfg, remat="full", ce_chunk=TRAIN_CE_CHUNK)(state, batch)
+    torch.cuda.synchronize()
+    flops_real = counter.get_total_flops()
+    plain = {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"], "grads": seen["grads"],
+             "master": leaves(state["master"])}
+    del state, metrics
+    torch.cuda.empty_cache()
+
+    # the sharded step, on a one-rank mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh()
+            rules = make_rules(cfg, mesh, global_batch=batch_size)
+            specs = batch_specs(cfg, ShapeConfig("sharded", seq, batch_size, "train"), rules)
+            dbatch = {k: distribute_tensor(v, mesh, placements_for(specs[k], mesh, v.ndim),
+                                           src_data_rank=None) for k, v in batch.items()}
+            state = _sharded_state(unflatten(params, [t.clone() for t in leaves(params)]),
+                                   cfg, mesh, rules)
+            args_bytes = sum(t.to_local().nbytes for k in ("params", "master", "mu", "nu")
+                             for t in leaves(state[k]))
+            seen_s = {}
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            with use_mesh_rules(mesh, rules), \
+                    mock.patch.object(train_steps, "adamw_update", first_step_seen(seen_s)):
+                state, metrics = make_train_step(cfg, remat="full",
+                                                 ce_chunk=TRAIN_CE_CHUNK)(state, dbatch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            launches = read_train_launches()
+            step_peak = torch.cuda.max_memory_allocated() - before + args_bytes
+            if launches != want:
+                raise AssertionError(f"sharded: launches {launches}, expected {want}")
+            local = lambda t: t.to_local() if isinstance(t, DTensor) else t  # noqa: E731
+            seen_s = {"grads": [local(g) for g in seen_s["grads"]], "lr": seen_s["lr"],
+                      "scale": local(seen_s["scale"])}
+            worst = {"loss": rel_err(local(metrics["loss"]), plain["loss"]),
+                     "grad_norm": rel_err(local(metrics["grad_norm"]), plain["grad_norm"])}
+            for what in ("loss", "grad_norm"):
+                if not worst[what] <= SHARDED_TOL:
+                    raise AssertionError(f"sharded: {what} rel_err {worst[what]} against the "
+                                         f"unsharded step's (tolerance {SHARDED_TOL})")
+            flipped, worst["grad"], worst["master_excess"] = {}, 0.0, 0.0
+            for i, (name, m, m0) in enumerate(zip(paths(state["params"]),
+                                                  leaves(state["master"]), leaves(params),
+                                                  strict=True)):
+                g, g_plain = seen_s["grads"][i], plain["grads"][i]
+                rel = rel_err(g, g_plain)
+                worst["grad"] = max(worst["grad"], rel)
+                if not (torch.isfinite(g.float()).all() and rel <= SHARDED_TOL):
+                    raise AssertionError(f"sharded: gradient {name} rel_err {rel} against the "
+                                         f"unsharded step's (tolerance {SHARDED_TOL})")
+                try:
+                    n_flips, ratio = sign_flips(g, g_plain, SHARDED_TOL)
+                except AssertionError as err:
+                    raise AssertionError(f"sharded: gradient {name}: {err}") from None
+                if n_flips:
+                    flipped[name] = (n_flips, round(ratio, 6))
+                m = local(m)
+                if not torch.isfinite(m).all():
+                    raise AssertionError(f"sharded: master {name} is not finite")
+                if torch.equal(m, m0.float()):
+                    raise AssertionError(f"sharded: master {name} did not move in the step")
+                over, excess = first_step_excess(m, plain["master"][i], seen_s, seen, i)
+                worst["master_excess"] = max(worst["master_excess"], excess)
+                if over:
+                    raise AssertionError(f"sharded: master {name}: {over} elements differ from "
+                                         "what the two steps' own gradients make by more than "
+                                         f"f32 rounding (up to {excess:.3e} times it)")
+            placements = sorted({str(t.placements) for t in leaves(state["master"])})
+            del state, metrics, seen_s, dbatch
+        finally:
+            dist.destroy_process_group()
+    del plain, seen, params
+    torch.cuda.empty_cache()
+    log(f"[sharded] (a) {cfg.name}, {cfg.n_layers} layers, {batch_size} x {seq} tokens, bf16, "
+        f"on the (1, 1) host mesh (NCCL, one rank): step {step_s * 1e3:.3f} ms (one step, "
+        f"the first on DTensors), launches {launches}; against the unsharded step: loss, "
+        f"grad_norm and the largest gradient leaf's rel_err {worst} (tolerance {SHARDED_TOL}; "
+        f"master_excess: every master element within f32 rounding of what the two steps' own "
+        f"gradients make, the largest error over its slack, held <= 1); every master leaf "
+        f"moved; gradient sign flips (count, largest |g| over the leaf's largest): "
+        f"{flipped or 'none'}; master placements {placements}; "
+        f"the step's peak {step_peak} bytes (max_memory_allocated above what was held "
+        f"before it, plus its state's {args_bytes} bytes); FlopCounterMode on the unsharded "
+        f"step: {flops_real} FLOP")
+
+    # (b) and (c): the dry-run on a "cuda" mesh
+    records = [run_cell(cfg, ShapeConfig("sharded", seq, batch_size, "train"), "host1x1")]
+    records += [run_cell(a, s, m) for a, s, m in SHARDED_CELLS]
+    for rec in records:
+        if rec["status"] != "ok":
+            raise AssertionError(f"sharded: dry-run {rec['arch']} x {rec['shape']} x "
+                                 f"{rec['mesh']}: {rec['status']}: {rec.get('error')}\n"
+                                 f"{rec.get('traceback', '')}")
+        r, m, ops = rec["roofline"], rec["memory"], rec["ops"]
+        log(f"[sharded] (b) dry-run {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+            f"({rec['device']} mesh, {rec['kernels']}): trace {rec['lower_s']} s; per device "
+            f"{ops['flops']:.6e} FLOP, {ops['bytes']:.6e} bytes, {ops['collective_bytes']:.6e} "
+            f"collective bytes {ops['collective_by_group']}, kernels {ops['kernels']}; memory "
+            f"{m}; roofline on the H100 SXM data sheet: compute {r['compute_s']:.6g} s, "
+            f"memory {r['memory_s']:.6g} s, collective {r['collective_s']:.6g} s, dominant "
+            f"{r['dominant']}, fraction {r['roofline_fraction']:.4f}")
+    host = records[0]
+    if host["ops"]["flops"] != flops_real:
+        raise AssertionError(f"sharded: the (1, 1) dry-run counts {host['ops']['flops']} FLOP "
+                             f"a device, FlopCounterMode {flops_real} on the real step")
+    predicted = host["memory"]["per_device_bytes"]
+    log(f"[sharded] (c) (1, 1) FLOPs: dry-run {host['ops']['flops']:.0f} == FlopCounterMode "
+        f"{flops_real}; peak bytes: predicted {predicted}, the real step's {step_peak}, ratio "
+        f"{predicted / step_peak:.4f} (not gated)")
+    return {"flops": flops_real, "predicted_peak": predicted, "step_peak": step_peak,
+            "worst": worst, "cells": [(r["arch"], r["shape"], r["mesh"], r["status"])
+                                      for r in records]}
+
+
 # Per served model, the launches each kernel must show in one serve of
 # SERVE_BATCH x SERVE_PROMPT prompts and SERVE_NEW new tokens: qwen3-1.7b runs
 # flash attention once a layer in prefill (decode uses decode_attention);
@@ -2981,6 +3181,67 @@ def depth_probe(arch, depths):
     torch.cuda.empty_cache()
 
 
+# --in-turns PARENT: the paths whose host clock moved beyond PERF.md §5's
+# noise in a whole run, read from the parent tree and this one in turns on one
+# card (parent, this, this, parent), each run a process of its own that
+# imports its tree's chip_smoke.py and runs its phase_train and phase_serve
+# (the serves without serve_against_plain).
+IN_TURNS_TRAIN = ("qwen3-1.7b", "hubert-xlarge", "minicpm3-4b", "recurrentgemma-2b")
+IN_TURNS_SERVE = ("qwen3-1.7b", "rwkv6-7b", "recurrentgemma-2b", "qwen2-moe-a2.7b",
+                  "qwen3-moe-30b-a3b", "minicpm3-4b", "pixtral-12b")
+_IN_TURNS_RUN = """
+import json, re, sys
+import torch
+tree, out_path, train, serve = sys.argv[1:]
+sys.path.insert(0, tree)
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+lines, log = [], cs.log
+cs.log = lambda msg: (lines.append(msg), log(msg))
+cs.SERVE_AGAINST_PLAIN = None
+cs.phase_build()
+out = {"train_ms": {}, "prefill_ms": {}, "decode_ms": {}}
+for arch in train.split(","):
+    out["train_ms"][arch] = cs.phase_train(arch)["step_ms"]
+    torch.cuda.empty_cache()
+for arch in serve.split(","):
+    n = len(lines)
+    cs.phase_serve(arch)
+    torch.cuda.empty_cache()
+    m = next(m for m in (re.search(r"prefill ([0-9.]+) ms; decode .* = ([0-9.]+) ms/step", x)
+                         for x in lines[n:]) if m)
+    out["prefill_ms"][arch], out["decode_ms"][arch] = float(m[1]), float(m[2])
+with open(out_path, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def trees_in_turns(parent):
+    """IN_TURNS_TRAIN's median train step and IN_TURNS_SERVE's prefill and
+    decode ms a step (host clock, as phase_train and phase_serve read
+    them) of the tree at ``parent`` and of this one, in turns: parent,
+    this, this, parent, each in a process of its own.  Logs each run's
+    readings and, by reading, the four values in that order."""
+    here = str(Path(__file__).resolve().parent)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, tree) in enumerate((("parent", parent), ("change", here),
+                                           ("change", here), ("parent", parent))):
+            out = Path(tmp) / f"{i}.json"
+            subprocess.run([sys.executable, "-c", _IN_TURNS_RUN, str(Path(tree).resolve()),
+                            str(out), ",".join(IN_TURNS_TRAIN), ",".join(IN_TURNS_SERVE)],
+                           check=True)
+            runs.append(json.loads(out.read_text()))
+            log(f"[in-turns] run {i + 1}, {label} ({tree}): {json.dumps(runs[-1])}")
+    table = {f"{kind} {arch}": [r[kind][arch] for r in runs]
+             for kind in ("train_ms", "prefill_ms", "decode_ms") for arch in runs[0][kind]}
+    for what, v in table.items():
+        log(f"[in-turns] {what}: parent {v[0]:.3f}, change {v[1]:.3f}, change {v[2]:.3f}, "
+            f"parent {v[3]:.3f}; change over parent (means) {(v[1] + v[2]) / (v[0] + v[3]):.4f}")
+    return table
+
+
 def wkv_grad_routes():
     """The evidence for a train step's WKV forward route
     (wkv_kernel.route(..., grad=True)), reproducible by --wkv-grad-routes:
@@ -3060,9 +3321,11 @@ def main() -> int:
     routes = sys.argv[1:] == ["--wkv-grad-routes"]
     probe = (len(sys.argv) > 3 and sys.argv[1] == "--depth-probe" and sys.argv[2] in TRAIN_SHAPES
              and all(a.isdigit() for a in sys.argv[3:]))
-    if sys.argv[1:] and not (sweep or routes or probe):
+    turns = (len(sys.argv) == 3 and sys.argv[1] == "--in-turns"
+             and (Path(sys.argv[2]) / "chip_smoke.py").is_file())
+    if sys.argv[1:] and not (sweep or routes or probe or turns):
         print(f"usage: {sys.argv[0]} [--tile-sweep | --wkv-grad-routes | --depth-probe ARCH "
-              "LAYERS...]", file=sys.stderr)
+              "LAYERS... | --in-turns PARENT_TREE]", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3080,6 +3343,10 @@ def main() -> int:
         seconds[name] = round(seconds.get(name, 0.0) + time.perf_counter() - t0, 1)
         return out
 
+    if turns:  # each run builds its own tree's kernels
+        trees_in_turns(sys.argv[2])
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
     if probe:  # no kernel is built for it but those the path compiles at first use
         depth_probe(sys.argv[2], [int(a) for a in sys.argv[3:]])
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3115,6 +3382,8 @@ def main() -> int:
     wkv_bwd_t = run("timings", phase_wkv_bwd_timings)
     log(f"[timings] device_ms: {DEVICE_MS_TALLY['measurements']} measurements in "
         f"{DEVICE_MS_TALLY['runs']} timed runs")
+    torch.cuda.empty_cache()
+    run("sharded", phase_sharded)
     torch.cuda.empty_cache()
     by_path, routes_by_path, wkv_routes_by_path = {}, {}, {}
     for arch in SERVE_LAUNCHES:

@@ -3,7 +3,7 @@
 An architecture joins the registry with the modules that run it; ids use
 the same names as the JAX package's registry.
 """
-from repro_torch.types import ArchConfig
+from repro_torch.types import SHAPES, ArchConfig, ShapeConfig, applicable  # noqa: F401
 
 from . import (hubert_xlarge, minicpm3_4b, minitron_4b, pixtral_12b, qwen2_moe_a2_7b,
                qwen3_1_7b, qwen3_moe_30b_a3b, recurrentgemma_2b, rwkv6_7b, yi_9b)
@@ -19,3 +19,9 @@ def get_config(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]

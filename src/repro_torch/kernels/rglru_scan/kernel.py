@@ -120,12 +120,12 @@ def rglru_scan_fwd(a, b, h0=None):
     Returns (h (B, T, W) in a.dtype, h_last (B, W) f32).  Adds one to
     ``rglru_scan_fwd.launches`` for each launch.  Raises NotImplementedError
     when grad mode is on and an input requires grad: its output would
-    silently carry no gradient; ``ops.rglru_scan`` (``RGLRUScan``) gives one.
+    silently carry no gradient; ``ops.rglru_scan`` (``rglru_scan_op``) gives one.
     """
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (a, b, h0)):
         raise NotImplementedError("rglru_scan_fwd: called directly on inputs that require "
                                   "grad, its output would carry no gradient; call "
-                                  "ops.rglru_scan, whose RGLRUScan runs the backward kernel")
+                                  "ops.rglru_scan, whose rglru_scan_op runs the backward kernel")
     _check("rglru_scan_fwd", a, {"b": b}, {"h0": h0})
     B, T, W = a.shape
     h = torch.empty_like(a)

@@ -29,7 +29,7 @@ entry point: ``"chunk"`` for bf16 at head dim 64 with T >= 2 (the chained
 chunk states and gradients, then one block a (b, h, chunk),
 ``csrc/rwkv6_wkv_bwd_sm90.cu``), ``"recurrent"`` for the rest
 (``csrc/rwkv6_wkv_bwd.cu``).  The forward wrapper called directly refuses
-inputs that require grad; ``ops.rwkv6_wkv`` (``RWKV6WKV``) runs both
+inputs that require grad; ``ops.rwkv6_wkv`` (``rwkv6_wkv_op``) runs both
 kernels.  These wrappers take CUDA tensors only and raise on anything the
 kernels do not take; the CPU's plain versions are ``ref.rwkv6_reference``
 and ``ref.rwkv6_wkv_bwd_reference``.
@@ -74,7 +74,7 @@ def route(dtype, D: int, T: int, grad: bool = False) -> str:
     """The forward kernel a launch goes to: for bf16 at CHUNK_HEAD_DIMS with
     T >= CHUNK_MIN_T, ``"chunk_exact"`` when ``grad`` is true and
     ``"chunk"`` when it is false; else ``"recurrent"``.  ``grad``: the
-    launch is the forward of a gradient (``RWKV6WKV`` in grad mode with an
+    launch is the forward of a gradient (``rwkv6_wkv_op`` in grad mode with an
     input that requires grad, ``ops.rwkv6_wkv_cuda``), which the backward
     kernel differentiates as the exact f32 recurrence; the chunk_exact route
     gives y as the recurrent route computes it from each chunk's state,
@@ -233,14 +233,14 @@ def rwkv6_wkv_fwd(r, k, v, w, u, s0=None, grad=False):
     ``rwkv6_wkv_fwd.launches`` and to
     ``rwkv6_wkv_fwd.launches_by_route[route(...)]`` for each launch.  Raises
     NotImplementedError when grad mode is on and an input requires grad: its
-    output would silently carry no gradient; ``ops.rwkv6_wkv`` (``RWKV6WKV``)
+    output would silently carry no gradient; ``ops.rwkv6_wkv`` (``rwkv6_wkv_op``)
     gives one.
     """
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (r, k, v, w, u, s0)):
         raise NotImplementedError("rwkv6_wkv_fwd: called directly on inputs that require "
                                   "grad, its output would carry no gradient; call "
-                                  "ops.rwkv6_wkv, whose RWKV6WKV runs the backward kernel")
+                                  "ops.rwkv6_wkv, whose rwkv6_wkv_op runs the backward kernel")
     _check(r, k, v, w, u, s0, grad)
     return launch(route(r.dtype, r.shape[3], r.shape[1], grad), r, k, v, w, u, s0)
 

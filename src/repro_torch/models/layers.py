@@ -6,6 +6,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import constant, constrain, is_sharded
+
 
 def rms_norm(x, scale, eps=1e-6):
     """RMS norm computed in f32, scaled by ``1 + scale``, returned in x.dtype."""
@@ -18,7 +20,7 @@ def rope(x, positions, theta):
     """Rotary embedding, half-split rotation.  x: (..., S, H, D); positions (..., S)."""
     half = x.shape[-1] // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    ang = positions[..., None].float() * freqs  # (..., S, half)
+    ang = positions[..., None].float() * constant(positions, freqs)  # (..., S, half)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -43,15 +45,33 @@ def mlp_apply(p, x, kind):
     """Gated / plain MLP.  p: {wg?, wu, wo}."""
     u = torch.matmul(x, p["wu"])
     g = torch.matmul(x, p["wg"]) if "wg" in p else None
-    return torch.matmul(_act(kind, g, u), p["wo"])
+    h = constrain(_act(kind, g, u), "batch", "seq", "ffn")
+    return torch.matmul(h, p["wo"])
 
 
 def _chunk_nll(xc, head_w32, labels, mask):
     """Sum of the chunk's masked negative log-likelihoods, from f32 logits."""
     logits = torch.matmul(xc.float(), head_w32)              # (B, chunk, V) f32
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    logits = constrain(logits, "batch", "seq", "vocab")
+    if is_sharded(logits):
+        lse, picked = _sharded_lse_picked(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, labels[..., None])[..., 0]
     return torch.sum(torch.where(mask, lse - picked, 0.0))
+
+
+def _sharded_lse_picked(logits, labels):
+    """Each row's logsumexp and its label's logit from logits whose vocab
+    stays sharded: the max, the sum of exponentials and the picked logit
+    are reduced across the vocab's shards (all-reduces of (B, chunk) values),
+    where gather and logsumexp would gather each f32 chunk whole.  The max
+    is a constant of the gradient, as in logsumexp's own."""
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    vocab = constant(logits, torch.arange(logits.shape[-1], device=logits.device), "vocab")
+    picked = torch.sum(torch.where(vocab == labels[..., None], logits, 0.0), dim=-1)
+    return lse, picked
 
 
 def chunked_ce_loss(x, head_w, labels, *, chunk=512, label_mask=None):
@@ -84,5 +104,5 @@ def chunked_ce_loss(x, head_w, labels, *, chunk=512, label_mask=None):
         tot = tot + checkpoint(_chunk_nll, x[:, i:i + chunk], head_w32, lab[:, i:i + chunk],
                                mask[:, i:i + chunk], use_reentrant=False,
                                preserve_rng_state=False)
-    cnt = torch.sum(mask)
-    return tot / torch.clamp_min(cnt, 1), cnt
+    cnt = constrain(torch.sum(mask))  # a sharded sum replicated: the loss every rank holds
+    return constrain(tot / torch.clamp_min(cnt, 1)), cnt

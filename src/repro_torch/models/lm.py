@@ -24,7 +24,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sharding
+from repro_torch.sharding import constant, constrain, is_sharded, spec_for
 from repro_torch.types import ArchConfig
 
 from .attention import gqa_block, mla_block
@@ -33,7 +34,8 @@ from .moe import moe_block
 from .rglru import rglru_block
 from .rwkv6 import rwkv_block
 from .schema import Param, leaf_dtype, map_schema
-from .schema import abstract_params, init_params, model_schema  # noqa: F401  (re-exported)
+from .schema import (abstract_params, init_params, model_schema,  # noqa: F401  (re-exported)
+                     param_specs)
 
 
 # Matrix products with no batch dims: what jax's
@@ -119,6 +121,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return {"pos": 0, "layers": layers}
 
 
+def abstract_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16):
+    """The cache's layers as tensors on the ``meta`` device: shapes, no data."""
+    return map_schema(cache_schema(cfg, batch, max_len),
+                      lambda p: torch.empty(p.shape, dtype=leaf_dtype(p, dtype), device="meta"))
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int, rules):
+    """The cache's specs under ``rules``: {"pos": (), "layers": ...}, the
+    reference's tree (its ``pos`` is a scalar, here a Python int)."""
+    return {"pos": (), "layers": map_schema(cache_schema(cfg, batch, max_len),
+                                            lambda p: spec_for(p.axes, rules))}
+
+
 def _store(cache, new_cache):
     """Write a recurrent layer's new state into its cache slice, in place."""
     if new_cache is not None:
@@ -142,10 +157,11 @@ def _block_apply(kind, p, x, *, cfg, positions, mode, cache, pos):
     else:
         raise NotImplementedError(f"{cfg.name}: block kind {kind!r} is not ported yet")
     if cfg.moe is not None:
-        return moe_block(p, x, cfg=cfg), new_cache  # the residual sum included
-    mlp_p = {k[4:]: p[k] for k in ("mlp_wg", "mlp_wu", "mlp_wo") if k in p}
-    x = x + mlp_apply(mlp_p, rms_norm(x, p["ln2"]), cfg.mlp_kind)
-    return x, new_cache
+        x = moe_block(p, x, cfg=cfg)  # the residual sum included
+    else:
+        mlp_p = {k[4:]: p[k] for k in ("mlp_wg", "mlp_wu", "mlp_wo") if k in p}
+        x = x + mlp_apply(mlp_p, rms_norm(x, p["ln2"]), cfg.mlp_kind)
+    return constrain(x, "batch", "seq", "embed"), new_cache
 
 
 def _per_layer(blocks):
@@ -198,7 +214,21 @@ def _run_stack(params, cfg, x, positions, mode, cache, remat="full", remat_group
 
 
 def _embed_tokens(params, cfg, tokens):
-    return params["embed"][tokens]
+    if not is_sharded(params["embed"]):
+        return params["embed"][tokens]
+    # under a mesh each rank looks its tokens up in its rows of the table
+    # (sharded over the vocab), zeros for the rest: a partial sum over the
+    # vocab's mesh axes, which the caller's constrain completes
+    v0 = sharding.local_offset(params["embed"], 0)
+
+    def lookup(tokens, embed):
+        row = tokens - v0
+        here = (row >= 0) & (row < embed.shape[0])
+        return torch.where(here[..., None], embed[torch.where(here, row, 0)], 0)
+    return sharding.local_call(lookup, (tokens, params["embed"]),
+                               (("batch", "seq"), ("vocab", "embed")),
+                               (("batch", "seq", "embed"),), grad_sum={1: ("batch",)},
+                               out_sum={0: ("vocab",)})
 
 
 def _head_weight(params, cfg):
@@ -219,11 +249,13 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode="train",
     """Returns (final_hidden, new_cache).  ``remat`` and ``remat_group`` apply
     in train mode only (``_run_stack``)."""
     x = embeds if embeds is not None else _embed_tokens(params, cfg, tokens)
+    x = constrain(x, "batch", "seq", "embed")
     B, S = x.shape[0], x.shape[1]
     if mode == "decode":
         positions = torch.full((B, 1), cache["pos"], dtype=torch.long, device=x.device)
     else:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    positions = constant(x, positions, "batch", "seq")
     x = _run_stack(params, cfg, x, positions, mode, cache, remat=remat,
                    remat_group=remat_group)
     x = rms_norm(x, params["final_norm"])

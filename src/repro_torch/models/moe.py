@@ -18,7 +18,12 @@ port's contract here:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from repro_torch import sharding
+from repro_torch.sharding import constrain, is_sharded
 
 from .layers import _act, mlp_apply, rms_norm
 
@@ -57,16 +62,43 @@ def _shared(p, y, cfg, out):
 
 
 def moe_block(p, x, *, cfg):
-    """MoE residual branch (pre-norm).  x: (B, S, D).  Returns x + the branch."""
+    """MoE residual branch (pre-norm).  x: (B, S, D).  Returns x + the branch.
+
+    Under a mesh the routed experts run on each rank's shard of them
+    (``sharding.local_call``): every rank routes all B S tokens, gathered
+    from the batch's shards, so the capacities and drops are the unsharded
+    layer's, runs its own experts' slots and sums their copies into a
+    partial output, which the reduction over the experts' mesh axes
+    completes."""
+    y = rms_norm(x, p["ln2"])
+    experts = tuple(p[n] for n in ("we_g", "we_u", "we_o") if n in p)
+    if not is_sharded(y):
+        out = _routed(y, p["router"], *experts, cfg=cfg, e0=0)
+    else:
+        routed = functools.partial(_routed, cfg=cfg, e0=sharding.local_offset(experts[-1], 0))
+        whole = (None, None, None)
+        out = sharding.local_call(
+            routed, (y, p["router"], *experts),
+            (whole, (None, None), *(("experts",),) * len(experts)), (whole,),
+            grad_sum={0: ("experts",), 1: ("experts",)}, out_sum={0: ("experts",)})
+    out = constrain(out, "batch", "seq", "embed")
+    return x + _shared(p, y, cfg, out)
+
+
+def _routed(y, router, *experts, cfg, e0):
+    """The routed experts' sum for every token of y (B, S, D), from the
+    experts e0, e0 + 1, ... whose weights ``experts`` holds ((we_g,) we_u,
+    we_o, their first dim the experts'); the rest of the padded experts'
+    copies take no part.  e0 0 with every expert is the whole layer."""
     moe = cfg.moe
-    B, S, D = x.shape
+    B, S, D = y.shape
     T = B * S
     E, K = cfg.padded_experts, moe.top_k
     C = _capacity(moe, T)
-    dev = x.device
+    El = experts[-1].shape[0]
+    dev = y.device
 
-    y = rms_norm(x, p["ln2"])
-    gates, idx, _ = _router(y, p, moe)
+    gates, idx, _ = _router(y, {"router": router}, moe)
 
     flat_e = idx.reshape(T * K)                        # expert id per copy
     flat_g = gates.reshape(T * K)
@@ -82,27 +114,32 @@ def moe_block(p, x, *, cfg):
     buf_tok[dest] = order // K
     buf_gate = torch.zeros((E * C + 1,), dtype=flat_g.dtype, device=dev)
     buf_gate[dest] = flat_g[order]
-    buf_tok, buf_gate = buf_tok[:-1], buf_gate[:-1]
+    buf_tok, buf_gate = buf_tok[e0 * C:(e0 + El) * C], buf_gate[e0 * C:(e0 + El) * C]
 
     y_pad = torch.cat([y.reshape(T, D), y.new_zeros(1, D)])
-    xg = y_pad[buf_tok].reshape(E, C, D)
-    u = torch.bmm(xg, p["we_u"])
-    g = torch.bmm(xg, p["we_g"]) if "we_g" in p else None
-    h = _act(cfg.mlp_kind, g, u)
-    eo = torch.bmm(h, p["we_o"]).reshape(E * C, D)
+    xg = constrain(y_pad[buf_tok].reshape(El, C, D), "experts", "capacity", "embed")
+    if len(experts) == 3:
+        we_g, we_u, we_o = experts
+        g = torch.bmm(xg, we_g)
+    else:
+        (we_u, we_o), g = experts, None
+    u = torch.bmm(xg, we_u)
+    h = constrain(_act(cfg.mlp_kind, g, u), "experts", "capacity", "expert_ffn")
+    eo = torch.bmm(h, we_o).reshape(El * C, D)
     eo = eo * buf_gate[:, None].to(eo.dtype)
 
-    # the combine: each copy's slot (E*C, a zero row, where it was dropped),
-    # then each token's K copies added in ascending expert order, from zero
+    # the combine: each copy's slot here (El*C, a zero row, where it was
+    # dropped or another rank's expert took it), then each token's K copies
+    # added in ascending expert order, from zero
     slot = torch.empty_like(dest)
-    slot[order] = dest
-    slot = slot.reshape(T, K)
+    slot[order] = dest - e0 * C
+    slot = torch.where((slot >= 0) & (slot < El * C), slot, El * C).reshape(T, K)
     slot = torch.gather(slot, 1, torch.argsort(idx.reshape(T, K), dim=1))
     eo = torch.cat([eo, eo.new_zeros(1, D)])
     out = torch.zeros((T, D), dtype=eo.dtype, device=dev)
     for k in range(K):
         out = out + eo[slot[:, k]]
-    return x + _shared(p, y, cfg, out.reshape(B, S, D))
+    return out.reshape(B, S, D)
 
 
 def moe_block_dense_reference(p, x, *, cfg):

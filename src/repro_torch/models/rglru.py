@@ -12,10 +12,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.sharding import constrain, is_sharded
 
 from .layers import rms_norm
 from .schema import RGLRU_BLOCKS
+
+_WIDTH = ("batch", "seq", "lru_blocks")
+
+
+def _scan(a, b):
+    """``rglru_scan``; under a mesh on each rank's batch rows and width."""
+    if not is_sharded(a):
+        return rglru_scan(a, b)
+    return sharding.local_call(rglru_scan, (a, b), (_WIDTH, _WIDTH),
+                               (_WIDTH, ("batch", "lru_blocks")))
 
 RGLRU_C = 8.0  # recurrence sharpness constant (RG-LRU paper value)
 
@@ -25,8 +37,8 @@ def _causal_conv(x, w, b, state=None):
     (B, 3, W) or None (zeros).  The new state is the last 3 rows of the
     padded input."""
     S = x.shape[1]
-    if state is None:
-        xp = F.pad(x, (0, 0, 3, 0))
+    if state is None:  # zeros before x: a pad, written as a cat, which DTensor takes
+        xp = torch.cat([torch.zeros_like(x[:, :1]).expand(-1, 3, -1), x], dim=1)
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     out = sum(xp[:, i:i + S] * w[i] for i in range(4)) + b
@@ -40,7 +52,7 @@ def _gates(xb, p, B, S, w_total):
     f32, so this is the JAX package's ``preferred_element_type=f32``."""
     g = RGLRU_BLOCKS
     wb = w_total // g
-    xg = xb.reshape(B, S, g, wb).float()
+    xg = constrain(xb.reshape(B, S, g, wb), "batch", "seq", "lru_blocks", "lru_width").float()
     r = torch.sigmoid(torch.einsum("bsgw,gwv->bsgv", xg, p["gate_r"].float())
                       + p["bias_r"].float().reshape(g, wb))
     i = torch.sigmoid(torch.einsum("bsgw,gwv->bsgv", xg, p["gate_i"].float())
@@ -67,8 +79,10 @@ def rglru_block(p, x, *, cfg, mode, cache):
     B, S, D = x.shape
     W = cfg.lru_width or D
     y = rms_norm(x, p["ln1"])
-    xz = torch.einsum("bsd,dcw->bscw", y, p["w_in"])
-    xb, gate = xz[:, :, 0, :], xz[:, :, 1, :]
+    # each branch by its own product: under a mesh the width is sharded, and
+    # one product over (D, 2, W) would need a view across the sharded dim
+    xb, gate = (torch.einsum("bsd,dw->bsw", y, p["w_in"][:, c]) for c in (0, 1))
+    xb = constrain(xb, *_WIDTH)
 
     new_cache = None
     if mode == "decode":
@@ -82,9 +96,9 @@ def rglru_block(p, x, *, cfg, mode, cache):
         xb, conv_state = _causal_conv(xb, p["conv_w"], p["conv_b"])
         r, i = _gates(xb, p, B, S, W)
         a, b = _lru_coeffs(p, r, i, xb)
-        h, h_last = rglru_scan(a, b)
+        h, h_last = _scan(a, b)
         if mode == "prefill":
             new_cache = {"h": h_last, "conv": conv_state.float()}
-    out = torch.einsum("bsw,wd->bsd", F.gelu(gate, approximate="tanh") * h.to(x.dtype),
-                       p["w_out"])
+    h = constrain(h.to(x.dtype), *_WIDTH)
+    out = torch.einsum("bsw,wd->bsd", F.gelu(gate, approximate="tanh") * h, p["w_out"])
     return x + out, new_cache

@@ -9,9 +9,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv
+from repro_torch.sharding import constrain, is_sharded
 
 from .layers import rms_norm
+
+_HEADS = ("batch", "seq", "heads", "head_dim")
+_STATE = ("batch", "heads", "head_dim", None)
+
+
+def _wkv(r, k, v, w, u, state):
+    """``rwkv6_wkv``; under a mesh on each rank's batch rows and heads, u's
+    gradient a partial sum over the batch's mesh axes."""
+    if not is_sharded(r):
+        return rwkv6_wkv(r, k, v, w, u, state)
+    return sharding.local_call(rwkv6_wkv, (r, k, v, w, u, state),
+                               (_HEADS,) * 4 + (("heads", "head_dim"),
+                                                None if state is None else _STATE),
+                               (_HEADS, _STATE), grad_sum={4: ("batch",)})
 
 
 def _shift(x, prev):
@@ -48,6 +64,7 @@ def _time_mix(p, x, x_prev, *, cfg, state):
     k = torch.einsum("bsd,dhk->bshk", xk, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", xv, p["wv"])
     g = F.silu(torch.einsum("bsd,dhk->bshk", xg, p["wg"]))
+    r = constrain(r, *_HEADS)
 
     dz = torch.tanh(torch.einsum("bsd,dk->bsk", xw, p["decay_w1"]))
     decay = p["decay_base"].float() + torch.einsum("bsk,kd->bsd", dz, p["decay_w2"]).float()
@@ -55,8 +72,8 @@ def _time_mix(p, x, x_prev, *, cfg, state):
 
     # the decay is rounded to the activations' dtype before the recurrence,
     # as the JAX package does
-    y, s_last = rwkv6_wkv(r, k, v, w.to(r.dtype), p["u"], state)
-    y = _group_norm(y, p["ln_x"]) * g
+    y, s_last = _wkv(r, k, v, w.to(r.dtype), p["u"], state)
+    y = constrain(_group_norm(y, p["ln_x"]) * g, *_HEADS)
     out = torch.einsum("bshk,hkd->bsd", y, p["wo"])
     return out, s_last
 
@@ -87,7 +104,8 @@ def rwkv_block(p, x, *, cfg, mode, cache):
     dk = y2 + (y2_prev - y2) * p["cm_mu_k"].to(y2.dtype)
     dr = y2 + (y2_prev - y2) * p["cm_mu_r"].to(y2.dtype)
     kk = torch.relu(torch.einsum("bsd,df->bsf", dk, p["cm_k"]))
-    cm = torch.einsum("bsf,fd->bsd", kk * kk, p["cm_v"])
+    kk = constrain(kk * kk, "batch", "seq", "ffn")
+    cm = torch.einsum("bsf,fd->bsd", kk, p["cm_v"])
     rr = torch.sigmoid(torch.einsum("bsd,de->bse", dr, p["cm_r"]))
     x = x + rr.to(cm.dtype) * cm
 

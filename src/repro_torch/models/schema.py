@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.sharding import Rules, spec_for
 from repro_torch.types import ArchConfig
 
 RGLRU_BLOCKS = 16  # block-diagonal gate projections: 16 blocks, as the reference
@@ -252,3 +253,9 @@ def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16):
     """The parameter tree as tensors on the ``meta`` device: shapes, no data."""
     return map_schema(model_schema(cfg),
                   lambda p: torch.empty(p.shape, dtype=leaf_dtype(p, dtype), device="meta"))
+
+
+def param_specs(cfg: ArchConfig, rules: Rules):
+    """Each parameter's spec under ``rules`` (``sharding.spec_for``), in the
+    parameter tree's structure."""
+    return map_schema(model_schema(cfg), lambda p: spec_for(p.axes, rules))

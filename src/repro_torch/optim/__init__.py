@@ -4,4 +4,5 @@ from .adamw import (  # noqa: F401
     cosine_schedule,
     global_norm,
     init_train_state,
+    train_state_specs,
 )

@@ -12,8 +12,14 @@ The update works in place: master, mu and nu are updated where they lie
 and the params are recast into their own storage (at qwen3-1.7b's full width
 the f32 state alone is 20.6 GB, so no second copy of it is made); the
 returned state is the same dict, its leaves updated.  The arithmetic is the
-JAX package's, leaf by leaf.  The ZeRO-1 sharding specs wait for the
-sharding slice.
+JAX package's, leaf by leaf.
+
+ZeRO-1: optimizer leaves get one extra data-parallel partition on the first
+dimension that is unsharded and divisible by the DP world size
+(``train_state_specs``).  On DTensor state the update redistributes each
+gradient (a partial sum over the data axes) to its master's placements, a
+reduce-scatter, updates the shards, and redistributes the new bf16 params
+back to theirs, an all-gather.
 """
 from __future__ import annotations
 
@@ -21,12 +27,29 @@ import math
 
 import torch
 
-from repro_torch.tree import leaves, map_tree
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import mesh_axes
+from repro_torch.tree import is_spec, leaves, map_tree, unflatten
+
+
+def _whole(x):
+    """A DTensor's value as every rank holds it whole; a tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def global_norm(tree):
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(torch.stack([torch.sum(torch.square(x.float())) for x in leaves(tree)]).sum())
+    """sqrt of the sum of squares of every leaf, in f32 (of a sharded leaf,
+    all its shards')."""
+    return torch.sqrt(torch.stack([_whole(torch.sum(torch.square(x.float())))
+                                   for x in leaves(tree)]).sum())
+
+
+def _like(g, m):
+    """g redistributed to m's placements when both are DTensors."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(m.placements):
+        return g.redistribute(m.device_mesh, m.placements)
+    return g
 
 
 def cosine_schedule(base_lr, warmup, total):
@@ -64,7 +87,7 @@ def adamw_update(state, grads, *, lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.
     (decoupled).  Updates ``state`` in place and returns
     (state, {"grad_norm": norm before clipping})."""
     step = state["step"] + 1
-    grads = leaves(grads)
+    grads = [_like(g, m) for g, m in zip(leaves(grads), leaves(state["master"]), strict=True)]
     gnorm = global_norm(grads)
     scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr_t = lr(step) if callable(lr) else lr
@@ -78,6 +101,40 @@ def adamw_update(state, grads, *, lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.
         nu.mul_(b2).add_((1 - b2) * g * g)
         upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps) + weight_decay * m
         m.sub_(lr_t * upd)
-        p.copy_(m)
+        # a sharded master is cast first: the all-gather carries bf16
+        p.copy_(_like(m.to(p.dtype), p) if isinstance(m, DTensor) else m)
     state["step"] = step
     return state, {"grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# sharding specs
+# ---------------------------------------------------------------------------
+
+def _zero1(spec, shape, dp_axes, mesh):
+    """Add a DP partition on the first unsharded, divisible dim."""
+    if dp_axes is None:
+        return spec
+    sizes = mesh_axes(mesh)
+    dp_size = 1
+    for a in dp_axes:
+        dp_size *= sizes[a]
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (p, s) in enumerate(zip(parts, shape)):
+        if p is None and s % dp_size == 0 and s > 0:
+            parts[i] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+            return tuple(parts)
+    return spec
+
+
+def train_state_specs(param_spec_tree, abstract_param_tree, mesh, rules):
+    """Specs of the whole train state: the params' own, and ZeRO-1's for
+    master, mu and nu."""
+    dp = rules.get("batch")
+    dp_axes = (dp,) if isinstance(dp, str) else dp
+    opt_spec = unflatten(param_spec_tree, [
+        _zero1(spec, a.shape, dp_axes, mesh)
+        for spec, a in zip(leaves(param_spec_tree, is_spec), leaves(abstract_param_tree),
+                           strict=True)], is_spec)
+    return {"params": param_spec_tree, "master": opt_spec, "mu": opt_spec, "nu": opt_spec,
+            "step": ()}

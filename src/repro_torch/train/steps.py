@@ -1,9 +1,6 @@
-"""The train, prefill and decode steps and the model-FLOP count
+"""The train, prefill and decode steps, their abstract inputs and specs, the
+model-FLOP count and the analytic bytes a step must move
 (``repro.train.steps`` twin).
-
-The JAX package's abstract input and sharding specs (``input_specs``,
-``batch_specs``) and ``ideal_bytes`` belong to the sharding slice and are not
-copied yet.
 """
 from __future__ import annotations
 
@@ -11,6 +8,7 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.optim import adamw_update, cosine_schedule
+from repro_torch.sharding import entry
 from repro_torch.tree import leaves, map_tree
 from repro_torch.types import ArchConfig, ShapeConfig
 
@@ -50,8 +48,7 @@ def make_train_step(cfg: ArchConfig, *, lr=3e-4, warmup=100, total=10_000, remat
                 raise ValueError(f"make_train_step: a batch of {B} rows does not split into "
                                  f"microbatch={microbatch} equal micro-batches")
             size = B // microbatch
-            grads = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-                     for w in leaves(params)]
+            grads = [torch.zeros_like(w, dtype=torch.float32) for w in leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
             tokens = 0
             for i in range(microbatch):
@@ -88,6 +85,84 @@ def make_decode_step(cfg: ArchConfig):
     def decode_step(params, cache, batch):
         return lm.decode_step(params, cfg, cache, batch["tokens"])
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, *, act_dtype=torch.bfloat16,
+                device="meta"):
+    """Stand-ins, on ``device`` (meta, or a fake tensor mode's), for the batch
+    of one (arch, shape) cell."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def tok(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device=device)
+    if shape.kind == "train":
+        if cfg.frontend:
+            return {"embeds": tok((B, S, cfg.d_model), act_dtype),
+                    "labels": tok((B, S), torch.int32)}
+        return {"tokens": tok((B, S), torch.int32), "labels": tok((B, S), torch.int32)}
+    if shape.kind == "prefill":
+        if cfg.frontend:
+            return {"embeds": tok((B, S, cfg.d_model), act_dtype)}
+        return {"tokens": tok((B, S), torch.int32)}
+    # decode: one new token against a seq_len-deep cache
+    return {"tokens": tok((B, 1), torch.int32)}
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig, rules):
+    """Specs matching input_specs."""
+    dp = entry(rules.get("batch"))
+    if shape.kind == "train":
+        if cfg.frontend:
+            return {"embeds": (dp, None, None), "labels": (dp, None)}
+        return {"tokens": (dp, None), "labels": (dp, None)}
+    if shape.kind == "prefill":
+        if cfg.frontend:
+            return {"embeds": (dp, None, None)}
+        return {"tokens": (dp, None)}
+    return {"tokens": (dp, None)}
+
+
+def ideal_bytes(cfg: ArchConfig, shape: ShapeConfig, *, n_chips: int, tp: int) -> float:
+    """Analytic lower bound on per-device HBM traffic for one step.
+
+    params: read once per pass; train = 3 forwards (primal + 2-level remat)
+    + 1 backward + optimizer read/write.  Activations: ~8 residual-stream
+    values per layer per pass.  Decode: the KV cache/state read dominates.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    dp = max(n_chips // tp, 1)
+    p_bytes = cfg.n_params() * 2 / tp            # bf16, model-sharded
+    d = cfg.d_model
+    L = cfg.n_layers
+
+    if shape.kind == "train":
+        passes = 4.0
+        opt = cfg.n_params() * 12.0 / n_chips * 2.0   # ZeRO-1 f32 m/v/master
+        act = 8.0 * L * (B / dp) * S * d * 2.0 * 4.0
+        grads = p_bytes * 2.0
+        return passes * p_bytes + opt + act + grads
+    if shape.kind == "prefill":
+        act = 8.0 * L * (B / dp) * S * d * 2.0
+        return p_bytes + act
+    # decode: params once + full cache/state read (+ tiny activations)
+    cache = 0.0
+    for kind in cfg.layer_kinds():
+        if kind in ("attn", "attn_local"):
+            Sc = min(cfg.local_window, S) if kind == "attn_local" else S
+            if cfg.attn_kind == "mla":
+                per_tok = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
+            else:
+                per_tok = 2 * cfg.n_kv_heads * cfg.head_dim
+            cache += (B / dp) * (Sc / max(tp, 1)) * per_tok * 2.0  # seq sharded over model
+        elif kind == "rglru":
+            cache += (B / dp) * 2 * (cfg.lru_width or d) * 4.0
+        elif kind == "rwkv":
+            cache += (B / dp) * d * cfg.rwkv_head_dim * 4.0
+    return p_bytes + cache
 
 
 def useful_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:

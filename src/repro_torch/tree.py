@@ -8,13 +8,21 @@ the other.
 from __future__ import annotations
 
 
-def leaves(tree) -> list:
-    """The tree's leaves, in jax's order."""
+def leaves(tree, is_leaf=None) -> list:
+    """The tree's leaves, in jax's order; ``is_leaf(x)`` true stops the walk
+    at x (a spec, which is a tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [x for k in sorted(tree) for x in leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in leaves(v)]
+        return [x for v in tree for x in leaves(v, is_leaf)]
     return [tree]
+
+
+def is_spec(x) -> bool:
+    """A sharding spec (``sharding.spec_for``): a tuple of axis names or None."""
+    return isinstance(x, tuple) and all(e is None or isinstance(e, (str, tuple)) for e in x)
 
 
 def paths(tree, prefix="") -> list[str]:
@@ -26,11 +34,13 @@ def paths(tree, prefix="") -> list[str]:
     return [prefix.rstrip("/")]
 
 
-def unflatten(like, new_leaves):
+def unflatten(like, new_leaves, is_leaf=None):
     """A tree of ``like``'s structure holding ``new_leaves``, in jax's order."""
     it = iter(new_leaves)
 
     def build(t):
+        if is_leaf is not None and is_leaf(t):
+            return next(it)
         if isinstance(t, dict):
             out = {k: build(t[k]) for k in sorted(t)}
             return {k: out[k] for k in t}  # the caller's key order

@@ -3,9 +3,11 @@
 The port keeps its own copy so that it imports nothing of the JAX package.
 The fields, the derived properties, the analytic parameter count and
 ``reduced()`` are the same as there, so one config object describes the
-same model in both packages.  ``ShapeConfig`` comes too, for
-``train.steps.useful_flops``; the scheduler's ``HardwareProfile`` is not part
-of the model path and is not copied.
+same model in both packages.  ``ShapeConfig``, the four input shapes
+(``SHAPES``) and ``applicable`` come too, for the dry-run.  The port's
+``HardwareProfile`` holds the roofline's four constants only, and its one
+profile is the H100's (``H100_SXM``); the JAX package's TPU profiles are not
+copied.
 """
 from __future__ import annotations
 
@@ -239,3 +241,36 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether the (arch, shape) cell is architecturally runnable."""
+    if shape.kind == "decode" and not arch.has_decoder:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not arch.subquadratic:
+        return False, "pure full-attention arch; 500k dense decode is quadratic (skip per assignment)"
+    return True, ""
+
+
+@dataclass(frozen=True)
+class HardwareProfile:
+    """What the dry-run's roofline prices a step with, per chip."""
+    name: str
+    peak_flops: float    # FLOP/s, bf16 dense
+    hbm_bw: float        # bytes/s of device memory
+    link_bw: float       # bytes/s a direction of one chip's links (the collective term)
+    hbm_per_chip: float  # bytes of device memory
+
+
+# NVIDIA H100 SXM, data sheet: 989e12 bf16 dense FLOP/s, 3.35e12 B/s of HBM3,
+# NVLink 4 at 900e9 B/s a chip, 450e9 each way, 80e9 bytes of HBM3.
+H100_SXM = HardwareProfile(name="h100_sxm", peak_flops=989e12, hbm_bw=3.35e12,
+                           link_bw=450e9, hbm_per_chip=80e9)

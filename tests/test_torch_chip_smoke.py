@@ -1108,3 +1108,46 @@ def test_masks_at_80_join_the_kernel_and_backward_cases_last():
             assert chip_smoke.fa_kernel.route(dtype, case[5], case[6]) == route
             assert chip_smoke.fa_kernel.route(dtype, case[5], case[6], backward=True) == route
     assert chip_smoke.visible_pairs(masks[2]) == 0
+
+
+def test_sharded_phase_table_and_its_place_in_the_run():
+    """The sharded phase: qwen3-1.7b's train cell at 8 x 1024 on the host
+    mesh, held as the train slice holds its bf16 paths (rel_err on the loss,
+    grad_norm and each gradient, sign flips, first_step_excess on each master
+    leaf, and each master leaf moved) with phase_train's exact launches, then
+    the three dry-run cells; it runs after the timing phases and before the
+    serves and train paths."""
+    assert chip_smoke.SHARDED_ARCH == "qwen3-1.7b"
+    assert chip_smoke.TRAIN_SHAPES[chip_smoke.SHARDED_ARCH] == (8, 1024)
+    assert chip_smoke.SHARDED_CELLS == (("qwen3-1.7b", "train_4k", "pod16x16"),
+                                        ("qwen3-moe-30b-a3b", "decode_32k", "pod16x16"),
+                                        ("rwkv6-7b", "prefill_32k", "pod2x16x16"))
+    assert chip_smoke.SHARDED_TOL == 2e-2
+    cfg = chip_smoke.get_config(chip_smoke.SHARDED_ARCH)
+    want = chip_smoke.want_train_launches(cfg, torch.bfloat16, 1024)
+    assert (want["flash_attention_fwd"], want["flash_attention_bwd"]) == (77, 28)
+    assert want["flash_attention_fwd by route"]["wgmma"] == 77
+    assert want["flash_attention_fwd with lse"] == 77
+    phase = inspect.getsource(chip_smoke.phase_sharded)
+    for check in ("rel_err(g, g_plain)", "sign_flips(g, g_plain, SHARDED_TOL)",
+                  "first_step_excess(m, plain[\"master\"][i], seen_s, seen, i)",
+                  "torch.equal(m, m0.float())"):
+        assert check in phase, check
+    src = inspect.getsource(chip_smoke.main)
+    order = [src.index(s) for s in ('run("train slices"', "phase_wkv_bwd_timings)",
+                                    'run("sharded", phase_sharded)',
+                                    "for arch in SERVE_LAUNCHES:", "for arch in TRAIN_SHAPES:")]
+    assert order == sorted(order)
+
+
+def test_no_top_level_name_is_defined_twice():
+    """chip_smoke.py is one long module: a second def or constant of a name
+    would silently replace the first, and phases call their helpers by
+    name."""
+    import ast
+    tree = ast.parse(Path(chip_smoke.__file__).read_text())
+    names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    names += [t.id for n in tree.body if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and t.id.isupper()]
+    assert sorted({n for n in names if names.count(n) > 1}) == []
+

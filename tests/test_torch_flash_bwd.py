@@ -11,7 +11,7 @@ in the order of its sums (the gradients are of magnitude about 1).  The
 tensor-core backward's tile schedule is emulated in numpy and held against
 the plain backward at the same tolerance; the tensor-core forward's at
 (96, 64) and (80, 80) against the plain forward, exactly in f32 and, with P
-rounded to bf16, within the route's tolerances on the card.  ``FlashAttention`` is checked by
+rounded to bf16, within the route's tolerances on the card.  ``flash_attention_op`` is checked by
 ``torch.autograd.gradcheck`` in float64 with both kernel calls stood in by
 their plain versions.  The CUDA kernels cannot run here; the wrappers'
 checks, the head-dim rule and the refusals of WKV and scan are tested
@@ -28,9 +28,10 @@ import torch
 
 from repro.kernels.flash_attention import attention_reference as jax_reference
 from repro.kernels.flash_attention.ops import chunked_attention as jax_chunked
-from repro_torch.kernels.flash_attention import (FlashAttention, attention_reference,
-                                                 chunked_attention, flash_attention_bwd,
-                                                 flash_attention_bwd_reference, lse_reference)
+from repro_torch.kernels.flash_attention import (attention_reference, chunked_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_reference,
+                                                 flash_attention_op, lse_reference)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rglru_scan import kernel as scan_kernel
@@ -566,7 +567,7 @@ def _check_wgmma_forward_schedule(case, dims, seed):
                                   (2, 5, 5, 2, 2, 8, False, None, 0, 3),
                                   (1, 6, 6, 2, 1, 8, True, None, -3, None)])
 def test_function_gradcheck_with_plain_stand_ins(case, monkeypatch):
-    """FlashAttention's wiring, in float64: what forward saves, the order of
+    """flash_attention_op's wiring, in float64: what forward saves, the order of
     the gradients backward returns, None for the masks.  Each kernel call is
     stood in by its plain version, and each is counted."""
     calls = {"fwd": 0, "bwd": 0}
@@ -585,12 +586,12 @@ def test_function_gradcheck_with_plain_stand_ins(case, monkeypatch):
     q, k, v, _ = _inputs(200, case)
     args = [torch.from_numpy(a).double().requires_grad_(True) for a in (q, k, v)]
     causal, window, q_offset, kv_len = case[6:]
-    out = FlashAttention.apply(*args, causal, window, q_offset, kv_len, True)
+    out = flash_attention_op(*args, causal, window, q_offset, kv_len, True)[0]
     assert out.grad_fn is not None and calls == {"fwd": 1, "bwd": 0}
     out.sum().backward()
     assert calls == {"fwd": 1, "bwd": 1}
     assert torch.autograd.gradcheck(
-        lambda q, k, v: FlashAttention.apply(q, k, v, causal, window, q_offset, kv_len, True),
+        lambda q, k, v: flash_attention_op(q, k, v, causal, window, q_offset, kv_len, True)[0],
         args, eps=1e-6, atol=1e-7, rtol=1e-6)
 
 
@@ -788,8 +789,8 @@ def _scan_args(requires_grad):
     ids=["wkv", "scan"])
 def test_recurrence_kernels_refuse_inputs_that_require_grad(wrapper, make, match, no_build):
     """Never a silently detached output: the WKV and scan forward kernels
-    called directly carry no gradient (their autograd Functions, RWKV6WKV
-    and RGLRUScan, call them with grad mode off)."""
+    called directly carry no gradient (their custom ops' autograd, rwkv6_wkv_op
+    and rglru_scan_op, call them with grad mode off)."""
     with pytest.raises(NotImplementedError, match=match):
         wrapper(*make(True))
     for args, grad_mode in ((make(True), False), (make(False), True)):

@@ -120,3 +120,17 @@ def test_chip_smoke_fails_away_from_the_checkout(tmp_path):
                           env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_dryrun_runs_with_jax_and_repro_blocked(tmp_path):
+    """The dry-run's CLI on one reduced cell on a CPU mesh (the plain
+    versions), over the fake group of 256 ranks it starts itself."""
+    argv = ("'repro_torch.launch.dryrun', '--arch', 'qwen3-1.7b', '--shape', 'decode_32k', "
+            f"'--reduced', '--device', 'cpu', '--out', '{tmp_path}', '--tag', 't'")
+    proc = subprocess.run([sys.executable, "-c",
+                           BLOCK.format(argv=argv, module="repro_torch.launch.dryrun")],
+                          capture_output=True, text=True, env=_env(), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("[ok   ] qwen3-1.7b x decode_32k x pod16x16 dom=")
+    rec = (tmp_path / "t" / "qwen3-1.7b__decode_32k__pod16x16.json").read_text()
+    assert '"device": "cpu"' in rec and '"kernels": "the plain versions"' in rec

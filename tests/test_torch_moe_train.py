@@ -290,7 +290,7 @@ def test_remat_runs_the_moe_layer_in_each_group(n_layers, group, want, monkeypat
     branch where it runs its attention: 3 L - L / k times (k layers a
     checkpointed group: the step's forward, the group's recompute, each
     layer's own but the group's last), as many router calls as flash
-    forward launches, through FlashAttention (its kernels stood in by their
+    forward launches, through flash_attention_op (its kernels stood in by their
     plain versions); L flash backward launches."""
     n = {"fwd": 0, "bwd": 0, "lse": 0}
 

@@ -8,7 +8,7 @@ same numpy inputs, cotangents on h and h_last and a nonzero h0.  Tolerance
 same f32 steps in the same order (up to a fused multiply-add).  In bf16
 2**-7 relative: the kernel's plain version reads the forward's h rounded to
 bf16 where autograd reads the f32 state, and rounds da and db once.
-``RGLRUScan`` is checked by ``torch.autograd.gradcheck`` in float64 with
+``rglru_scan_op`` is checked by ``torch.autograd.gradcheck`` in float64 with
 both kernel calls stood in by their plain versions.  The CUDA kernels
 cannot run here; the wrappers' checks are tested without a card.
 
@@ -39,8 +39,9 @@ from repro_torch import bridge
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset
-from repro_torch.kernels.rglru_scan import (RGLRUScan, rglru_reference, rglru_scan_bwd,
-                                            rglru_scan_bwd_reference)
+from repro_torch.kernels.rglru_scan import (rglru_reference, rglru_scan_bwd,
+                                            rglru_scan_bwd_reference, rglru_scan_fwd,
+                                            rglru_scan_op)
 from repro_torch.kernels.rglru_scan import kernel as scan_kernel
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.launch import train as train_mod
@@ -150,7 +151,7 @@ def test_scan_backward_takes_no_cotangent_on_h_last_as_zero():
 
 @pytest.fixture
 def plain_kernels(monkeypatch):
-    """RGLRUScan's two kernel calls stood in by their plain versions, counted."""
+    """rglru_scan_op's two kernel calls stood in by their plain versions, counted."""
     calls = {"fwd": 0, "bwd": 0}
 
     def fwd(a, b, h0):
@@ -168,18 +169,18 @@ def plain_kernels(monkeypatch):
 
 @pytest.mark.parametrize("case", [(1, 5, 3, True, True), (2, 4, 2, False, True)], ids=str)
 def test_function_gradcheck_with_plain_stand_ins(case, plain_kernels):
-    """RGLRUScan's wiring, in float64: what forward saves, the order of the
+    """rglru_scan_op's wiring, in float64: what forward saves, the order of the
     gradients backward returns, dh0 only where h0 takes a gradient."""
     a, b, h0, _, _ = _scan_inputs(case, seed=11)
     args = [torch.from_numpy(x).double().requires_grad_(True) for x in (a, b)]
     if h0 is not None:
         args.append(torch.from_numpy(h0).double().requires_grad_(True))
-    h, h_last = RGLRUScan.apply(*args, *([None] if h0 is None else []), True)
+    h, h_last = rglru_scan_op(*args, *([None] if h0 is None else []), True)
     assert h.grad_fn is not None and plain_kernels == {"fwd": 1, "bwd": 0}
     (h.sum() + h_last.sum()).backward()
     assert plain_kernels == {"fwd": 1, "bwd": 1}
     assert torch.autograd.gradcheck(
-        lambda *x: RGLRUScan.apply(*x, *([None] if h0 is None else []), True), args,
+        lambda *x: rglru_scan_op(*x, *([None] if h0 is None else []), True), args,
         eps=1e-6, atol=1e-7, rtol=1e-6)
 
 
@@ -190,7 +191,7 @@ def test_function_takes_an_unused_output_as_zero(used, plain_kernels):
     a, b, h0, _, _ = _scan_inputs(SCAN_CASES[3], seed=12)
     mine = [torch.from_numpy(x).requires_grad_(True) for x in (a, b, h0)]
     theirs = [x.detach().clone().requires_grad_(True) for x in mine]
-    out = dict(zip(("h", "h_last"), RGLRUScan.apply(*mine, True)))
+    out = dict(zip(("h", "h_last"), rglru_scan_op(*mine, True)))
     ref = dict(zip(("h", "h_last"), rglru_reference(*theirs)))
     got = torch.autograd.grad(out[used].square().sum(), mine)
     want = torch.autograd.grad(ref[used].square().sum(), theirs)
@@ -299,14 +300,13 @@ def test_backward_wrapper_passes_good_input_to_the_allocation(no_build):
 
 
 def test_function_refuses_cpu_tensors_and_wrong_dtypes(no_build):
-    """RGLRUScan is the card's path: on CPU tensors its forward kernel call
-    refuses them, and on a wrong h0 it names the fault."""
+    """rglru_scan_op is the card's path: on CPU tensors its forward kernel call
+    refuses them, and on a wrong h0 the kernel's wrapper it calls names the fault."""
     a, b = torch.rand(1, 4, 8, requires_grad=True), torch.rand(1, 4, 8)
     with pytest.raises(ValueError, match="rglru_scan_fwd: a is on cpu, not a CUDA device"):
-        RGLRUScan.apply(a, b, None, True)
+        rglru_scan_op(a, b, None, True)
     with pytest.raises(ValueError, match="rglru_scan_fwd: h0 must be float32"):
-        RGLRUScan.apply(_OnCuda(a.detach()), _OnCuda(b), _OnCuda(torch.zeros(1, 8).double()),
-                        False)
+        rglru_scan_fwd(_OnCuda(a.detach()), _OnCuda(b), _OnCuda(torch.zeros(1, 8).double()))
 
 
 def _offset(shape, dtype, elems):

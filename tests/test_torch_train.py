@@ -274,8 +274,8 @@ def test_loss_fn_with_remat_matches_reference(name):
 
 @pytest.fixture
 def counting(monkeypatch):
-    """The flash entry point sent through FlashAttention and the scan's
-    through RGLRUScan on the CPU, each kernel call stood in by its plain
+    """The flash entry point sent through flash_attention_op and the scan's
+    through rglru_scan_op on the CPU, each kernel call stood in by its plain
     version and counted."""
     n = {"fwd": 0, "bwd": 0, "lse": 0, "scan_fwd": 0, "scan_bwd": 0}
 

@@ -9,11 +9,11 @@ s0 and a cotangent on s_last given and absent, and w exactly 0, exactly 1
 and exp(-100).  A numpy emulation of the kernel's schedule (a forward walk
 that checkpoints the state every CHECKPOINT_STEPS steps, each chunk's states
 walked again from its checkpoint, a reverse walk in the row layout and one
-in the column layout) against the plain version.  ``RWKV6WKV`` by
+in the column layout) against the plain version.  ``rwkv6_wkv_op`` by
 ``torch.autograd.gradcheck`` in float64 with both kernel calls stood in by
 their plain versions.  The CUDA kernels cannot run here; the backward
 wrapper's checks and its call of the entry point are tested without a card.
-Then the model: rwkv6's gradient through ``RWKV6WKV`` against torch's own
+Then the model: rwkv6's gradient through ``rwkv6_wkv_op`` against torch's own
 through the plain version, and a train step's launches under remat.
 """
 import contextlib
@@ -29,8 +29,8 @@ import torch
 
 from repro.kernels.rwkv6_wkv import rwkv6_reference as jax_reference
 from repro_torch.configs import get_config
-from repro_torch.kernels.rwkv6_wkv import (RWKV6WKV, rwkv6_reference, rwkv6_wkv_bwd,
-                                           rwkv6_wkv_bwd_reference)
+from repro_torch.kernels.rwkv6_wkv import (rwkv6_reference, rwkv6_wkv_bwd,
+                                           rwkv6_wkv_bwd_reference, rwkv6_wkv_op)
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.models import lm, rwkv6
@@ -257,11 +257,11 @@ def test_checkpoint_scratch_at_the_train_shape():
     assert f"constexpr int kC = {wkv_kernel.CHECKPOINT_STEPS};" in src
 
 
-# --- RWKV6WKV with plain stand-ins -----------------------------------------
+# --- rwkv6_wkv_op with plain stand-ins -----------------------------------------
 
 @pytest.fixture
 def plain_kernels(monkeypatch):
-    """RWKV6WKV's two kernel calls stood in by their plain versions, counted."""
+    """rwkv6_wkv_op's two kernel calls stood in by their plain versions, counted."""
     calls = {"fwd": 0, "bwd": 0, "grad": []}
 
     def fwd(r, k, v, w, u, s0, grad=False):
@@ -281,18 +281,18 @@ def plain_kernels(monkeypatch):
 @pytest.mark.parametrize("case", [(1, 5, 2, 4, True, True, "sigmoid"),
                                   (2, 3, 1, 4, False, True, "edges")], ids=str)
 def test_function_gradcheck_with_plain_stand_ins(case, plain_kernels):
-    """RWKV6WKV's wiring, in float64: what forward saves, the order of the
+    """rwkv6_wkv_op's wiring, in float64: what forward saves, the order of the
     gradients backward returns, ds0 only where s0 takes a gradient."""
     r, k, v, w, u, s0, _, _ = _inputs(case, seed=11)
     args = [torch.from_numpy(x).double().requires_grad_(True) for x in (r, k, v, w, u)]
     if s0 is not None:
         args.append(torch.from_numpy(s0).double().requires_grad_(True))
     extra = [None] if s0 is None else []
-    y, s_last = RWKV6WKV.apply(*args, *extra, True)
+    y, s_last = rwkv6_wkv_op(*args, *extra, True)
     assert y.grad_fn is not None and plain_kernels == {"fwd": 1, "bwd": 0, "grad": [True]}
     (y.sum() + s_last.sum()).backward()
     assert plain_kernels == {"fwd": 1, "bwd": 1, "grad": [True]}
-    assert torch.autograd.gradcheck(lambda *x: RWKV6WKV.apply(*x, *extra, True), args,
+    assert torch.autograd.gradcheck(lambda *x: rwkv6_wkv_op(*x, *extra, True), args,
                                     eps=1e-6, atol=1e-7, rtol=1e-6)
 
 
@@ -304,7 +304,7 @@ def test_function_takes_an_unused_output_as_zero(used, plain_kernels):
     arrays = _inputs(CASES["d16"], seed=12)[:6]
     mine = [torch.from_numpy(x).requires_grad_(True) for x in arrays]
     theirs = [x.detach().clone().requires_grad_(True) for x in mine]
-    out = dict(zip(("y", "s_last"), RWKV6WKV.apply(*mine, True)))
+    out = dict(zip(("y", "s_last"), rwkv6_wkv_op(*mine, True)))
     ref = dict(zip(("y", "s_last"), rwkv6_reference(*theirs)))
     got = torch.autograd.grad(out[used].square().sum(), mine)
     # s_last reads neither r nor u: torch leaves those gradients undefined
@@ -339,7 +339,7 @@ def test_a_call_without_grad_mode_serves_on_inputs_that_require_grad(mode, plain
 def test_function_returns_no_ds0_where_s0_takes_none(plain_kernels):
     r, k, v, w, u, s0 = _torch(_inputs(CASES["d8"], seed=14)[:6])
     leaf = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
-    y, _ = RWKV6WKV.apply(*leaf, s0, True)
+    y, _ = rwkv6_wkv_op(*leaf, s0, True)
     y.sum().backward()
     assert all(t.grad is not None for t in leaf) and plain_kernels["bwd"] == 1
 
@@ -484,7 +484,7 @@ def test_backward_wrapper_raises_on_a_failed_launch_and_counts_nothing(library):
 
 @pytest.fixture
 def counting(monkeypatch):
-    """rwkv6's WKV entry point sent through RWKV6WKV on the CPU, each kernel
+    """rwkv6's WKV entry point sent through rwkv6_wkv_op on the CPU, each kernel
     call stood in by its plain version and counted."""
     n = {"fwd": 0, "bwd": 0, "grad": 0}
 
@@ -508,7 +508,7 @@ def _reduced(n_layers):
 
 
 def test_model_gradient_through_the_function_matches_torchs(monkeypatch):
-    """rwkv6 at 2 reduced layers, f32: the loss's gradient through RWKV6WKV
+    """rwkv6 at 2 reduced layers, f32: the loss's gradient through rwkv6_wkv_op
     (plain stand-ins) against torch's own through the plain version, 1e-5.
     w's gradient reaches decay_base and decay_w1 / decay_w2 through the cast
     and exp(-exp(.)), and u's reaches the f32 leaf u."""

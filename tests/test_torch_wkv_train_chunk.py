@@ -537,7 +537,7 @@ def test_chunked_routes_refuse_a_misaligned_tensor(library):
 
 @pytest.fixture
 def by_route(monkeypatch):
-    """rwkv6's WKV entry point sent through RWKV6WKV on the CPU, each kernel
+    """rwkv6's WKV entry point sent through rwkv6_wkv_op on the CPU, each kernel
     call stood in by its plain version and counted on the route the
     wrapper's rule names."""
     n = {"fwd": dict.fromkeys(wkv_kernel.ROUTES, 0),
