@@ -20,7 +20,11 @@ a few steps (AdamW, chunked cross-entropy, remat), checks that each serve
 and each train step went through its kernels, and times each kernel beside
 its bound.  Its phase ``sharded`` runs qwen3-1.7b's train step on DTensors
 over a one-rank mesh against the unsharded step, and the dry-run of four
-cells on a "cuda" mesh (phase_sharded).  Any failure raises, so the exit code is
+cells on a "cuda" mesh (phase_sharded).  Its phase ``scheduler`` runs the
+port's Dally scheduler and cluster simulator (``repro_torch.core``) on the
+card's host over the paper's traces at the paper's cluster scale
+(SCHED_CELLS), against makespans and JCTs pinned from the JAX package's
+simulator (phase_scheduler).  Any failure raises, so the exit code is
 not 0.  With no CUDA device, or away from the checkout, it exits non-zero
 and prints no result.  It imports nothing of JAX and nothing of ``repro``.
 
@@ -69,6 +73,9 @@ from torch.distributed.tensor import DTensor, distribute_tensor  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import (ClusterSimulator, ClusterTopology, CommModel,  # noqa: E402
+                              make_batch_trace, make_poisson_trace)
+from repro_torch.core.policies import make_policy  # noqa: E402
 from repro_torch.data import SyntheticLMDataset, pseudo_embeds  # noqa: E402
 from repro_torch.kernels.build import ptxas_summary  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
@@ -82,13 +89,14 @@ from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
 from repro_torch.launch.dryrun import run_cell  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import attention, lm, moe, rglru, rwkv6  # noqa: E402
+from repro_torch.models.schema import model_schema  # noqa: E402
 from repro_torch.optim import adamw_update, init_train_state, train_state_specs  # noqa: E402
 from repro_torch.serve import encode, generate  # noqa: E402
 from repro_torch.sharding import make_rules, placements_for, use_mesh_rules  # noqa: E402
 from repro_torch.train import batch_specs, make_train_step, useful_flops  # noqa: E402
 from repro_torch.train import steps as train_steps  # noqa: E402
 from repro_torch.tree import is_spec, leaves, paths, unflatten  # noqa: E402
-from repro_torch.types import ShapeConfig  # noqa: E402
+from repro_torch.types import NVIDIA_PAPER, ShapeConfig  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor-core rate, f32 rate outside
 # the tensor cores, HBM3 bandwidth, and the L2 cache's size.
@@ -1573,25 +1581,11 @@ TRAIN_SLICES = [
     ("rwkv6-7b", {"n_layers": 2}, 2, 200, [(rwkv6, "rwkv6_wkv", wkv_ref.rwkv6_reference)]),
 ] + [(arch, {"n_layers": 2}, 2, 64, [(attention, "flash_attention", fa_ops.chunked_attention)])
      for arch in ("hubert-xlarge", "pixtral-12b")]
-# The dtypes each train slice runs in, with the tolerance of each: f32 and
-# bf16, but minitron-4b in bf16 only.  Its f32 slice failed the f32 master
-# hold on its zero-initialised ln2 (rel_err 1.62e-4 against 1e-4), whose
-# master after the first step is the step alone, lr x / (|x| + eps): where
-# an element's clipped gradient x is near eps it carries that gradient's
-# own relative error, which the leaf's norm does not bound (the reason the
-# hold was dropped in bf16), while first_step_excess held every element and
-# every f32 gradient leaf agreed within 1.2e-6 (PERF.md §6, ROADMAP C4).
-# rwkv6-7b in bf16 only too: its block holds seven zero-initialised leaves
-# (ln1, tm_mu_x, tm_mus, ln_x, ln2, cm_mu_k, cm_mu_r;
-# src/repro_torch/models/schema.py:130-147), each exposed to that f32 master
-# hold as minitron's ln2 was (ROADMAP C4, open).  minicpm3-4b in bf16 only
-# as well: its f32 slice failed the same hold on its zero-initialised ln2
-# (rel_err 1.098e-4 against 1e-4) while every f32 gradient leaf agreed
-# within 1.06e-6 and first_step_excess held every element of the leaves it
-# reached (PERF.md §6).  The MoE models' f32 slices held (qwen3-moe's
-# zero-initialised q_norm and k_norm among them).
-TRAIN_SLICE_DTYPES = {"minitron-4b": SLICE_DTYPES[1:], "rwkv6-7b": SLICE_DTYPES[1:],
-                      "minicpm3-4b": SLICE_DTYPES[1:]}
+# The dtypes a train slice runs in, each with its tolerance, where a model
+# runs in fewer than SLICE_DTYPES: none.  minitron-4b, rwkv6-7b and
+# minicpm3-4b run in f32 too since the f32 master hold takes their
+# zero-initialised leaves apart (zero_init_leaves, hold_master_leaf).
+TRAIN_SLICE_DTYPES = {}
 TRAIN_CE_CHUNK = 512
 # adamw_update's eps, which make_train_step leaves at its default.
 ADAM_EPS = inspect.signature(adamw_update).parameters["eps"].default
@@ -1762,6 +1756,38 @@ def sign_flips(gk, gp, tol):
     return flips.numel(), (flips.max() / top).item() if flips.numel() else 0.0
 
 
+def zero_init_leaves(cfg) -> set:
+    """The paths of cfg's parameter leaves whose schema initializer is
+    "zeros" (``Param.init``): after the first AdamW step such a master leaf
+    is lr_1 x / (|x| + eps) alone (weight decay of zero is zero)."""
+    schema = model_schema(cfg)
+    return {p for p, leaf in zip(paths(schema), leaves(schema)) if leaf.init == "zeros"}
+
+
+def hold_master_leaf(a, b, gk, gp, seen_k, seen_p, leaf, dtype, tol, zero_init):
+    """Hold one master leaf of the train slice after the first step, the
+    kernel path's a against the plain path's b (gk, gp: the leaf's
+    gradients on each path, moved to a's device for sign_flips): finite,
+    every element by first_step_excess; in f32 at tol on ||a - b|| / ||b||,
+    but a leaf that starts at zero (``zero_init``) and every bf16 leaf by
+    sign_flips at tol instead.  Returns (first_step_excess's largest error
+    over its slack, sign_flips' (count, largest ratio) or None where the
+    leaf was held at tol, the rel_err in f32 or None in bf16); raises
+    AssertionError where a hold fails."""
+    if not torch.isfinite(a).all():
+        raise AssertionError("not finite")
+    over, worst = first_step_excess(a, b, seen_k, seen_p, leaf)
+    if over:
+        raise AssertionError(f"{over} elements differ from what the two paths' first steps "
+                             f"make by more than f32 rounding (up to {worst:.3e} times it)")
+    rel = rel_err(a, b) if dtype == torch.float32 else None
+    if rel is not None and not zero_init:
+        if rel > tol:
+            raise AssertionError(f"rel_err {rel}")
+        return worst, None, rel
+    return worst, sign_flips(gk.to(a.device), gp.to(a.device), tol), rel
+
+
 def phase_train_slice():
     """Each of TRAIN_SLICES at full width and a few layers (qwen3-1.7b at 2
     layers, 2 x 64 tokens; recurrentgemma-2b at 4, 2 x 256 tokens): the
@@ -1769,29 +1795,33 @@ def phase_train_slice():
     their plain versions, which torch differentiates), in f32 and bf16.
     Tolerance on ||a - b|| / ||b||: 1e-4 in f32 (the kernels and the plain
     versions differ in the order of f32 sums), 2e-2 in bf16 (one bf16
-    rounding of each kernel output, carried through the layers); minitron-4b
-    in bf16 only (TRAIN_SLICE_DTYPES).  Held so: the loss, every gradient
-    leaf, and after one make_train_step step the loss and grad_norm.  Every
-    element of every master leaf after the step, in both dtypes, is held to
-    the difference that the two paths' own gradients make through the first
-    AdamW step (first_step_excess: a - b = lr_1 (u_p - u_k), u = x / (|x| +
-    eps), to within f32 rounding), and in f32 every master leaf also at tol.
-    In bf16 a tolerance on the master leaf would not follow from the
-    gradients' one: the first step moves an element by lr_1 x / (|x| + eps),
-    about lr_1 sign(x), so an element whose gradient changes sign between
-    the paths moves the other way, and one whose x is near eps carries its
-    own relative error, which the leaf's norm does not bound (a leaf that
-    starts at zero is its step alone; one such element in 2560 moves
+    rounding of each kernel output, carried through the layers).  Held so:
+    the loss, every gradient leaf, and after one make_train_step step the
+    loss and grad_norm.  Every element of every master leaf after the step,
+    in both dtypes, is held to the difference that the two paths' own
+    gradients make through the first AdamW step (first_step_excess: a - b =
+    lr_1 (u_p - u_k), u = x / (|x| + eps), to within f32 rounding), and in
+    f32 every master leaf that does not start at zero also at tol.  In bf16
+    a tolerance on the master leaf would not follow from the gradients' one:
+    the first step moves an element by lr_1 x / (|x| + eps), about lr_1
+    sign(x), so an element whose gradient changes sign between the paths
+    moves the other way, and one whose x is near eps carries its own
+    relative error, which the leaf's norm does not bound (a leaf that starts
+    at zero is its step alone; one such element in 2560 moves
     recurrentgemma's gate bias by 2 %).  So in bf16 the gradients' sign
     flips are counted and logged, and each must have |g| within tol of the
-    leaf's largest (sign_flips).  The f32 gradients must differ somewhere
+    leaf's largest (sign_flips).  In f32 a zero-initialised master leaf
+    (zero_init_leaves, from the schema) is held so too, by sign_flips at the
+    f32 tol, and its rel_err is logged unheld: the f32 hold on such a leaf
+    failed minitron-4b's ln2 at 1.62e-4 with every gradient within 1.2e-6
+    (ROADMAP C4).  The f32 gradients must differ somewhere
     (they come from two computations). Launches exact on each path: the
     kernel path want_train_launches(cfg, dtype) in each part (qwen3: 5
     forward, each writing the lse, and 2 backward, all on the dtype's route:
     SIMT in f32, tensor cores in bf16; recurrentgemma: 2 forward and 1
     backward, on the dtype's route, 6 scan forward and 3 scan backward;
-    rwkv6-7b: 5 WKV forward on the chunk_exact route and 2 WKV backward on
-    the chunk route), the plain path none.  An MoE model's plain path takes
+    rwkv6-7b: 5 WKV forward and 2 WKV backward, on chunk_exact and chunk in
+    bf16 and on the recurrent routes in f32), the plain path none.  An MoE model's plain path takes
     the kernel path's expert choice call by call (RouterReplay, as
     phase_slice): the router runs in every forward of a layer, the step's
     and each remat recomputation's, as flash does, so each path makes 2
@@ -1866,35 +1896,30 @@ def phase_train_slice():
                     f"rel_err {rel:.3e} (tol {tol})")
                 if not torch.isfinite(a) or rel > tol:
                     raise AssertionError(f"train slice {label}: {what} rel_err {rel}")
-            flipped, largest = {}, 0.0
+            flipped, largest, zero_held = {}, 0.0, {}
+            zeros = zero_init_leaves(cfg)
             for i, (path, a, b) in enumerate(zip(paths(kernel[3]["master"]),
                                                  leaves(kernel[3]["master"]),
                                                  leaves(plain[3]["master"]))):
-                a, b = a.cuda(), b.cuda()
-                if not torch.isfinite(a).all():
-                    raise AssertionError(f"train slice {label}: master {path} is not finite")
-                over, worst = first_step_excess(a, b, kernel[5], plain[5], i)
-                largest = max(largest, worst)
-                if over:
-                    raise AssertionError(f"train slice {label}: master {path}: {over} elements "
-                                         "differ from what the two paths' first steps make by "
-                                         f"more than f32 rounding (up to {worst:.3e} times it)")
-                if dtype == torch.float32:
-                    rel = rel_err(a, b)
-                    if rel > tol:
-                        raise AssertionError(f"train slice {label}: master {path} rel_err {rel}")
-                    continue
                 try:
-                    n_flips, ratio = sign_flips(kernel[0][i].cuda(), plain[0][i].cuda(), tol)
+                    worst, flips, rel = hold_master_leaf(
+                        a.cuda(), b.cuda(), kernel[0][i], plain[0][i], kernel[5], plain[5], i,
+                        dtype, tol, path in zeros)
                 except AssertionError as err:
-                    raise AssertionError(f"train slice {label}: {path}: {err}") from None
-                if n_flips:
-                    flipped[path] = (n_flips, round(ratio, 6))
+                    raise AssertionError(f"train slice {label}: master {path}: {err}") from None
+                largest = max(largest, worst)
+                if dtype == torch.float32 and flips is not None:
+                    zero_held[path] = (flips[0], round(flips[1], 6), f"{rel:.3e}")
+                elif flips and flips[0]:
+                    flipped[path] = (flips[0], round(flips[1], 6))
             log(f"[train-slice] {label}: {differ} of {len(kernel[0])} gradient leaves differ "
                 "between the paths; every element of every master leaf after the step within "
                 f"f32 rounding of the two first steps' difference (largest error over its "
                 f"slack {largest:.3e}, held <= 1)"
-                + (f", and every master leaf within {tol}" if dtype == torch.float32 else
+                + (f", and every master leaf that does not start at zero within {tol}; the "
+                   "zero-initialised leaves held by first_step_excess and sign_flips at "
+                   f"{tol} instead (sign flips, largest |g| over the leaf's largest, master "
+                   f"rel_err unheld): {zero_held or 'none'}" if dtype == torch.float32 else
                    f"; gradient sign flips (count, largest |g| over the leaf's largest): "
                    f"{flipped or 'none'}") + f"; {time.perf_counter() - t0:.1f} s")
             del kernel, plain
@@ -3078,6 +3103,96 @@ WGMMA_BK = {128: 128, 256: 64}
 SWEEP_TILES = (1, 8, 64)
 
 
+# The scheduler phase: the port's Dally scheduler and cluster simulator
+# (repro_torch.core), plain Python and numpy on the card's host, on the
+# paper's cluster (NVIDIA_PAPER: 8 machines of 8 GPUs a rack) at the paper's
+# scale, each cell built as the JAX package's Scenario.build_sim builds
+# "paper-batch" (500 jobs at t = 0) and "paper-poisson" (400 jobs): seed 0,
+# a round every 300 s, overlap 0.25, pure data parallelism, no faults, the
+# trace submitted up front.  The trace makers draw rng.choice over the
+# architectures in the JAX package's registry order (SCHED_ARCHS).  A cell:
+# (scenario, trace maker, jobs, racks, policy).
+SCHED_ARCHS = ("recurrentgemma-2b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "yi-9b",
+               "qwen3-1.7b", "minicpm3-4b", "minitron-4b", "pixtral-12b", "hubert-xlarge",
+               "rwkv6-7b")
+SCHED_POLICIES = ("gandiva", "tiresias", "dally-manual", "dally-nowait",
+                  "dally-fullyconsolidated", "dally")
+SCHED_CELLS = ([("paper-batch", "batch", 500, 8, p) for p in SCHED_POLICIES]
+               + [("paper-batch", "batch", 500, 16, "dally"),
+                  ("paper-poisson", "poisson", 400, 8, "dally"),
+                  ("paper-poisson", "poisson", 400, 8, "tiresias")])
+# Each cell's makespan and average JCT in seconds, as the JAX package's
+# simulator gives them for the same cell on the CPU
+# (tests/test_torch_chip_smoke.py holds them equal to the bit).  The card's
+# host runs another Python, numpy and libm, so the phase holds them within
+# SCHED_REL relative.
+SCHED_PINNED = {
+    "paper-batch 8 racks gandiva": (2108240.9456814947, 188421.77586386012),
+    "paper-batch 8 racks tiresias": (1786922.6535273052, 144680.08174633823),
+    "paper-batch 8 racks dally-manual": (1652211.0197049365, 367765.2154408902),
+    "paper-batch 8 racks dally-nowait": (1652211.0197049365, 367864.84524668753),
+    "paper-batch 8 racks dally-fullyconsolidated": (1652211.0197049365, 262023.33476771414),
+    "paper-batch 8 racks dally": (1652211.0197049365, 309597.36767601327),
+    "paper-batch 16 racks dally": (1652211.0197049365, 146047.05976817553),
+    "paper-poisson 8 racks dally": (1849540.276699309, 228025.7510625115),
+    "paper-poisson 8 racks tiresias": (1769275.2977483238, 110435.52345869981),
+}
+SCHED_REL = 1e-9
+
+
+def scheduler_cell(trace, n_jobs, n_racks, policy):
+    """One cell's simulator, its trace submitted and nothing run yet."""
+    archs = [get_config(name) for name in SCHED_ARCHS]
+    comm = CommModel.from_configs(archs, profile=NVIDIA_PAPER, overlap_frac=0.25)
+    cluster = ClusterTopology(n_racks=n_racks, machines_per_rack=8, gpus_per_machine=8)
+    sim = ClusterSimulator(cluster, make_policy(policy), comm, round_period=300.0,
+                           checkpoint_overhead=0.0)
+    maker = {"batch": make_batch_trace, "poisson": make_poisson_trace}[trace]
+    for job in maker(archs, n_jobs=n_jobs, seed=0, profile=NVIDIA_PAPER):
+        sim.submit(job)
+    return sim
+
+
+def phase_scheduler():
+    """Each of SCHED_CELLS to its end through the simulator's service-mode
+    entries (begin, step_events), which count the events: every job
+    finished, makespan and average JCT within SCHED_REL of SCHED_PINNED.
+    dally at 8 racks runs again through the batch entry run(), and the two
+    results() must serialize to the same bytes.  Logs each cell's results
+    and its wall seconds and events a second on the host's clock."""
+    for scenario, trace, n_jobs, n_racks, policy in SCHED_CELLS:
+        key = f"{scenario} {n_racks} racks {policy}"
+        sim = scheduler_cell(trace, n_jobs, n_racks, policy)
+        t0 = time.perf_counter()
+        sim.begin()
+        n_events = 0
+        while sim.events:
+            n_events += sim.step_events(1 << 12)
+        res = sim.results()
+        wall = time.perf_counter() - t0
+        got = {"makespan": res["makespan"], "avg_jct": res["jct"]["avg"]}
+        rel = {what: abs(got[what] - want) / abs(want)
+               for what, want in zip(got, SCHED_PINNED[key])}
+        log(f"[scheduler] {key} ({n_jobs} jobs, {8 * 8 * n_racks} GPUs): n_finished "
+            f"{res['n_finished']}, makespan {res['makespan'] / 3600:.6f} h, avg JCT "
+            f"{res['jct']['avg'] / 3600:.6f} h (relative to the pins: {rel['makespan']:.3e}, "
+            f"{rel['avg_jct']:.3e}), avg comm latency {res['comm_latency']['avg']:.6f} s, "
+            f"preemptions {res['preemptions']}; {n_events} events in {wall:.4f} s, "
+            f"{n_events / wall:.1f} events/s")
+        if res["n_finished"] != n_jobs:
+            raise AssertionError(f"scheduler {key}: {res['n_finished']} of {n_jobs} jobs finished")
+        for what, want in zip(got, SCHED_PINNED[key]):
+            if rel[what] > SCHED_REL:
+                raise AssertionError(f"scheduler {key}: {what} {got[what]!r} against the "
+                                     f"reference's {want!r}, beyond {SCHED_REL} relative")
+        if (policy, n_racks, trace) == ("dally", 8, "batch"):
+            again = scheduler_cell(trace, n_jobs, n_racks, policy).run()
+            if json.dumps(again, sort_keys=True) != json.dumps(res, sort_keys=True):
+                raise AssertionError(f"scheduler {key}: two runs' results() differ")
+            log(f"[scheduler] {key}: a second run through run() gives results() equal to the "
+                "byte")
+
+
 def tile_sweep():
     """Fixed and per-tile cost of the flash kernel's tensor-core route.  For
     each head dim of the route (128 with 8 kv heads, 256 with 1 kv head), the
@@ -3360,6 +3475,7 @@ def main() -> int:
             wkv_grad_routes()
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
+    run("scheduler", phase_scheduler)
     fa_worst = run("kernel cases", phase_kernel_cases)
     bwd_worst = run("bwd cases", phase_bwd_cases)
     run("autograd wiring", phase_autograd_wiring)

@@ -4,9 +4,12 @@ The port keeps its own copy so that it imports nothing of the JAX package.
 The fields, the derived properties, the analytic parameter count and
 ``reduced()`` are the same as there, so one config object describes the
 same model in both packages.  ``ShapeConfig``, the four input shapes
-(``SHAPES``) and ``applicable`` come too, for the dry-run.  The port's
-``HardwareProfile`` holds the roofline's four constants only, and its one
-profile is the H100's (``H100_SXM``); the JAX package's TPU profiles are not
+(``SHAPES``) and ``applicable`` come too, for the dry-run.  ``HardwareProfile`` holds the
+roofline's four constants and, for the cluster scheduler
+(``repro_torch.core``), the cluster's shape and its network tiers
+(``NetworkTier``).  Two profiles: the H100's (``H100_SXM``), which the
+dry-run prices with, and the paper's NVIDIA cluster (``NVIDIA_PAPER``),
+which the scheduler defaults to; the JAX package's TPU profile is not
 copied.
 """
 from __future__ import annotations
@@ -261,16 +264,51 @@ def applicable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 
 
 @dataclass(frozen=True)
+class NetworkTier:
+    name: str
+    bandwidth: float       # bytes/s usable per participant
+    latency: float         # seconds per hop (per collective step)
+
+
+@dataclass(frozen=True)
 class HardwareProfile:
-    """What the dry-run's roofline prices a step with, per chip."""
+    """What the dry-run's roofline prices a step with, per chip, and the
+    cluster the scheduler's communication model prices a placement on."""
     name: str
     peak_flops: float    # FLOP/s, bf16 dense
     hbm_bw: float        # bytes/s of device memory
     link_bw: float       # bytes/s a direction of one chip's links (the collective term)
     hbm_per_chip: float  # bytes of device memory
+    accel_per_machine: int = 8
+    machines_per_rack: int = 8
+    tiers: Tuple[NetworkTier, ...] = ()  # ordered best -> worst
+
+    def tier(self, name: str) -> NetworkTier:
+        for t in self.tiers:
+            if t.name == name:
+                return t
+        raise KeyError(name)
 
 
 # NVIDIA H100 SXM, data sheet: 989e12 bf16 dense FLOP/s, 3.35e12 B/s of HBM3,
 # NVLink 4 at 900e9 B/s a chip, 450e9 each way, 80e9 bytes of HBM3.
 H100_SXM = HardwareProfile(name="h100_sxm", peak_flops=989e12, hbm_bw=3.35e12,
                            link_bw=450e9, hbm_per_chip=80e9)
+
+# The paper's NVIDIA profile (Fig. 2 cluster: NVSwitch / Quantum IB / Spectrum).
+NVIDIA_PAPER = HardwareProfile(
+    name="nvidia_paper",
+    peak_flops=312e12,          # A100-class bf16
+    hbm_bw=2039e9,
+    link_bw=112.5e9,            # 900 Gb/s NVSwitch per-GPU
+    hbm_per_chip=80e9,
+    accel_per_machine=8,
+    machines_per_rack=8,
+    tiers=(
+        NetworkTier("machine", 112.5e9, 0.5e-6),  # NVSwitch 900 Gb/s
+        NetworkTier("rack", 50e9, 1.5e-6),        # Quantum IB 400 Gb/s RDMA
+        NetworkTier("network", 100e9, 10e-6),     # Spectrum 800 Gb/s, high latency
+    ),
+)
+
+PROFILES = {p.name: p for p in (H100_SXM, NVIDIA_PAPER)}

@@ -625,16 +625,17 @@ def test_kernels_line_lists_six_kernels_with_the_wkv_backward():
 
 
 def test_rwkv6_train_slice_runs_bf16_at_two_layers():
-    """2 layers at full width, 2 x 200 tokens, bf16 only (ROADMAP C4), the
-    WKV entry point swapped for the plain version on the plain path; its
-    launches 5 forward, on the chunk_exact route as every bf16 forward of a
-    gradient at head dim 64, and 2 backward, on the chunk route, in each
-    part."""
+    """2 layers at full width, 2 x 200 tokens, in bf16 and, since C4's hold
+    on zero-initialised masters, in f32 too, the WKV entry point swapped for
+    the plain version on the plain path; its launches 5 forward, on the
+    chunk_exact route as every bf16 forward of a gradient at head dim 64,
+    and 2 backward, on the chunk route, in each part; in f32 the same counts
+    on the recurrent routes."""
     arch, cut, batch, seq, patches = next(s for s in chip_smoke.TRAIN_SLICES
                                           if s[0] == "rwkv6-7b")
     assert (cut, batch, seq) == ({"n_layers": 2}, 2, 200) and seq % 64
     assert patches == [(chip_smoke.rwkv6, "rwkv6_wkv", chip_smoke.wkv_ref.rwkv6_reference)]
-    assert chip_smoke.TRAIN_SLICE_DTYPES["rwkv6-7b"] == ((torch.bfloat16, 2e-2),)
+    assert "rwkv6-7b" not in chip_smoke.TRAIN_SLICE_DTYPES
     cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config(arch), **cut)
     want = chip_smoke.want_train_launches(cfg, torch.bfloat16, seq)
     assert {k: want[k] for k in chip_smoke.KERNELS} == {
@@ -642,6 +643,10 @@ def test_rwkv6_train_slice_runs_bf16_at_two_layers():
     assert want["rwkv6_wkv_fwd by route"] == {"chunk": 0, "chunk_exact": 5, "recurrent": 0}
     assert want["rwkv6_wkv_bwd by route"] == {"chunk": 2, "recurrent": 0}
     assert want["flash_attention_fwd with lse"] == 0
+    f32 = chip_smoke.want_train_launches(cfg, torch.float32, seq)
+    assert {k: f32[k] for k in chip_smoke.KERNELS} == {k: want[k] for k in chip_smoke.KERNELS}
+    assert f32["rwkv6_wkv_fwd by route"] == {"chunk": 0, "chunk_exact": 0, "recurrent": 5}
+    assert f32["rwkv6_wkv_bwd by route"] == {"chunk": 0, "recurrent": 2}
 
 
 def test_rwkv6_train_launches_at_the_cut_depth():
@@ -893,9 +898,9 @@ def test_train_launches_of_the_new_models(arch):
                         chip_smoke.fa_ops.chunked_attention)]
     assert arch in [s[0] for s in chip_smoke.SLICES]
     dtypes = [d for d, _ in chip_smoke.TRAIN_SLICE_DTYPES.get(arch, chip_smoke.SLICE_DTYPES)]
-    # minicpm3-4b's f32 slice met C4 on its zero-initialised ln2: bf16 only
-    assert dtypes == ([torch.bfloat16] if arch == "minicpm3-4b"
-                      else [torch.float32, torch.bfloat16])
+    # minicpm3-4b's f32 slice, held by C4's hold on its zero-initialised ln2,
+    # runs as the others' do
+    assert dtypes == [torch.float32, torch.bfloat16]
 
 
 def test_fused_sdpa_names_the_first_backend_that_runs(monkeypatch):
@@ -1151,3 +1156,167 @@ def test_no_top_level_name_is_defined_twice():
               if isinstance(t, ast.Name) and t.id.isupper()]
     assert sorted({n for n in names if names.count(n) > 1}) == []
 
+
+
+# -- C4: the f32 master hold on zero-initialised leaves -------------------------
+
+C4_MODELS = ("minitron-4b", "rwkv6-7b", "minicpm3-4b")
+
+
+@pytest.mark.parametrize("arch", C4_MODELS)
+def test_zero_init_leaves_are_the_schemas_zeros(arch):
+    """The set C4's hold takes is the leaves whose initializer is "zeros", in
+    the port's schema and in the JAX package's, at the slice's cut; each is
+    a leaf of the slice's master tree."""
+    import jax
+    from repro.configs import get_config as ref_config
+    from repro.models.schema import Param as RefParam, model_schema as ref_schema
+
+    cut = next(s[1] for s in chip_smoke.TRAIN_SLICES if s[0] == arch)
+    cfg = chip_smoke.dataclasses.replace(chip_smoke.get_config(arch), **cut)
+    got = chip_smoke.zero_init_leaves(cfg)
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        ref_schema(chip_smoke.dataclasses.replace(ref_config(arch), **cut)),
+        is_leaf=lambda x: isinstance(x, RefParam))
+    want = {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+            for path, p in flat if p.init == "zeros"}
+    assert got == want
+    assert {"final_norm", "blocks/ln1", "blocks/ln2"} <= got
+    small = chip_smoke.dataclasses.replace(cfg.reduced(), n_layers=cut["n_layers"])
+    names = chip_smoke.paths(init_train_state(chip_smoke.lm.init_params(
+        small, torch.Generator().manual_seed(0), torch.float32, "cpu"))["master"])
+    assert got <= set(names)
+    if arch == "rwkv6-7b":
+        assert got == {"final_norm", *(f"blocks/{n}" for n in (
+            "ln1", "tm_mu_x", "tm_mus", "ln_x", "ln2", "cm_mu_k", "cm_mu_r"))}
+
+
+def test_train_slice_dtypes_cut_none_of_the_c4_models():
+    for arch in C4_MODELS:
+        assert arch in [s[0] for s in chip_smoke.TRAIN_SLICES]
+        assert chip_smoke.TRAIN_SLICE_DTYPES.get(arch, chip_smoke.SLICE_DTYPES) == (
+            (torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+
+
+def _c4_pair():
+    """Two paths' f32 gradients and masters after the first AdamW step from a
+    zero leaf "z" and a leaf "w" at 0.05: 1000 elements, most with |x| about
+    1e-3, ten with |x| near eps whose two paths differ by 5 % (the leaf's
+    gradients still agree within 1e-6 of its norm)."""
+    base = torch.linspace(0.5e-3, 1.5e-3, 1000) * torch.where(torch.arange(1000) % 3 == 0,
+                                                              -1.0, 1.0)
+    gk, gp = base.clone(), base.clone()
+    gk[::100], gp[::100] = 2e-8, 2.1e-8
+    out = []
+    for g in (gk, gp):
+        params = {"w": torch.full_like(g, 0.05), "z": torch.zeros_like(g)}
+        seen = {}
+        state, _ = chip_smoke.first_step_seen(seen)(
+            init_train_state(params), [g, g.clone()], lr=cosine_schedule(3e-4, 100, 10_000),
+            clip=1.0, weight_decay=0.1)
+        out.append((state["master"], seen))
+    return gk, gp, out
+
+
+def test_c4_hold_passes_a_zero_leaf_whose_gradient_sits_near_eps():
+    gk, gp, ((mk, sk), (mp, sp)) = _c4_pair()
+    assert chip_smoke.rel_err(gk, gp) < 1e-6
+    a, b = mk["z"], mp["z"]
+    assert chip_smoke.rel_err(a, b) > 1e-4  # the old f32 hold would fail it
+    worst, flips, rel = chip_smoke.hold_master_leaf(a, b, gk, gp, sk, sp, 1, torch.float32,
+                                                    1e-4, zero_init=True)
+    assert worst <= 1 and flips == (0, 0.0) and rel > 1e-4
+    with pytest.raises(AssertionError, match="rel_err"):
+        chip_smoke.hold_master_leaf(a, b, gk, gp, sk, sp, 1, torch.float32, 1e-4,
+                                    zero_init=False)
+
+
+def test_c4_hold_still_fails_a_nonzero_leaf_off_by_more_than_tol():
+    gk, gp, ((mk, sk), (mp, sp)) = _c4_pair()
+    worst, flips, rel = chip_smoke.hold_master_leaf(mk["w"], mp["w"], gk, gp, sk, sp, 0,
+                                                    torch.float32, 1e-4, zero_init=False)
+    assert worst <= 1 and flips is None and rel <= 1e-4
+    off = mk["w"] * (1 + 3e-4)
+    with pytest.raises(AssertionError, match="rel_err|first steps"):
+        chip_smoke.hold_master_leaf(off, mp["w"], gk, gp, sk, sp, 0, torch.float32, 1e-4,
+                                    zero_init=False)
+
+
+def test_c4_hold_fails_a_zero_leaf_whose_gradient_flips_above_tol():
+    gk, gp, ((mk, sk), (mp, sp)) = _c4_pair()
+    gk2 = gk.clone()
+    gk2[1] = -gk2[1]
+    with pytest.raises(AssertionError, match="changes sign"):
+        chip_smoke.hold_master_leaf(mk["z"], mp["z"], gk2, gp, sk, sp, 1, torch.float32, 1e-4,
+                                    zero_init=True)
+
+
+# -- the scheduler phase -----------------------------------------------------------
+
+def test_scheduler_archs_are_the_reference_registry_order():
+    from repro.configs import ARCHS
+    assert chip_smoke.SCHED_ARCHS == tuple(ARCHS)
+
+
+def test_scheduler_cells_are_the_paper_matrix():
+    """paper-batch under the six schedulers at 8 racks and dally at 16;
+    paper-poisson under dally and tiresias at 8; one pin each."""
+    cells = {(sc, racks, pol) for sc, _, _, racks, pol in chip_smoke.SCHED_CELLS}
+    assert len(cells) == len(chip_smoke.SCHED_CELLS) == 9
+    assert set(chip_smoke.SCHED_PINNED) == {f"{sc} {r} racks {p}" for sc, r, p in cells}
+    assert {p for sc, r, p in cells if (sc, r) == ("paper-batch", 8)} == set(
+        chip_smoke.SCHED_POLICIES)
+
+
+@pytest.fixture(scope="module")
+def scheduler_reference():
+    """The JAX package's simulator on each of the phase's cells, built as
+    its Scenario.build_sim builds paper-batch and paper-poisson, on its
+    NVIDIA_PAPER profile: {key: results()}."""
+    import repro.core as rc
+    import repro.core.policies as rp
+    import repro.types as rt
+    from repro.configs import ARCHS
+
+    out = {}
+    for scenario, trace, n_jobs, n_racks, policy in chip_smoke.SCHED_CELLS:
+        archs = [ARCHS[n] for n in chip_smoke.SCHED_ARCHS]
+        comm = rc.CommModel.from_configs(archs, profile=rt.NVIDIA_PAPER, overlap_frac=0.25)
+        sim = rc.ClusterSimulator(
+            rc.ClusterTopology(n_racks=n_racks, machines_per_rack=8, gpus_per_machine=8),
+            rp.make_policy(policy), comm, round_period=300.0, checkpoint_overhead=0.0)
+        maker = {"batch": rc.make_batch_trace, "poisson": rc.make_poisson_trace}[trace]
+        for job in maker(archs, n_jobs=n_jobs, seed=0, profile=rt.NVIDIA_PAPER):
+            sim.submit(job)
+        out[f"{scenario} {n_racks} racks {policy}"] = sim.run()
+    return out
+
+
+def test_scheduler_pinned_constants_equal_the_reference(scheduler_reference):
+    for key, res in scheduler_reference.items():
+        assert chip_smoke.SCHED_PINNED[key] == (res["makespan"], res["jct"]["avg"]), key
+
+
+def test_scheduler_cell_of_the_port_equals_the_reference(scheduler_reference):
+    """The phase's own cell builder on the CPU, for dally at 8 racks (the
+    cell it runs twice) and tiresias on the Poisson trace."""
+    for scenario, trace, n_jobs, n_racks, policy in chip_smoke.SCHED_CELLS:
+        if (n_racks, policy) == (8, "dally") and trace == "batch" or (
+                trace, policy) == ("poisson", "tiresias"):
+            res = chip_smoke.scheduler_cell(trace, n_jobs, n_racks, policy).run()
+            assert res == scheduler_reference[f"{scenario} {n_racks} racks {policy}"]
+
+
+def test_scheduler_phase_holds_the_pins_and_fails_a_wrong_one(monkeypatch, capsys):
+    """The phase on a cut matrix: one cell passes and logs its line; a pin
+    moved by 1e-8 relative fails it."""
+    cell = ("paper-batch", "batch", 500, 8, "gandiva")
+    monkeypatch.setattr(chip_smoke, "SCHED_CELLS", [cell])
+    chip_smoke.phase_scheduler()
+    line = capsys.readouterr().out
+    assert "[scheduler] paper-batch 8 racks gandiva (500 jobs, 512 GPUs): n_finished 500" in line
+    key = "paper-batch 8 racks gandiva"
+    makespan, jct = chip_smoke.SCHED_PINNED[key]
+    monkeypatch.setitem(chip_smoke.SCHED_PINNED, key, (makespan * (1 + 1e-8), jct))
+    with pytest.raises(AssertionError, match="makespan"):
+        chip_smoke.phase_scheduler()

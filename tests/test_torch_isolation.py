@@ -134,3 +134,29 @@ def test_dryrun_runs_with_jax_and_repro_blocked(tmp_path):
     assert proc.stdout.startswith("[ok   ] qwen3-1.7b x decode_32k x pod16x16 dom=")
     rec = (tmp_path / "t" / "qwen3-1.7b__decode_32k__pod16x16.json").read_text()
     assert '"device": "cpu"' in rec and '"kernels": "the plain versions"' in rec
+
+
+SCHED_CELL = ("import sys; sys.modules.update(dict.fromkeys(('jax', 'jaxlib', 'repro'))); "
+              "from repro_torch.configs import ARCHS; "
+              "from repro_torch.core import ClusterSimulator, ClusterTopology, CommModel, "
+              "make_batch_trace; "
+              "from repro_torch.core.policies import make_policy; "
+              "archs = list(ARCHS.values()); "
+              "sim = ClusterSimulator(ClusterTopology(n_racks=2), make_policy('dally'), "
+              "CommModel.from_configs(archs)); "
+              "[sim.submit(j) for j in make_batch_trace(archs, n_jobs=60, seed=0)]; "
+              "r = sim.run(); print(r['n_finished'], r['makespan'] > 0)")
+
+
+def test_scheduler_runs_with_jax_and_repro_blocked():
+    """A port scheduler cell (model_skew walks the port's schema) on its
+    default profile, with jax and repro unimportable."""
+    proc = subprocess.run([sys.executable, "-c", SCHED_CELL], capture_output=True, text=True,
+                          env=_env(), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines() == ["60 True"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_holds_no_tpu_profile(path):
+    assert "TPU_V5E" not in path.read_text()
