@@ -24,7 +24,16 @@ cells on a "cuda" mesh (phase_sharded).  Its phase ``scheduler`` runs the
 port's Dally scheduler and cluster simulator (``repro_torch.core``) on the
 card's host over the paper's traces at the paper's cluster scale
 (SCHED_CELLS), against makespans and JCTs pinned from the JAX package's
-simulator (phase_scheduler).  Any failure raises, so the exit code is
+simulator (phase_scheduler).  Its phase ``experiments`` runs the port's
+experiments, streamed replay with spill, sweep CLI and online service
+(``repro_torch.experiments``, ``repro_torch.service``) on the card's host:
+one registered scenario for each artifact schema, dc-256-philly's 10,000
+jobs streamed and spilled, that cell's peak RSS streamed with the spill
+and materialized (each in a process of its own), the sweep over two
+workers against run_one, and
+a daemon SIGKILLed and restarted against its uninterrupted run, each
+artifact against its digest pinned from the JAX package
+(phase_experiments).  Any failure raises, so the exit code is
 not 0.  With no CUDA device, or away from the checkout, it exits non-zero
 and prints no result.  It imports nothing of JAX and nothing of ``repro``.
 
@@ -50,11 +59,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import inspect
 import itertools
 import json
 import math
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -72,11 +84,12 @@ import torch.nn.functional as F  # noqa: E402
 from torch.distributed.tensor import DTensor, distribute_tensor  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core import (ClusterSimulator, ClusterTopology, CommModel,  # noqa: E402
-                              make_batch_trace, make_poisson_trace)
+                              make_batch_trace, make_poisson_trace, verify_manifest)
 from repro_torch.core.policies import make_policy  # noqa: E402
 from repro_torch.data import SyntheticLMDataset, pseudo_embeds  # noqa: E402
+from repro_torch.experiments import SimOverrides, artifact_json, run_one  # noqa: E402
 from repro_torch.kernels.build import ptxas_summary  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -3110,11 +3123,9 @@ SWEEP_TILES = (1, 8, 64)
 # "paper-batch" (500 jobs at t = 0) and "paper-poisson" (400 jobs): seed 0,
 # a round every 300 s, overlap 0.25, pure data parallelism, no faults, the
 # trace submitted up front.  The trace makers draw rng.choice over the
-# architectures in the JAX package's registry order (SCHED_ARCHS).  A cell:
+# architectures in the registry's order, the JAX package's (SCHED_ARCHS).  A cell:
 # (scenario, trace maker, jobs, racks, policy).
-SCHED_ARCHS = ("recurrentgemma-2b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "yi-9b",
-               "qwen3-1.7b", "minicpm3-4b", "minitron-4b", "pixtral-12b", "hubert-xlarge",
-               "rwkv6-7b")
+SCHED_ARCHS = tuple(ARCHS)
 SCHED_POLICIES = ("gandiva", "tiresias", "dally-manual", "dally-nowait",
                   "dally-fullyconsolidated", "dally")
 SCHED_CELLS = ([("paper-batch", "batch", 500, 8, p) for p in SCHED_POLICIES]
@@ -3191,6 +3202,458 @@ def phase_scheduler():
                 raise AssertionError(f"scheduler {key}: two runs' results() differ")
             log(f"[scheduler] {key}: a second run through run() gives results() equal to the "
                 "byte")
+
+
+# The experiments phase: the port's experiments, streamed replay with spill,
+# sweep and online service (repro_torch.experiments, repro_torch.service) on
+# the card's host.  It is host code and launches nothing.  EXP_CELLS runs
+# run_one at seed 0 under EXP_POLICY on one registered scenario for each
+# artifact schema but v6, at the scenario's own scale; EXP_STREAM_CELL
+# streams dc-256-philly's 10,000 jobs on 2,048 GPUs from the lazy cursor and
+# spills the finished jobs to JSONL shards (schema v6).  A cell: (scenario,
+# artifact schema).
+EXP_CELLS = (("paper-batch", "v1"), ("congested-spine", "v2"), ("mixed-parallelism", "v3"),
+             ("failure-prone", "v4"), ("degraded-cluster", "v5"), ("multi-tenant", "v7"))
+EXP_STREAM_CELL = ("dc-256-philly", "v6")
+EXP_POLICY = "dally"
+# The sweep's CLI on one scenario under two policies, over two workers.
+EXP_SWEEP = ("paper-batch", ("dally", "tiresias"))
+# The service, by the protocol of tools/service_crash_smoke.py: an inbox of
+# EXP_SERVICE_SPECS specs on "smoke" under EXP_SERVICE_OVERRIDES, run once
+# uninterrupted and once SIGKILLed once its journal shows a snapshot and every
+# submit, then restarted to drain.
+EXP_SERVICE_MODELS = ("yi-9b", "qwen3-1.7b", "qwen2-moe-a2.7b", "recurrentgemma-2b",
+                      "minicpm3-4b", "qwen3-moe-30b-a3b")
+EXP_SERVICE_SPECS = 20
+EXP_SERVICE_OVERRIDES = {"contention": "fair-share"}
+EXP_KILL_TIMEOUT_S = 120.0
+# The streamed cell's spill manifest names its directory, a temporary one:
+# its digest is taken with that directory written as EXP_SPILL_DIR.
+EXP_SPILL_DIR = "spill"
+# Each cell's artifact as the JAX package gives it for the same cell on the
+# paper's cluster, and the service's artifact.json as its SchedulerService
+# writes it for the same inbox (tests/test_torch_chip_smoke.py recomputes
+# each through the reference on the CPU): the sha256 of the artifact's
+# canonical bytes (artifact_json), and of each field (exp_fields), so that a
+# digest that differs names the first field that does.
+EXP_PINNED = {
+    "paper-batch": ("6ddc080a288369d4f52acbadd856535480a828aaf8fc3577ee39a27d4dde173e", {
+        "config": "33865f0d7cdf", "metrics.avg_utilization": "348e8eaf05b5",
+        "metrics.comm_latency": "426bea5e3818", "metrics.jct": "7367083e29fc",
+        "metrics.jct_values": "ce3b08274ce5", "metrics.makespan": "79dd418ce285",
+        "metrics.n_finished": "0604cd3138fe", "metrics.n_rejected": "5feceb66ffc8",
+        "metrics.n_unfinished": "5feceb66ffc8", "metrics.preemptions": "85c7fe931900",
+        "metrics.queueing_delay": "2f0745667daa", "metrics.timeline": "2aab4ff32370",
+        "metrics.total_comm_time": "66fc70e93455", "metrics.total_t_run": "f67fd7892a16",
+        "policy": "6c500384b3df", "scenario": "6e26333956fd", "schema": "24eb7e38f01d",
+        "seed": "5feceb66ffc8"
+    }),
+    "congested-spine": ("6df9cf5ee240b5a8875d64be50ecba09e2c3cc679a3278630b2f34a3370d0e57", {
+        "config": "e3d9805ea7d9", "metrics.avg_utilization": "e12cbf9eadab",
+        "metrics.comm_latency": "c4bb8485bf9e", "metrics.jct": "d1e55172108a",
+        "metrics.jct_values": "cb2c24cfccfe", "metrics.makespan": "79dd418ce285",
+        "metrics.n_finished": "26d228663f13", "metrics.n_rejected": "5feceb66ffc8",
+        "metrics.n_reprices": "db55da3fc309", "metrics.n_unfinished": "5feceb66ffc8",
+        "metrics.preemptions": "bebcee2abff6", "metrics.queueing_delay": "d275829652b9",
+        "metrics.timeline": "45c6d34c9ffc", "metrics.total_comm_time": "4e4d1960a8d6",
+        "metrics.total_t_run": "6a2c40c36fa4", "policy": "6c500384b3df", "scenario":
+        "1de2507d1ad6", "schema": "c7b7550dba83", "seed": "5feceb66ffc8"
+    }),
+    "mixed-parallelism": ("7a0abd5a397ae1cfc16ef22bb82a8a6c90f6a9815540454fdbddb07a01334893", {
+        "config": "6333e12afd36", "metrics.avg_utilization": "a3a5179da62b",
+        "metrics.comm_latency": "a65d7ede0810", "metrics.jct": "3e0a97cc868a",
+        "metrics.jct_values": "dcdac12e28df", "metrics.makespan": "86064ea4ce55",
+        "metrics.n_finished": "26d228663f13", "metrics.n_rejected": "5feceb66ffc8",
+        "metrics.n_unfinished": "5feceb66ffc8", "metrics.preemptions": "aa4b0d224e2b",
+        "metrics.queueing_delay": "35df32d5684d", "metrics.timeline": "6cf4b8013f8c",
+        "metrics.total_comm_time": "927668a75e01", "metrics.total_t_run": "89480b2aa5a1",
+        "policy": "6c500384b3df", "scenario": "cec69616e0d9", "schema": "1382d4355616",
+        "seed": "5feceb66ffc8"
+    }),
+    "failure-prone": ("9db7a72de6130d12e405380049baca2acaaf4b91e84a61acf72a271ec2b1e7fa", {
+        "config": "180ca8538194", "metrics.avg_utilization": "6e2fa6096065",
+        "metrics.comm_latency": "1d7028f4faeb", "metrics.jct": "7f2aa2e8abe1",
+        "metrics.jct_values": "77d30ecca267", "metrics.makespan": "66544eb6f05a",
+        "metrics.n_finished": "26d228663f13", "metrics.n_job_failures": "2af4dd48399a",
+        "metrics.n_machine_failures": "67e0bdb7b6c5", "metrics.n_rejected": "5feceb66ffc8",
+        "metrics.n_unfinished": "5feceb66ffc8", "metrics.preemptions": "8670bfe4c727",
+        "metrics.queueing_delay": "024ac18f1c4b", "metrics.timeline": "d5b433bffd2f",
+        "metrics.total_comm_time": "9c15c99a84a9", "metrics.total_t_run": "7467c0a23c51",
+        "policy": "6c500384b3df", "scenario": "edc6787e4c70", "schema": "c1c03a20751c",
+        "seed": "5feceb66ffc8"
+    }),
+    "degraded-cluster": ("c100a23c0c94f8d40b444f52e88af493cced28e7476a4f1ee4760b49e9fcf31b", {
+        "config": "7789d1281615", "metrics.avg_utilization": "642335c494c4",
+        "metrics.comm_latency": "61721c0efb9c", "metrics.jct": "68ffa03567f1",
+        "metrics.jct_values": "521207606ea0", "metrics.makespan": "79dd418ce285",
+        "metrics.n_degrade_events": "5ef6514ed330", "metrics.n_degrade_reprices":
+        "355d8c0ee4e5", "metrics.n_finished": "983bd614bb5a", "metrics.n_rejected":
+        "5feceb66ffc8", "metrics.n_reprices": "308831041ea4", "metrics.n_straggler_evictions":
+        "c75de23d89df", "metrics.n_unfinished": "5feceb66ffc8", "metrics.preemptions":
+        "c7c1b4da9b9f", "metrics.queueing_delay": "2efd4d79a0ab", "metrics.timeline":
+        "f72afbca9fbb", "metrics.total_comm_time": "256b64157736", "metrics.total_t_run":
+        "a92f24600642", "policy": "6c500384b3df", "scenario": "9107b10ae22b", "schema":
+        "b51cf22bcf03", "seed": "5feceb66ffc8"
+    }),
+    "multi-tenant": ("1de0ed3452ad44a0f7eccab17489d22a2efddee6f53204cfb510ee1feb50f03c", {
+        "config": "c03b014db60b", "metrics.avg_utilization": "b3b1e9249821",
+        "metrics.comm_latency": "192be7db2647", "metrics.jct": "43b511a2f70f",
+        "metrics.jct_values": "f01d7c60ef91", "metrics.makespan": "289f4e112ac3",
+        "metrics.n_finished": "26d228663f13", "metrics.n_rejected": "5feceb66ffc8",
+        "metrics.n_unfinished": "5feceb66ffc8", "metrics.preemptions": "2fe98face818",
+        "metrics.queueing_delay": "10f28898e595", "metrics.tenants": "c2eb7c8140e5",
+        "metrics.timeline": "658b7cff949d", "metrics.total_comm_time": "2e401a5b8a35",
+        "metrics.total_t_run": "ebc856f2ac3f", "policy": "6c500384b3df", "scenario":
+        "6e7214c0a811", "schema": "091537ceeecd", "seed": "5feceb66ffc8"
+    }),
+    "dc-256-philly": ("d1ceff9861beaa94fbb8a86f8acf0998402a994c31d865add2a00a992dfb5f58", {
+        "config": "dffaae39d180", "metrics.avg_utilization": "071a84fc0c47",
+        "metrics.comm_latency": "2df843cb28b8", "metrics.jct": "d7cb4f3c14bd",
+        "metrics.jct_values": "9e7e90768a6a", "metrics.makespan": "799741163a68",
+        "metrics.n_finished": "39e5b4830d4d", "metrics.n_rejected": "5feceb66ffc8",
+        "metrics.n_unfinished": "5feceb66ffc8", "metrics.preemptions": "c1698979b983",
+        "metrics.queueing_delay": "0ace21c402ef", "metrics.spill": "7e52de7d55ab",
+        "metrics.timeline": "33e73b30475b", "metrics.total_comm_time": "7d588f3a6b81",
+        "metrics.total_t_run": "27e6338f1a04", "policy": "6c500384b3df", "scenario":
+        "ad80b5aa12c0", "schema": "a45c2ca81e1d", "seed": "5feceb66ffc8"
+    }),
+    "service": ("315ff2ac9ed7ff9cce953fda596cb92ccbef8d0bab1e433b23c3f0eafbb28084", {
+        "config": "38b701a68149", "metrics.avg_utilization": "ab28577ca199",
+        "metrics.comm_latency": "30cea6083227", "metrics.jct": "73eeec803008",
+        "metrics.jct_values": "52f7f09b3750", "metrics.makespan": "f71c865025d0",
+        "metrics.n_finished": "f5ca38f748a1", "metrics.n_rejected": "5feceb66ffc8",
+        "metrics.n_reprices": "5feceb66ffc8", "metrics.n_unfinished": "5feceb66ffc8",
+        "metrics.preemptions": "5feceb66ffc8", "metrics.queueing_delay": "c4f0c8ceb6d7",
+        "metrics.timeline": "c0a09c74c7c5", "metrics.total_comm_time": "961a35c8ad9d",
+        "metrics.total_t_run": "d06017fe6726", "n_submitted": "f5ca38f748a1", "overrides":
+        "822087895018", "policy": "6c500384b3df", "scenario": "aaba7feeeca6", "schema":
+        "4a6822ee3dbe", "seed": "5feceb66ffc8"
+    }),
+}
+
+
+def exp_artifact(art):
+    """art with its spill manifest's directory, if it has one, written as
+    EXP_SPILL_DIR."""
+    spill = art["metrics"].get("spill")
+    if spill is None:
+        return art
+    return {**art, "metrics": {**art["metrics"], "spill": {**spill, "dir": EXP_SPILL_DIR}}}
+
+
+def exp_digest(art):
+    """(sha256 of the artifact's canonical bytes, exp_fields) of an artifact."""
+    art = exp_artifact(art)
+    return hashlib.sha256(artifact_json(art).encode()).hexdigest(), exp_fields(art)
+
+
+def exp_fields(art):
+    """{field: the first 12 hex digits of the sha256 of its sorted JSON}, for
+    each key of the artifact but "metrics" and each key of its metrics."""
+    out = {}
+    for key, value in sorted(art.items()):
+        items = sorted(value.items()) if key == "metrics" else [(None, value)]
+        for sub, v in items:
+            name = key if sub is None else f"{key}.{sub}"
+            out[name] = hashlib.sha256(json.dumps(v, sort_keys=True).encode()).hexdigest()[:12]
+    return out
+
+
+def exp_hold(key, art):
+    """Fail unless art's digest is EXP_PINNED[key]'s; name the first field
+    that differs."""
+    digest, fields = exp_digest(art)
+    want, want_fields = EXP_PINNED[key]
+    if digest == want:
+        return digest
+    differ = [f for f in sorted(set(fields) | set(want_fields))
+              if fields.get(f) != want_fields.get(f)]
+    raise AssertionError(f"experiments {key}: artifact sha256 {digest} against the pin {want}; "
+                         f"the first field that differs: {differ[0] if differ else None} "
+                         f"(all that differ: {differ})")
+
+
+@contextlib.contextmanager
+def counting_events():
+    """Each simulator that run() drives in this context counts the events it
+    processes through its event_hook; yields the list of counts, one a run."""
+    counts, run = [], ClusterSimulator.run
+
+    def counted(sim, *args, **kw):
+        n, hook = [0], sim.event_hook
+
+        def count(s, kind):
+            n[0] += 1
+            if hook is not None:
+                hook(s, kind)
+        sim.event_hook = count
+        try:
+            return run(sim, *args, **kw)
+        finally:
+            sim.event_hook = hook
+            counts.append(n[0])
+    with mock.patch.object(ClusterSimulator, "run", counted):
+        yield counts
+
+
+def exp_run(scenario, **overrides):
+    """run_one of a cell at seed 0 under EXP_POLICY, with its events counted:
+    (artifact, events, wall seconds on the host's clock)."""
+    with counting_events() as counts:
+        t0 = time.perf_counter()
+        art = run_one(scenario, EXP_POLICY, 0, overrides=SimOverrides(**overrides))
+        wall = time.perf_counter() - t0
+    return art, counts[0], wall
+
+
+def exp_env():
+    """The environment of a subprocess that imports this checkout's port."""
+    src = str(Path(__file__).resolve().parent / "src")
+    return {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+
+
+def exp_cells():
+    """EXP_CELLS and EXP_STREAM_CELL, each held to its pin; the streamed
+    cell's shards to their manifest.  Returns {scenario: artifact}."""
+    arts = {}
+    for scenario, schema in EXP_CELLS:
+        art, events, wall = exp_run(scenario)
+        if art["schema"] != f"repro.experiments.artifact/{schema}":
+            raise AssertionError(f"experiments {scenario}: schema {art['schema']}, not {schema}")
+        digest = exp_hold(scenario, art)
+        m = art["metrics"]
+        log(f"[experiments] {scenario} ({schema}, {EXP_POLICY}, seed 0): n_finished "
+            f"{m['n_finished']}, makespan {m['makespan']!r} s, avg JCT {m['jct']['avg']!r} s; "
+            f"{events} events in {wall:.4f} s, {events / wall:.1f} events/s; artifact sha256 "
+            f"{digest} equals the pin")
+        arts[scenario] = art
+    scenario, schema = EXP_STREAM_CELL
+    with tempfile.TemporaryDirectory(prefix="exp-spill-") as spill:
+        art, events, wall = exp_run(scenario, stream=True, spill_dir=spill)
+        manifest = art["metrics"]["spill"]
+        bad = verify_manifest(manifest)
+        if bad is not None:
+            raise AssertionError(f"experiments {scenario}: spill manifest: {bad}")
+        if art["schema"] != f"repro.experiments.artifact/{schema}":
+            raise AssertionError(f"experiments {scenario}: schema {art['schema']}, not {schema}")
+        digest = exp_hold(scenario, art)
+    m = art["metrics"]
+    log(f"[experiments] {scenario} ({schema}, streamed, spilled, {EXP_POLICY}, seed 0): "
+        f"{art['config']['n_jobs']} jobs on {art['config']['n_racks'] * 64} GPUs, n_finished "
+        f"{m['n_finished']}, makespan {m['makespan']!r} s, avg JCT {m['jct']['avg']!r} s; "
+        f"{manifest['n_jobs']} records in {len(manifest['shards'])} shard(s), verify_manifest "
+        f"passes; {events} events in {wall:.4f} s, {events / wall:.1f} events/s; artifact "
+        f"sha256 {digest} equals the pin")
+    arts[scenario] = art
+    return arts
+
+
+# The processes of exp_memory: one that only imports the sweep (the baseline
+# every process of the port starts from, torch included), and the sweep's CLI
+# on EXP_STREAM_CELL materialized and streamed with the spill on.
+EXP_MEMORY_RUNS = {"materialized": (), "streamed": ("--stream", "--spill")}
+# A small process that runs the command in its arguments and exits with its
+# code.  Linux carries a process's peak RSS (ru_maxrss) into each child it
+# starts, across fork and execve; this process's is gigabytes by this phase,
+# so exp_memory starts each measured process through EXP_STARTER, whose own
+# peak is a few MB.
+EXP_STARTER = "import subprocess, sys; sys.exit(subprocess.call(sys.argv[1:]))"
+
+
+def exp_memory(*extra):
+    """The streamed cell's memory, each run in a process of its own so that
+    its peak RSS is its own: the sweep's CLI on EXP_STREAM_CELL at one worker,
+    materialized and streamed with the spill on, beside a process that only
+    imports the sweep; all three side by side, each started through
+    EXP_STARTER.  Each sweep.json row records its process's peak
+    (peak_rss_mb).  The streamed artifact is held to its
+    pin and its shards to their manifest, and both runs must finish the same
+    jobs at the same makespan and JCT.  extra: more flags of the sweep."""
+    scenario, _ = EXP_STREAM_CELL
+    baseline = "import repro_torch.experiments.sweep as s; print(s._peak_rss_mb())"
+    start = [sys.executable, "-c", EXP_STARTER, sys.executable]
+    with tempfile.TemporaryDirectory(prefix="exp-memory-") as work:
+        t0 = time.perf_counter()
+        argv = {"baseline": ["-c", baseline]}
+        for kind, flags in EXP_MEMORY_RUNS.items():
+            argv[kind] = ["-m", "repro_torch.experiments.sweep", "--scenarios", scenario,
+                          "--policies", EXP_POLICY, "--workers", "1", "--out",
+                          str(Path(work) / kind), *flags, *extra]
+        # each in a session of its own, so that killing its group stops the
+        # starter and the process it started
+        procs = {kind: subprocess.Popen(start + a, env=exp_env(), stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True,
+                                        start_new_session=True)
+                 for kind, a in argv.items()}
+        outs = {}
+        try:
+            for kind, proc in procs.items():
+                outs[kind], err = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(f"experiments memory {kind}: exit {proc.returncode}: "
+                                         f"{err[-2000:]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.perf_counter() - t0
+        rows, arts = {}, {}
+        for kind in EXP_MEMORY_RUNS:
+            out = Path(work) / kind
+            rows[kind] = json.loads((out / "sweep.json").read_text())["runs"][0]
+            arts[kind] = json.loads((out / f"{scenario}__{EXP_POLICY}__seed0.json").read_text())
+        bad = verify_manifest(arts["streamed"]["metrics"]["spill"])
+        if bad is not None:
+            raise AssertionError(f"experiments memory {scenario}: spill manifest: {bad}")
+        digest = exp_hold(scenario, arts["streamed"])
+        for key in ("n_finished", "makespan", "jct"):
+            if arts["materialized"]["metrics"][key] != arts["streamed"]["metrics"][key]:
+                raise AssertionError(f"experiments memory {scenario}: metrics.{key} of the "
+                                     "materialized run differs from the streamed run's")
+    peaks = {"baseline": float(outs["baseline"]), **{k: r["peak_rss_mb"] for k, r in rows.items()}}
+    log(f"[experiments] {scenario} memory, one process a run, each through EXP_STARTER, side by "
+        f"side in {wall:.4f} s: peak RSS of importing the sweep {peaks['baseline']!r} MB; materialized "
+        f"{peaks['materialized']!r} MB ({rows['materialized']['wall_s']:.4f} s); streamed with "
+        f"the spill on {peaks['streamed']!r} MB ({rows['streamed']['wall_s']:.4f} s, "
+        f"{rows['streamed']['spilled_jobs']} records spilled); the streamed artifact sha256 "
+        f"{digest} equals the pin, and both runs finish the same jobs at the same makespan "
+        "and JCT")
+    return peaks
+
+
+def exp_sweep(arts):
+    """The sweep's CLI in a subprocess over two workers: each artifact it
+    writes equals the bytes of an in-process run_one of the same cell."""
+    scenario, policies = EXP_SWEEP
+    with tempfile.TemporaryDirectory(prefix="exp-sweep-") as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.experiments.sweep",
+                               "--scenarios", scenario, "--policies", ",".join(policies),
+                               "--workers", "2", "--out", out], capture_output=True, text=True,
+                              env=exp_env(), timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"experiments sweep: exit {proc.returncode}: {proc.stderr}")
+        for policy in policies:
+            art = (arts[scenario] if policy == EXP_POLICY and scenario in arts
+                   else run_one(scenario, policy, 0))
+            got = (Path(out) / f"{scenario}__{policy}__seed0.json").read_text()
+            if got != artifact_json(art):
+                raise AssertionError(f"experiments sweep: {scenario} {policy}'s artifact differs "
+                                     "from run_one's")
+    log(f"[experiments] sweep --scenarios {scenario} --policies {','.join(policies)} --workers 2 "
+        f"in {wall:.4f} s: each artifact equals run_one's, byte for byte")
+
+
+def exp_specs():
+    """The service's inbox: tools/service_crash_smoke.py's mixed workload,
+    arrivals spread over simulated hours so the daemon is mid-schedule when
+    it is killed."""
+    return [{"name": f"smoke-{i:03d}", "model": EXP_SERVICE_MODELS[i % len(EXP_SERVICE_MODELS)],
+             "n_gpus": [1, 2, 4, 8, 2, 16][i % 6], "gpu_hours": 0.3 + (i % 5) * 0.5,
+             "arrival": i * 400.0} for i in range(EXP_SERVICE_SPECS)]
+
+
+def exp_daemon(state, inbox, *extra):
+    """The command line of the port's daemon on the service's scenario."""
+    return [sys.executable, "-m", "repro_torch.service", "--state-dir", str(state),
+            "--inbox", str(inbox), "--scenario", "smoke", "--events-per-tick", "5",
+            "--snapshot-every", "25", "--tick-sleep", "0.01",
+            "--overrides", json.dumps(EXP_SERVICE_OVERRIDES), *extra]
+
+
+def exp_journal_counts(journal):
+    counts = {"submit": 0, "snapshot": 0}
+    if journal.exists():
+        for line in journal.read_text().splitlines():
+            try:
+                kind = json.loads(line).get("type")
+            except json.JSONDecodeError:
+                continue  # a torn tail
+            counts[kind] = counts.get(kind, 0) + 1
+    return counts
+
+
+def exp_service():
+    """The port's daemon over an inbox of EXP_SERVICE_SPECS specs: once to
+    its end and, beside it, once SIGKILLed after its journal shows a
+    snapshot and every submit, then restarted with --exit-when-idle.  The
+    two artifact.json digests must be equal, and equal to the pin."""
+    specs = exp_specs()
+    with tempfile.TemporaryDirectory(prefix="exp-service-") as work:
+        work = Path(work)
+        for run_dir in ("ref", "crash"):
+            (work / run_dir / "inbox").mkdir(parents=True)
+            for spec in specs:
+                (work / run_dir / "inbox" / f"{spec['name']}.json").write_text(json.dumps(spec))
+        state, journal = work / "crash" / "state", work / "crash" / "state" / "journal.jsonl"
+        with open(work / "ref.out", "wb") as ref_out:
+            t0 = time.perf_counter()
+            ref_proc = subprocess.Popen(exp_daemon(work / "ref" / "state", work / "ref" / "inbox",
+                                                   "--exit-when-idle"),
+                                        env=exp_env(), stdout=ref_out, stderr=subprocess.STDOUT)
+            proc = subprocess.Popen(exp_daemon(state, work / "crash" / "inbox", "--throttle",
+                                               "0.05"), env=exp_env(), stdout=subprocess.DEVNULL)
+            wall = None
+            try:
+                deadline = time.time() + EXP_KILL_TIMEOUT_S
+                while True:
+                    if wall is None and ref_proc.poll() is not None:
+                        wall = time.perf_counter() - t0
+                    counts = exp_journal_counts(journal)
+                    if counts["snapshot"] >= 1 and counts["submit"] == EXP_SERVICE_SPECS:
+                        break
+                    if proc.poll() is not None:
+                        raise AssertionError(f"experiments service: the daemon exited "
+                                             f"({proc.returncode}) before it could be killed; "
+                                             f"journal {counts}")
+                    if time.time() > deadline:
+                        raise AssertionError(f"experiments service: no snapshot within "
+                                             f"{EXP_KILL_TIMEOUT_S} s; journal {counts}")
+                    time.sleep(0.1)
+                proc.send_signal(signal.SIGKILL)
+                ref_proc.wait(timeout=600)
+            finally:
+                for p in (proc, ref_proc):
+                    if p.poll() is None:
+                        p.kill()
+                    p.wait()
+        if wall is None:
+            wall = time.perf_counter() - t0
+        if ref_proc.returncode != 0:
+            raise AssertionError(f"experiments service: the uninterrupted daemon exited "
+                                 f"{ref_proc.returncode}: {(work / 'ref.out').read_text()[-2000:]}")
+        ref = json.loads((work / "ref" / "state" / "artifact.json").read_text())
+        digest = exp_hold("service", ref)
+        at_kill = exp_journal_counts(journal)
+        subprocess.run(exp_daemon(state, work / "crash" / "inbox", "--exit-when-idle"),
+                       check=True, env=exp_env(), timeout=600, capture_output=True)
+        got = hashlib.sha256((state / "artifact.json").read_bytes()).hexdigest()
+        want = hashlib.sha256((work / "ref" / "state" / "artifact.json").read_bytes()).hexdigest()
+        if got != want:
+            raise AssertionError(f"experiments service: the recovered artifact.json {got} "
+                                 f"differs from the uninterrupted run's {want}")
+    m = ref["metrics"]
+    log(f"[experiments] service on smoke, {EXP_SERVICE_SPECS} specs, overrides "
+        f"{json.dumps(EXP_SERVICE_OVERRIDES)}: uninterrupted run in {wall:.4f} s, n_finished "
+        f"{m['n_finished']}, makespan {m['makespan']!r} s; SIGKILLed with its journal at "
+        f"{at_kill}, restarted: artifact.json sha256 {got} equals the uninterrupted run's and "
+        f"the pin ({digest})")
+
+
+def phase_experiments():
+    """The port's experiments, streamed replay with spill, sweep and online
+    service on the card's host, held to the JAX package's artifacts by their
+    digests (EXP_PINNED).  The memory runs, the sweep and the service run
+    side by side, the memory runs from the start: each waits mostly on
+    processes that start by importing torch."""
+    with ThreadPoolExecutor(3) as pool:
+        memory = pool.submit(exp_memory)
+        arts = exp_cells()
+        runs = [memory, pool.submit(exp_sweep, arts), pool.submit(exp_service)]
+        for run in runs:
+            run.result()
 
 
 def tile_sweep():
@@ -3476,6 +3939,7 @@ def main() -> int:
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
     run("scheduler", phase_scheduler)
+    run("experiments", phase_experiments)
     fa_worst = run("kernel cases", phase_kernel_cases)
     bwd_worst = run("bwd cases", phase_bwd_cases)
     run("autograd wiring", phase_autograd_wiring)

@@ -3,9 +3,10 @@
 The port's copy of the JAX package's ``repro.core``: plain Python and numpy
 on the host, line for line the reference but for its imports, ``model_skew``
 (which walks the port's parameter schema) and the default hardware profile
-(``NVIDIA_PAPER``).  It has no streaming trace source and no completion
-spill: a simulator takes its jobs through ``submit`` and keeps every
-finished job.
+(``NVIDIA_PAPER``).  It has the reference's streaming trace sources
+(``trace_source``) and completion spill (``spill``), and the retained
+linear-scan ``NaiveClusterTopology``, which the tests hold the indexed
+topology to.
 
 Components (paper §IV):
   topology    — hierarchical cluster (machine / rack / network tiers)
@@ -22,6 +23,10 @@ Components (paper §IV):
                 Dally-manual / -noWait / -fullyConsolidated
   trace       — batch + Poisson workload generators (SenseTime-like stats)
                 + machine failure/maintenance schedules (MTBF/MTTR churn)
+  trace_source— streaming TraceSource cursors: constant-memory twins of
+                the synthetic makers + Helios/PAI public-trace adapters
+  spill       — incremental JSONL spill of finished-job records with
+                per-shard content digests (constant-memory replay)
   metrics     — makespan / JCT / queueing delay / communication latency
   profile     — opt-in per-phase wall-clock counters for the scheduling
                 hot loop (``sim.profile = SimProfile()``); never affects
@@ -31,12 +36,17 @@ from .autotuner import AutoTuner  # noqa: F401
 from .commmodel import CommModel  # noqa: F401
 from .fabric import FairShareFabric  # noqa: F401
 from .job import Job  # noqa: F401
-from .metrics import summarize  # noqa: F401
+from .metrics import FinishedTally, summarize  # noqa: F401
 from .parallelism import ParallelPlan, plan_for, pure_dp_plan  # noqa: F401
 from .profile import SimProfile  # noqa: F401
 from .simulator import ClusterSimulator  # noqa: F401
+from .spill import SpillWriter, read_spilled, verify_manifest  # noqa: F401
 from .telemetry import Telemetry  # noqa: F401
-from .topology import ClusterTopology, Placement  # noqa: F401
+from .topology import (  # noqa: F401
+    ClusterTopology,
+    NaiveClusterTopology,
+    Placement,
+)
 from .trace import (  # noqa: F401
     load_csv_trace,
     make_batch_trace,
@@ -53,4 +63,12 @@ from .trace import (  # noqa: F401
     make_straggler_degradations,
     resolve_degradation_kw,
     save_csv_trace,
+)
+from .trace_source import (  # noqa: F401
+    STREAMING_MAKERS,
+    AlibabaPaiTrace,
+    HeliosCsvTrace,
+    MaterializedTrace,
+    TraceSource,
+    as_source,
 )

@@ -1,8 +1,16 @@
 """Performance metrics (paper §V-D): makespan, JCT, queueing delay,
-communication latency, plus utilization / jobs-remaining timelines."""
+communication latency, plus utilization / jobs-remaining timelines.
+
+Two aggregation paths produce the SAME dict: :func:`summarize` folds a
+materialized finished-job list, and :class:`FinishedTally` accumulates
+the identical state one completion at a time so constant-memory (spill)
+runs never retain finished ``Job`` objects.  Their equality is exact —
+same float-fold order, same percentile ranks — and pinned by the
+streaming-vs-materialized differential suite."""
 from __future__ import annotations
 
 import math
+from array import array
 from dataclasses import dataclass, field
 from typing import Dict, List
 
@@ -53,6 +61,79 @@ class Timeline:
             return 0.0
         return sum(b / max(g, 1) for b, g in
                    zip(self.busy_gpus, self.total_gpus)) / len(self.t)
+
+
+class FinishedTally:
+    """Streaming twin of the finished-job aggregation in ``summarize``.
+
+    Per-job metric values are kept in completion order inside compact
+    ``array('d')`` columns (the exact lists ``summarize`` builds — the
+    percentile ranks and the ``jct_values`` artifact field need them),
+    while the whole-run totals run as left folds in the same order
+    ``sum()`` folds the materialized list.  ~24 bytes per finished job
+    instead of a retained ``Job``."""
+
+    def __init__(self):
+        self.jcts = array("d")
+        self.queue = array("d")
+        self.comm = array("d")
+        self.n = 0
+        self.max_finish = -math.inf
+        self.min_arrival = math.inf
+        self.preemptions = 0
+        self.total_t_run = 0.0
+        self.total_comm_time = 0.0
+
+    def add(self, job) -> None:
+        """Fold one finished job (called at its COMPLETE event, i.e. in
+        the same order the materialized path appends to ``finished``)."""
+        self.jcts.append(job.finish_time - job.arrival)
+        self.queue.append(job.t_queue)
+        self.comm.append(job.comm_time)
+        self.n += 1
+        if job.finish_time > self.max_finish:
+            self.max_finish = job.finish_time
+        if job.arrival < self.min_arrival:
+            self.min_arrival = job.arrival
+        self.preemptions += job.preemptions
+        self.total_t_run += job.t_run
+        self.total_comm_time += job.comm_time
+
+    def summarize(self, timeline: Timeline, unfinished=()) -> Dict:
+        """Byte-identical to ``summarize(finished, timeline, unfinished)``
+        over the same completion sequence: ``sum(xs)`` starts its fold at
+        int 0, which is exact against the running float accumulators, and
+        the ``everyone`` totals continue the finished-order fold across
+        the unfinished jobs exactly like one concatenated ``sum``."""
+        jcts = list(self.jcts)
+        queue = list(self.queue)
+        comm = list(self.comm)
+        makespan = (self.max_finish - self.min_arrival) if self.n else 0.0
+        preemptions = self.preemptions
+        total_t_run = self.total_t_run
+        total_comm_time = self.total_comm_time
+        for j in unfinished:
+            preemptions += j.preemptions
+            total_t_run += j.t_run
+            total_comm_time += j.comm_time
+        return {
+            "n_finished": self.n,
+            "n_unfinished": len(unfinished),
+            "makespan": makespan,
+            "jct": _stats(jcts),
+            "queueing_delay": _stats(queue),
+            "comm_latency": _stats(comm),
+            "avg_utilization": timeline.avg_utilization(),
+            "preemptions": preemptions,
+            "total_t_run": total_t_run,
+            "total_comm_time": total_comm_time,
+            "jct_values": jcts,
+            "timeline": {
+                "t": timeline.t,
+                "jobs_remaining": timeline.jobs_remaining,
+                "busy_gpus": timeline.busy_gpus,
+            },
+        }
 
 
 def summarize(finished, timeline: Timeline, unfinished=()) -> Dict:

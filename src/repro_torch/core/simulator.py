@@ -32,7 +32,7 @@ Service mode (incremental arrivals)
 -----------------------------------
 ``run()`` is the closed-world batch entry: every job is submitted up
 front and the loop drains the event heap.  A long-lived scheduler
-(``repro.service``) instead drives the same event loop incrementally:
+(``repro_torch.service``) instead drives the same event loop incrementally:
 ``begin()`` arms the periodic-round chain once, ``submit()`` keeps
 accepting jobs at any point (their ARRIVAL events must not lie in the
 simulated past), and ``step_events()`` / ``advance_to()`` process the
@@ -239,6 +239,22 @@ class ClusterSimulator:
             self._telemetry_index = {m: i for i, m in enumerate(machines)}
         self._completion_version: Dict[int, int] = {}
         self._pending_arrivals = 0
+        # streaming ingestion (see repro_torch.core.trace_source): when a
+        # source is attached, arrivals are pulled lazily — at most ONE
+        # source ARRIVAL is in the heap at any time, re-armed as each
+        # pops, which is bit-identical to pre-heaping the whole trace
+        # (ARRIVAL's kind orders before every same-instant ROUND/COMPLETE
+        # regardless of seq, and the source emits in submission order)
+        self.source = None
+        # constant-memory completion spill (see repro_torch.core.spill): when
+        # attached, finished jobs fold into the streaming tally + JSONL
+        # shards instead of accumulating in `finished`
+        self._spill = None
+        self._spill_tally = None
+        # rejections are counted separately from the retained list so a
+        # spilling run can drop the Job objects; without spill the
+        # counter always equals len(self.rejected)
+        self.n_rejected = 0
 
     # ------------------------------------------------------------------
     def _push(self, t, kind, payload):
@@ -272,11 +288,68 @@ class ClusterSimulator:
         self._push(job.arrival, ARRIVAL, job.job_id)
 
     def _reject(self, job: Job):
-        self.rejected.append(job)
+        self.n_rejected += 1
+        if self._spill is None:
+            self.rejected.append(job)
         self._op("reject", self.clock, job_id=job.job_id,
                  n_gpus=job.n_gpus)
 
     # ------------------------------------------------------------------
+    def attach_source(self, source) -> None:
+        """Attach a streaming :class:`repro_torch.core.trace_source.TraceSource`
+        (job lists are wrapped transparently): the lazy-ingestion
+        alternative to submitting a materialized trace up front.  Must be
+        attached before the run starts; the source's jobs must not
+        overlap ids with anything submitted directly."""
+        from .trace_source import as_source
+        assert not self._began, "attach_source() before begin()/run()"
+        assert self.source is None, "source already attached"
+        self.source = as_source(source)
+        if self.source.plans:
+            # conservative hint (see TraceSource.plans): flipping the
+            # fast-path flag early is decision-identical because the
+            # plan-gated scans no-op on a queue with no actual plans
+            self.any_plans = True
+        self._pull_arrival()
+
+    def _pull_arrival(self) -> None:
+        """Advance the source cursor: admit the next job and arm its
+        ARRIVAL event, skipping (and rejecting) unplaceable jobs exactly
+        like batch-mode ``submit`` — which never put them in the heap
+        either."""
+        src = self.source
+        while True:
+            job = src.next_job()
+            if job is None:
+                return
+            if job.n_gpus > self.cluster.total_gpus:
+                self._reject(job)
+                continue
+            assert job.job_id not in self.jobs, \
+                f"duplicate job_id {job.job_id}"
+            self.jobs[job.job_id] = job
+            if job.plan is not None:
+                self.any_plans = True
+            if job.tenant is not None:
+                self.any_tenants = True
+            self._pending_arrivals += 1
+            self._push(job.arrival, ARRIVAL, job.job_id)
+            return
+
+    def attach_spill(self, writer) -> None:
+        """Attach a :class:`repro_torch.core.spill.SpillWriter`: finished jobs
+        stream to JSONL shards and fold into a
+        :class:`repro_torch.core.metrics.FinishedTally` instead of accumulating
+        in ``self.finished`` — ``results()`` is byte-identical either
+        way.  Batch-mode only (``snapshot_bytes`` refuses while a spill
+        writer is attached)."""
+        from .metrics import FinishedTally
+        assert self._spill is None, "spill writer already attached"
+        assert not self.finished and not self.rejected, \
+            "attach_spill() before any completions"
+        self._spill = writer
+        self._spill_tally = FinishedTally()
+
     def _enqueue(self, job: Job, now: float, tail: bool = False):
         """Insert into the wait queue.  When the policy's waiting
         priorities are static (see Policy contract) the priority key is
@@ -941,6 +1014,12 @@ class ClusterSimulator:
             job = self.jobs[payload]
             job.wait_since = t
             self._pending_arrivals -= 1
+            if self.source is not None:
+                # re-arm the single in-flight source arrival BEFORE the
+                # round runs: its timestamp is >= t (sources emit in
+                # submission order), so it cannot affect this round, and
+                # the heap again holds exactly one source ARRIVAL
+                self._pull_arrival()
             self._enqueue(job, t)
             self._scheduling_round(t)
         elif kind == ROUND:
@@ -986,7 +1065,19 @@ class ClusterSimulator:
             job.placement = None
             job.placement_tier = None
             self.running.remove(job)
-            self.finished.append(job)
+            if self._spill is None:
+                self.finished.append(job)
+            else:
+                # constant-memory path: fold the completion into the
+                # streaming tally, spill the full record, and drop the
+                # Job.  Deleting the jobs-table entry is safe: a stale
+                # COMPLETE for this id fails the version check (.get on
+                # a missing key) before it ever touches self.jobs.
+                from .spill import finished_record
+                self._spill_tally.add(job)
+                self._spill.write(finished_record(job))
+                del self.jobs[job_id]
+                del self._completion_version[job_id]
             self._op("complete", t, job_id=job.job_id,
                      jct=t - job.arrival)
             self._scheduling_round(t)
@@ -1102,7 +1193,16 @@ class ClusterSimulator:
         """Serialize the complete simulator state (exact floats, preserved
         container orders — a restored simulator continues bit-for-bit).
         The process-local hooks are excluded: a journal/probe closure
-        belongs to the process, not the state."""
+        belongs to the process, not the state.  A streaming trace source
+        rides along — its cursor state is plain picklable data — so a
+        restored service-mode simulator keeps pulling from exactly where
+        it stopped.  A spill writer does NOT (open handles, rolling
+        hashes): spilling is batch-only and refused here."""
+        if self._spill is not None:
+            raise RuntimeError(
+                "snapshot_bytes() with a spill writer attached: spilling "
+                "is a batch-mode feature (open shard handles and rolling "
+                "hashes have no snapshot semantics)")
         event_hook, op_hook = self.event_hook, self.op_hook
         self.event_hook = self.op_hook = None
         try:
@@ -1126,12 +1226,22 @@ class ClusterSimulator:
     # ------------------------------------------------------------------
     def results(self) -> Dict:
         from .metrics import summarize
-        out = summarize(self.finished, self.timeline,
-                        unfinished=self.running + self.waiting)
-        out["n_rejected"] = len(self.rejected)
-        if self.any_tenants:
+        if self._spill is not None:
+            # streaming aggregation: the tally folded every completion in
+            # the same order `finished` would have appended, so this dict
+            # is byte-identical to the materialized branch below
+            out = self._spill_tally.summarize(
+                self.timeline, unfinished=self.running + self.waiting)
+            out["spill"] = self._spill.manifest()
+        else:
+            out = summarize(self.finished, self.timeline,
+                            unfinished=self.running + self.waiting)
+        out["n_rejected"] = self.n_rejected
+        if self.any_tenants and self._spill is None:
             # only when some job actually named a tenant: single-tenant
-            # (legacy) artifacts keep their exact bytes
+            # (legacy) artifacts keep their exact bytes.  Spill runs drop
+            # finished jobs from memory, so the per-tenant fold is a
+            # materialized-mode surface (as is the ledger in the service).
             out["tenants"] = tenant_summary(self.jobs.values())
         if self.fabric is not None:
             # only under a shared fabric: adding the key unconditionally

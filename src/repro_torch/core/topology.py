@@ -35,7 +35,9 @@ all capacity queries are O(1) (amortized) and allocations scan only on
 the success path.  Placement decisions are bit-identical to the original
 scans: first-fit machine order, most-free-rack (lowest index on ties)
 rack choice, and the stable most-free-first rack fill at network level
-are all preserved.
+are all preserved, which ``NaiveClusterTopology`` — the original
+linear-scan implementation, retained as the differential-test
+reference — pins.
 
 Machine failures
 ----------------
@@ -47,7 +49,10 @@ all skip zero-free machines).  ``total_gpus`` is invariant — the masked
 capacity is accounted under ``failed_gpus()`` so GPU conservation reads
 ``allocated + free + failed == total``.  Callers (the simulator) must
 release every placement intersecting the machine *before* failing it;
-``fail_machine`` asserts the machine is fully free.
+``fail_machine`` asserts the machine is fully free.  Both operations are
+inherited unchanged by ``NaiveClusterTopology``, whose linear scans see
+the masked ``free`` list and therefore answer every capacity query
+identically under failures.
 """
 from __future__ import annotations
 
@@ -428,3 +433,96 @@ class ClusterTopology:
             assert new >= 0, "retake of occupied GPUs"
             self._set_free(m, new)
 
+
+class NaiveClusterTopology(ClusterTopology):
+    """The original linear-scan implementation, retained verbatim as the
+    differential-test reference and the pre-indexing baseline: the tests
+    build it where the indexed class would stand.  Mutations still flow through
+    ``_set_free`` (so the inherited indices stay consistent and
+    release/retake are shared), but every query and every allocation
+    decision below re-derives its answer by scanning ``free`` — the exact
+    pre-indexing behaviour the indexed class must reproduce bit-for-bit."""
+
+    def rack_free(self, rack: int) -> int:
+        base = rack * self.machines_per_rack
+        return sum(list.__getitem__(self.free, m)
+                   for m in range(base, base + self.machines_per_rack))
+
+    def max_free_on_machine(self) -> int:
+        return max(self.free)
+
+    def max_free_on_rack(self) -> int:
+        return max(self.rack_free(r) for r in range(self.n_racks))
+
+    def n_whole_free_machines(self, exclude_rack: Optional[int] = None) -> int:
+        gpm = self.gpus_per_machine
+        return sum(
+            1 for m in range(self.n_machines)
+            if (exclude_rack is None
+                or m // self.machines_per_rack != exclude_rack)
+            and self.free[m] == gpm)
+
+    def best_feasible_level(self, g: int) -> Optional[str]:
+        if self.max_free_on_machine() >= g:
+            return "machine"
+        if self.max_free_on_rack() >= g:
+            return "rack"
+        if self._free_total >= g:
+            return "network"
+        return None
+
+    def allocate(self, g: int, level: str) -> Optional[Placement]:
+        if level == "machine":
+            for m in range(self.n_machines):
+                if self.free[m] >= g:
+                    self._set_free(m, self.free[m] - g)
+                    return Placement(((m, g),))
+            return None
+        if level == "rack":
+            racks = sorted(range(self.n_racks),
+                           key=lambda r: -self.rack_free(r))
+            for r in racks:
+                if self.rack_free(r) < g:
+                    continue
+                base = r * self.machines_per_rack
+                ids = list(range(base, base + self.machines_per_rack))
+                packed = self._pack_machines(ids, g)
+                if packed:
+                    for m, c in packed:
+                        self._set_free(m, self.free[m] - c)
+                    return Placement(tuple(sorted(packed)))
+            return None
+        if level == "network":
+            if self._free_total < g:
+                return None
+            packed, need = [], g
+            for r in sorted(range(self.n_racks),
+                            key=lambda rr: -self.rack_free(rr)):
+                base = r * self.machines_per_rack
+                ids = list(range(base, base + self.machines_per_rack))
+                sub = self._pack_machines(ids, min(need, self.rack_free(r)))
+                if sub:
+                    for m, c in sub:
+                        self._set_free(m, self.free[m] - c)
+                        packed.append((m, c))
+                        need -= c
+                if need == 0:
+                    break
+            assert need == 0
+            return Placement(tuple(sorted(packed)))
+        if level == "scatter":
+            if self._free_total < g:
+                return None
+            packed, need = [], g
+            for m in range(self.n_machines):
+                if self.free[m] <= 0:
+                    continue
+                take = min(self.free[m], need)
+                self._set_free(m, self.free[m] - take)
+                packed.append((m, take))
+                need -= take
+                if need == 0:
+                    break
+            assert need == 0
+            return Placement(tuple(sorted(packed)))
+        raise ValueError(level)

@@ -4,6 +4,7 @@ timed calls back to back, and the profiler's per-launch average."""
 import inspect
 import math
 import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -1320,3 +1321,148 @@ def test_scheduler_phase_holds_the_pins_and_fails_a_wrong_one(monkeypatch, capsy
     monkeypatch.setitem(chip_smoke.SCHED_PINNED, key, (makespan * (1 + 1e-8), jct))
     with pytest.raises(AssertionError, match="makespan"):
         chip_smoke.phase_scheduler()
+
+
+# -- the experiments phase ---------------------------------------------------------
+
+def test_scheduler_archs_are_the_ports_registry_in_the_references_order():
+    from repro.configs import ARCHS as ref_archs
+    from repro_torch.configs import ARCHS as port_archs
+    assert chip_smoke.SCHED_ARCHS == tuple(port_archs)
+    assert list(chip_smoke.SCHED_ARCHS) == list(ref_archs)
+    assert "SCHED_ARCHS = tuple(ARCHS)" in inspect.getsource(chip_smoke)
+
+
+def test_experiments_cells_cover_every_artifact_schema():
+    """One cell for each schema, v1 to v7, the streamed cell v6; one pin for
+    each and for the service; the phase runs right after the scheduler's."""
+    schemas = [s for _, s in chip_smoke.EXP_CELLS] + [chip_smoke.EXP_STREAM_CELL[1]]
+    assert sorted(schemas) == [f"v{i}" for i in range(1, 8)]
+    assert chip_smoke.EXP_STREAM_CELL == ("dc-256-philly", "v6")
+    assert set(chip_smoke.EXP_PINNED) == {sc for sc, _ in chip_smoke.EXP_CELLS} | {
+        "dc-256-philly", "service"}
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index('run("scheduler", phase_scheduler)') < src.index(
+        'run("experiments", phase_experiments)') < src.index('run("kernel cases"')
+
+
+@pytest.fixture(scope="module")
+def experiments_reference(tmp_path_factory):
+    """The JAX package's artifact for each of the phase's cells at seed 0
+    under EXP_POLICY, on the paper's cluster, and its service's
+    artifact.json for the phase's inbox: {EXP_PINNED key: artifact}."""
+    import json as _json
+    import repro.experiments as rx
+    import repro.service as rs
+    from test_torch_experiments import reference_on_the_paper_cluster
+
+    out = {}
+    work = tmp_path_factory.mktemp("experiments")
+    with reference_on_the_paper_cluster():
+        for scenario, _ in chip_smoke.EXP_CELLS:
+            out[scenario] = rx.run_one(scenario, chip_smoke.EXP_POLICY, 0)
+        scenario, _ = chip_smoke.EXP_STREAM_CELL
+        out[scenario] = rx.run_one(scenario, chip_smoke.EXP_POLICY, 0,
+                                   overrides=rx.SimOverrides(stream=True,
+                                                             spill_dir=str(work / "spill")))
+        inbox = work / "inbox"
+        inbox.mkdir()
+        for spec in chip_smoke.exp_specs():
+            (inbox / f"{spec['name']}.json").write_text(_json.dumps(spec))
+        svc = rs.SchedulerService(work / "state", scenario="smoke", inbox=inbox,
+                                  events_per_tick=5, snapshot_every=25,
+                                  overrides=rx.SimOverrides.from_dict(
+                                      chip_smoke.EXP_SERVICE_OVERRIDES))
+        svc.serve(exit_when_idle=True, tick_sleep=0.0)
+        svc.close()
+        out["service"] = _json.loads((work / "state" / "artifact.json").read_text())
+    return out
+
+
+def test_experiments_pins_equal_the_reference(experiments_reference):
+    for key, art in experiments_reference.items():
+        digest, fields = chip_smoke.exp_digest(art)
+        assert chip_smoke.EXP_PINNED[key] == (digest, fields), key
+
+
+def test_experiments_specs_are_the_crash_smokes_workload():
+    specs = chip_smoke.exp_specs()
+    assert len(specs) == chip_smoke.EXP_SERVICE_SPECS == 20
+    assert [s["arrival"] for s in specs] == [i * 400.0 for i in range(20)]
+    assert {s["model"] for s in specs} == set(chip_smoke.EXP_SERVICE_MODELS)
+
+
+@pytest.mark.parametrize("scenario", ["degraded-cluster", "multi-tenant"])
+def test_experiments_cell_of_the_port_holds_its_pin(scenario, experiments_reference):
+    """The phase's run of a cell on the CPU equals the reference's artifact
+    and its pin; a pin with one field moved fails, naming that field."""
+    art, events, wall = chip_smoke.exp_run(scenario)
+    assert events > 0 and wall > 0
+    from repro_torch.experiments import artifact_json
+    assert artifact_json(art) == artifact_json(experiments_reference[scenario])
+    assert chip_smoke.exp_hold(scenario, art) == chip_smoke.EXP_PINNED[scenario][0]
+    digest, fields = chip_smoke.EXP_PINNED[scenario]
+    moved = dict(fields, **{"metrics.makespan": "0" * 12})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(chip_smoke.EXP_PINNED, scenario, ("0" * 64, moved))
+        with pytest.raises(AssertionError, match="the first field that differs: "
+                                                 "metrics.makespan"):
+            chip_smoke.exp_hold(scenario, art)
+
+
+def test_experiments_spill_dir_is_written_as_a_constant():
+    art = {"schema": "s", "metrics": {"spill": {"dir": "/tmp/x", "n_jobs": 3}, "n": 1}}
+    assert chip_smoke.exp_artifact(art)["metrics"]["spill"] == {"dir": "spill", "n_jobs": 3}
+    assert art["metrics"]["spill"]["dir"] == "/tmp/x"
+    plain = {"schema": "s", "metrics": {"n": 1}}
+    assert chip_smoke.exp_artifact(plain) is plain
+    assert set(chip_smoke.exp_fields(art)) == {"schema", "metrics.spill", "metrics.n"}
+
+
+def test_experiments_counts_events_of_each_run():
+    from repro_torch.core import ClusterSimulator
+    run = ClusterSimulator.run
+    with chip_smoke.counting_events() as counts:
+        art, events, _ = chip_smoke.exp_run("smoke", n_jobs=12)
+    assert ClusterSimulator.run is run
+    assert counts == [events] and events > 12
+    assert art["metrics"]["n_finished"] == 12
+
+
+def test_experiments_memory_runs_each_cell_in_a_process_of_its_own(monkeypatch):
+    """exp_memory on the streamed cell cut to 2 racks and 40 jobs: three
+    processes, each reporting its own peak RSS; the streamed artifact is
+    what exp_hold is given, its shards verified."""
+    held = []
+    monkeypatch.setattr(chip_smoke, "exp_hold",
+                        lambda key, art: held.append((key, art)) or "digest")
+    peaks = chip_smoke.exp_memory("--n-jobs", "40", "--racks", "2")
+    assert set(peaks) == {"baseline", "materialized", "streamed"}
+    assert all(isinstance(v, float) and v > 0 for v in peaks.values())
+    assert min(peaks["materialized"], peaks["streamed"]) >= 0.9 * peaks["baseline"]
+    [(key, art)] = held
+    assert key == chip_smoke.EXP_STREAM_CELL[0]
+    assert art["schema"] == "repro.experiments.artifact/v6"
+    assert art["metrics"]["n_finished"] == 40 and art["metrics"]["spill"]["n_jobs"] == 40
+
+
+def test_experiments_memory_fails_when_a_run_fails():
+    with pytest.raises(AssertionError, match="experiments memory materialized: exit 2"):
+        chip_smoke.exp_memory("--no-such-flag")
+
+
+def test_experiments_starter_gives_a_child_its_own_peak_rss():
+    """A process that has touched 600 MB starts one that reads its
+    ru_maxrss: directly, the child reads the parent's peak; through
+    EXP_STARTER, its own."""
+    child = "import resource; print(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024)"
+    parent = ("import subprocess, sys\n"
+              "x = bytearray(600 << 20)\n"
+              "for i in range(0, len(x), 4096): x[i] = 1\n"
+              f"for pre in ([], ['-c', {chip_smoke.EXP_STARTER!r}, sys.executable]):\n"
+              f"    print(subprocess.run([sys.executable, *pre, '-c', {child!r}], check=True,"
+              " capture_output=True, text=True).stdout)")
+    out = subprocess.run([sys.executable, "-c", parent], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    direct, started = map(float, out.split())
+    assert direct >= 600 > 100 > started > 0

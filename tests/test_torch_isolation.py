@@ -160,3 +160,35 @@ def test_scheduler_runs_with_jax_and_repro_blocked():
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_holds_no_tpu_profile(path):
     assert "TPU_V5E" not in path.read_text()
+
+
+def test_service_runs_with_jax_and_repro_blocked(tmp_path):
+    """The daemon's CLI drains a small inbox on "smoke" and writes its
+    artifact, with jax and repro unimportable."""
+    import json
+    inbox = tmp_path / "inbox"
+    inbox.mkdir()
+    for i, model in enumerate(("yi-9b", "qwen3-1.7b", "rwkv6-7b")):
+        (inbox / f"job-{i}.json").write_text(json.dumps(
+            {"name": f"job-{i}", "model": model, "n_gpus": 2 ** i, "gpu_hours": 0.5,
+             "arrival": i * 300.0}))
+    argv = (f"'repro_torch.service', '--state-dir', '{tmp_path / 'state'}', '--inbox', "
+            f"'{inbox}', '--scenario', 'smoke', '--tick-sleep', '0', '--exit-when-idle'")
+    proc = subprocess.run([sys.executable, "-c",
+                           BLOCK.format(argv=argv, module="repro_torch.service")],
+                          capture_output=True, text=True, env=_env(), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith(f"final artifact: {tmp_path / 'state' / 'artifact.json'} "
+                                  "(n_finished=3 makespan=")
+    art = json.loads((tmp_path / "state" / "artifact.json").read_text())
+    assert art["schema"] == "repro.service.artifact/v1" and art["n_submitted"] == 3
+
+
+def test_sweep_list_runs_with_jax_and_repro_blocked():
+    from repro_torch.experiments import SCENARIOS
+    argv = "'repro_torch.experiments.sweep', '--list'"
+    proc = subprocess.run([sys.executable, "-c",
+                           BLOCK.format(argv=argv, module="repro_torch.experiments.sweep")],
+                          capture_output=True, text=True, env=_env(), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert [line.split()[0] for line in proc.stdout.splitlines()] == sorted(SCENARIOS)
